@@ -1,5 +1,6 @@
-"""CXLMemSim core, ported to PyTorch: the single-host Timing Analyzer and
-synchronous attach (slice 1 of the port of :mod:`repro.core`).
+"""CXLMemSim core, ported to PyTorch: the Timing Analyzer, synchronous
+attach and the shared multi-host fabric (slices 1 and 2 of the port of
+:mod:`repro.core`).
 
 Components (paper Figure 2):
   Tracer  -> :mod:`repro_torch.core.tracer` (+ :mod:`.events` region map)
@@ -9,6 +10,8 @@ Components (paper Figure 2):
   fine-grained DES baseline
   Topology -> :mod:`repro_torch.core.topology`
   Placement -> :mod:`repro_torch.core.policy`
+  Pooling  -> :mod:`repro_torch.core.fabric` (co-attached tenants on one
+  shared fabric) and :mod:`repro_torch.core.coherency`
 """
 
 from .analyzer import (
@@ -20,6 +23,7 @@ from .analyzer import (
     plan_cascade,
 )
 from .attach import AttachedProgram, CXLMemSim, SimReport
+from .coherency import CoherencyConfig, CoherencyModel
 from .events import (
     CACHELINE_BYTES,
     PAGE_BYTES,
@@ -28,8 +32,11 @@ from .events import (
     Region,
     RegionMap,
     concat_events,
+    merge_host_traces,
+    split_by_host,
     synthetic_trace,
 )
+from .fabric import FabricReport, FabricSession, HostClock, Tenant
 from .policy import (
     ClassMapPolicy,
     HotnessTieredPolicy,
@@ -69,14 +76,19 @@ __all__ = [
     "CACHELINE_BYTES",
     "CXLMemSim",
     "ClassMapPolicy",
+    "CoherencyConfig",
+    "CoherencyModel",
     "DelayBreakdown",
     "EpochAnalyzer",
     "EpochSchedule",
     "EventStager",
+    "FabricReport",
+    "FabricSession",
     "FineGrainedSimulator",
     "FlatTopology",
     "H100_SXM",
     "HardwareModel",
+    "HostClock",
     "HotnessTieredPolicy",
     "InterleavePolicy",
     "LocalOnlyPolicy",
@@ -91,6 +103,7 @@ __all__ = [
     "SimReport",
     "Switch",
     "TPU_V5E",
+    "Tenant",
     "Topology",
     "TraceSkeleton",
     "analyze_ref",
@@ -100,10 +113,12 @@ __all__ = [
     "concat_events",
     "figure1_topology",
     "local_only_topology",
+    "merge_host_traces",
     "plan_cascade",
     "pooled_topology",
     "skeleton_to_events",
     "slice_by_quantum",
+    "split_by_host",
     "synthesize_skeleton",
     "synthesize_step_trace",
     "synthetic_trace",

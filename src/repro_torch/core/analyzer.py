@@ -488,38 +488,62 @@ def plan_cascade(flat: FlatTopology):
 # --------------------------------------------------------------------------- #
 
 
+def _host_sums(values: torch.Tensor, host: torch.Tensor, n_hosts: int) -> torch.Tensor:
+    """``[B, N]`` values summed per host into ``[B, H]`` f64.  A scatter-add
+    takes its own order (atomics, on the card), and in f32 that order moves
+    a sum over a million events by parts in 1e4; in f64 it does not."""
+    out = torch.zeros(
+        (values.shape[0], n_hosts), dtype=torch.float64, device=values.device
+    )
+    return out.scatter_add_(1, host, values.to(torch.float64))
+
+
 def _analyze_batch(
     t: torch.Tensor,  # [B, N] f32 epoch-relative ns, each row TIME-SORTED
-    pool: torch.Tensor,  # [B, N] i32 (padded entries: 0)
+    pool: torch.Tensor,  # [B, N] i32 physical pool (padded entries: 0)
     nbytes: torch.Tensor,  # [B, N] f32 (padded entries: 0)
     weight: torch.Tensor,  # [B, N] f32 statistical multiplicity
+    host: Optional[torch.Tensor],  # [B, N] i32 host index (padded: 0); None if n_hosts == 1
     valid: torch.Tensor,  # [B, N] bool
     bw_window_ns: torch.Tensor,  # [B] f32 per-epoch window length
     lat_scale: torch.Tensor,  # [B, V] f32 latency scale (ones: no cache)
-    bits_table: torch.Tensor,  # [V] i32 per-pool route word (plan_cascade)
-    pool_latency_ns: torch.Tensor,  # [V] f32
+    bits_table: torch.Tensor,  # [V] i32 per-virtual-pool route word (plan_cascade)
+    pool_latency_ns: torch.Tensor,  # [V] f32 (V = n_hosts * n_pools)
     local_latency_ns: torch.Tensor,  # [] f32
     route: torch.Tensor,  # [V, S] f32
     switch_stt_ns: torch.Tensor,  # [S] f32
     switch_bw: torch.Tensor,  # [S] f32 bytes/ns
     stage_order: Tuple[int, ...],
     n_windows: int,
+    n_hosts: int = 1,
     merge_plan=None,
+    stage_stt_ns: Optional[Tuple[float, ...]] = None,  # unfused loop: per-switch STT
 ) -> torch.Tensor:
-    """B epochs' three-delay analysis (single host, FIFO switches), summed
-    over the batch on the device.
+    """B epochs' three-delay analysis (FIFO switches), summed over the batch
+    on the device.
 
-    Port of the reference's fused single-host FIFO branch of
-    ``_analyze_jax`` with the ``vmap`` of ``_analyze_batch_jax`` written out
-    as the leading dimension.  Returns one flat f32 tensor ``[latency,
-    congestion, bandwidth, per_pool_latency (V), per_switch_congestion (S),
-    per_switch_bandwidth (S)]`` so the host needs one transfer per batch.
+    Port of the reference's FIFO branches of ``_analyze_jax`` with the
+    ``vmap`` of ``_analyze_batch_jax`` written out as the leading dimension.
+    Multi-host fabrics (``n_hosts > 1``) key every lookup by the virtual
+    pool ``vp = host * P + pool`` (shared switches see the merged timeline,
+    per-host RCs stay private) and host-segment every delay class.  The
+    congestion stage is the fused cascade, or with ``stage_stt_ns`` given
+    the unfused per-stage loop (a stable sort of each row, then one switch's
+    queue scan, per stage) that fabrics wider than the 31-bit route word
+    take.  Returns one flat f32 tensor ``[latency, congestion, bandwidth,
+    per_pool_latency (P), per_switch_congestion (S), per_switch_bandwidth
+    (S), per_host_latency (H), per_host_congestion (H), per_host_bandwidth
+    (H)]`` so the host needs one transfer per batch.
     """
     n_rows = t.shape[0]
     V = pool_latency_ns.shape[0]
+    P = V // n_hosts  # physical pools
     S = switch_stt_ns.shape[0]
     dtype = t.dtype
-    vp = pool.to(torch.int64)
+    dev = t.device
+    pool64 = pool.to(torch.int64)
+    host64 = None if n_hosts == 1 else host.to(torch.int64)
+    vp = pool64 if n_hosts == 1 else host64 * P + pool64
 
     # -- latency: gather + one-hot contraction ----------------------------- #
     per_event_lat = (
@@ -528,32 +552,68 @@ def _analyze_batch(
         * weight
     )
     per_event_lat = torch.where(valid, per_event_lat, 0.0)
-    pool_onehot = (
-        vp[..., None] == torch.arange(V, device=t.device)
-    ).to(dtype)  # [B, N, V]
-    per_pool_lat = torch.bmm(per_event_lat[:, None, :], pool_onehot)[:, 0]  # [B, V]
+    # keyed by the *physical* pool: multi-host batches report [P], not [H*P]
+    pool_onehot = (pool64[..., None] == torch.arange(P, device=dev)).to(dtype)  # [B, N, P]
+    per_pool_lat = torch.bmm(per_event_lat[:, None, :], pool_onehot)[:, 0]  # [B, P]
     latency = per_event_lat.sum(dim=1)
+    if n_hosts == 1:
+        per_host_lat = latency[:, None]
+    else:
+        per_host_lat = _host_sums(per_event_lat, host64, n_hosts).to(dtype)
 
-    # -- congestion: the fused cascade (kernel on the card) ----------------- #
     big = torch.finfo(dtype).max / 4
     t_cur = torch.where(valid, t, big)
-    ev_bits = torch.where(valid, bits_table[vp], 0)
-    stage_idx = torch.tensor(stage_order, dtype=torch.int64, device=t.device)
-    t_fin, slot_idx, psd = kops.congestion_cascade(
-        t_cur, ev_bits, switch_stt_ns[stage_idx].contiguous(), merge_plan=merge_plan
-    )
-    per_switch_cong = torch.zeros((n_rows, S), dtype=dtype, device=t.device)
-    per_switch_cong[:, stage_idx] = psd
+    per_switch_cong = torch.zeros((n_rows, S), dtype=dtype, device=dev)
+    if stage_stt_ns is None:
+        # -- congestion: the fused cascade (a kernel on the card) ----------- #
+        ev_bits = torch.where(valid, bits_table[vp], 0)
+        stage_idx = torch.tensor(stage_order, dtype=torch.int64, device=dev)
+        t_end, slot_idx, psd = kops.congestion_cascade(
+            t_cur, ev_bits, switch_stt_ns[stage_idx].contiguous(),
+            merge_plan=merge_plan,
+            hosts=None if n_hosts == 1 else host.contiguous(),
+            n_hosts=n_hosts,
+        )
+        if n_hosts == 1:
+            per_switch_cong[:, stage_idx] = psd
+            per_host_cong = None
+        else:
+            # psd is [B, S_stages, H]: host-segmented per-stage queueing delay
+            per_switch_cong[:, stage_idx] = psd.sum(dim=2)
+            per_host_cong = psd.sum(dim=1)
+        # the kernels always run the conservative merge schedule, so their
+        # slot order never matches input order; the plain path skips the
+        # gathers when its plan schedules no merge at all
+        has_merges = (
+            dev.type != "cpu"
+            or merge_plan is None
+            or any(len(ops) for ops in merge_plan)
+        )
+    else:
+        # -- congestion: the unfused per-stage loop (a kernel per stage) ---- #
+        routed = route > 0  # [V, S]
+        per_host_cong = None if n_hosts == 1 else 0.0
+        for s in stage_order:
+            mask = routed[:, s][vp] & valid
+            t_sorted, order = torch.sort(t_cur, dim=1, stable=True)
+            m_sorted = torch.gather(mask, 1, order)
+            start, delay = kops.congestion_queue(
+                t_sorted, m_sorted.contiguous(), stage_stt_ns[s]
+            )
+            t_cur = t_cur.scatter(1, order, start)
+            per_switch_cong[:, s] = delay.sum(dim=1)
+            if per_host_cong is not None:
+                per_host_cong = per_host_cong + _host_sums(
+                    delay, torch.gather(host64, 1, order), n_hosts
+                )
+        if per_host_cong is not None:
+            per_host_cong = per_host_cong.to(dtype)
+        t_end = t_cur
+        has_merges = False  # t_cur stays in input order
     congestion = per_switch_cong.sum(dim=1)
+    if per_host_cong is None:
+        per_host_cong = congestion[:, None]
 
-    # the kernel always runs the conservative merge schedule, so its slot
-    # order never matches input order; the plain path skips the gathers
-    # when its plan schedules no merge at all
-    has_merges = (
-        t.device.type != "cpu"
-        or merge_plan is None
-        or any(len(ops) for ops in merge_plan)
-    )
     if has_merges:
         # bandwidth runs in final slot order: gather the payloads through
         # the cascade's permutation (slot k held input event slot_idx[k])
@@ -565,17 +625,26 @@ def _analyze_batch(
     else:
         lat_e, vp_e, nbytes_e, valid_e = per_event_lat, vp, nbytes, valid
 
-    # -- bandwidth: one scatter-add over (window, pool) keys, then a tiny
-    #    [W, V] @ [V, S] product distributes pools onto switches ---------- #
-    t_obs = torch.where(valid_e, t_fin + lat_e, 0.0)
+    # -- bandwidth: one scatter-add over (window, virtual pool) keys, then a
+    #    tiny [W, V] @ [V, S] product distributes pools onto switches ------ #
+    t_obs = torch.where(valid_e, t_end + lat_e, 0.0)
     win = torch.clamp(
         (t_obs / bw_window_ns[:, None]).to(torch.int32), max=n_windows - 1
     )
     win = torch.where(valid_e, win, n_windows - 1)
     key = win.to(torch.int64) * V + vp_e
-    wp = torch.zeros((n_rows, n_windows * V), dtype=dtype, device=t.device)
+    wp = torch.zeros((n_rows, n_windows * V), dtype=dtype, device=dev)
     wp.scatter_add_(1, key, torch.where(valid_e, nbytes_e, 0.0))
-    wbytes = torch.matmul(wp.view(n_rows, n_windows, V), route)  # [B, W, S]
+    if n_hosts == 1:
+        wbytes = torch.matmul(wp.view(n_rows, n_windows, V), route)  # [B, W, S]
+        wbytes_h = None
+    else:
+        wbytes_h = torch.einsum(  # [B, W, H, S]
+            "bwhp,hps->bwhs",
+            wp.view(n_rows, n_windows, n_hosts, P),
+            route.view(n_hosts, P, S),
+        )
+        wbytes = wbytes_h.sum(dim=2)
     # bw <= 0 means an unconstrained component (analyze_ref skips it)
     bw_ok = switch_bw > 0
     bw_safe = torch.where(bw_ok, switch_bw, 1.0)
@@ -585,11 +654,18 @@ def _analyze_batch(
     stretch = torch.where(bw_ok, stretch, 0.0)
     per_switch_bw = stretch.sum(dim=1)  # [B, S]
     bandwidth = per_switch_bw.sum(dim=1)
+    if wbytes_h is None:
+        per_host_bw = bandwidth[:, None]
+    else:
+        # window stretch attributed to hosts by their byte share in the window
+        share = stretch / torch.clamp(wbytes, min=1e-30)
+        per_host_bw = torch.einsum("bws,bwhs->bh", share, wbytes_h)
 
     rows = torch.cat(
         [
             latency[:, None], congestion[:, None], bandwidth[:, None],
             per_pool_lat, per_switch_cong, per_switch_bw,
+            per_host_lat, per_host_cong, per_host_bw,
         ],
         dim=1,
     )
@@ -619,11 +695,13 @@ class EpochAnalyzer:
     crosses to the host once per batch.  :meth:`analyze` is the B=1 case.
 
     ``device`` defaults to ``"cuda"`` and raises when no card is present;
-    ``device="cpu"`` runs the plain PyTorch cascade (the tests' path).
-    Single host, FIFO switches and the fused cascade only: multi-host
-    fabrics (slice 2 of the port), ``pipeline=`` (slice 4), QoS
-    disciplines (slice 5), ``mesh=`` (slice 6) and the unfused per-stage
-    loop (slice 8) raise ``NotImplementedError``.
+    ``device="cpu"`` runs the plain PyTorch versions (the tests' path).
+    Multi-host fabrics (``n_hosts > 1``) run the host-segmented cascade.
+    ``fused=False`` runs the unfused per-stage loop, which fabrics whose
+    switches plus per-host RCs exceed the 31-bit route word take
+    automatically, as in the reference.  QoS disciplines (slice 5),
+    ``pipeline=`` (slice 4) and ``mesh=`` (slice 6) raise
+    ``NotImplementedError``.
     """
 
     def __init__(
@@ -636,25 +714,9 @@ class EpochAnalyzer:
         pipeline: bool = False,
         mesh=None,
     ):
-        if flat.n_hosts > 1:
-            raise NotImplementedError(
-                "multi-host fabrics (n_hosts > 1) come with the shared fabric, "
-                "slice 2 of the port"
-            )
         if flat.has_qos:
             raise NotImplementedError(
                 "QoS switch disciplines come with slice 5 of the port"
-            )
-        if not fused:
-            raise NotImplementedError(
-                "the unfused per-stage loop (fused=False) is the reference's "
-                "benchmark baseline; it comes with the benchmarks, slice 8 of "
-                "the port"
-            )
-        if flat.n_switches > 31:
-            raise NotImplementedError(
-                f"{flat.n_switches} stages exceed the 31-bit route word; the "
-                "unfused fallback comes with slice 8 of the port"
             )
         if pipeline:
             raise NotImplementedError(
@@ -675,7 +737,21 @@ class EpochAnalyzer:
         self._route = torch.tensor(flat.route, dtype=f32, device=dev)
         self._stt = torch.tensor(flat.switch_stt_ns, dtype=f32, device=dev)
         self._bw = torch.tensor(flat.switch_bandwidth_gbps, dtype=f32, device=dev)
-        bits_pool, self._merge_plan, self._stage_order = plan_cascade(flat)
+        # the fused cascade encodes one stage per switch (per-host RCs
+        # included) in a 31-bit route word; wider fabrics fall back to the
+        # unfused per-stage loop, slower but any host count works
+        self.fused = bool(fused) and flat.n_switches <= 31
+        if self.fused:
+            bits_pool, self._merge_plan, self._stage_order = plan_cascade(flat)
+            self._stage_stt = None
+        else:
+            bits_pool = np.zeros((flat.route.shape[0],), np.int32)
+            self._merge_plan = None
+            self._stage_order = tuple(int(s) for s in flat.stage_order())
+            # per-stage STT on the host: each stage's scan takes it by value
+            self._stage_stt = tuple(
+                float(x) for x in np.asarray(flat.switch_stt_ns, np.float32)
+            )
         self._bits_table = torch.tensor(bits_pool, dtype=torch.int32, device=dev)
         self._stager = EventStager(np.float32)
 
@@ -740,6 +816,7 @@ class EpochAnalyzer:
             put(buf["pool"]),
             put(buf["bytes"]),
             put(buf["weight"]),
+            put(buf["host"]) if H > 1 else None,  # one host: no plane to move
             put(buf["valid"]),
             put(bw_window.astype(np.float32)),
             put(scale_buf),
@@ -751,25 +828,17 @@ class EpochAnalyzer:
             self._bw,
             stage_order=self._stage_order,
             n_windows=self.n_windows,
+            n_hosts=H,
             merge_plan=self._merge_plan,
+            stage_stt_ns=self._stage_stt,
         )
         # the single host-boundary crossing for the whole batch
         tot = out.cpu().numpy().astype(np.float64)
         lat, cong, bw = (float(x) for x in tot[:3])
-        ppl = tot[3 : 3 + P]
-        psc = tot[3 + P : 3 + P + S]
-        psb = tot[3 + P + S :]
+        parts = np.split(tot[3:], np.cumsum([P, S, S, H, H]))
+        ppl, psc, psb, phl, phc, phb = parts
         return DelayBreakdown(
-            lat,
-            cong,
-            bw,
-            ppl,
-            psc,
-            psb,
-            np.array([lat]),
-            np.array([cong]),
-            np.array([bw]),
-            np.array([cong]),
+            lat, cong, bw, ppl, psc, psb, phl, phc, phb, np.array([cong])
         )
 
     def analyze_batch_multi(self, *args, **kwargs):

@@ -21,9 +21,10 @@ Two clocks are reported:
 plus the per-component delay decomposition, per-pool/switch.  ``analyzer_s``
 is the analyzer's own seconds (the paper's overhead accounting).
 
-Asynchronous analysis (the reference's shared engine), migration, the
-device cache and coherency traffic come with slices 2-4 of the port; asking
-for them raises ``NotImplementedError``.
+``coherency=CoherencyModel(...)`` adds the analytic single-attach
+back-invalidation traffic and coherency-miss latency.  Asynchronous analysis
+(the reference's shared engine, slice 4 of the port), migration and the
+device cache (slice 3) raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -42,8 +43,9 @@ from .analyzer import (
     _check_device,
     analyze_any,
 )
+from .coherency import CoherencyModel
 from .engine import EngineClient, fold_dispatch_stats
-from .events import MemEvents, RegionMap
+from .events import MemEvents, RegionMap, concat_events
 from .policy import PlacementPolicy, capacity_check
 from .timer import EpochSchedule
 from .topology import Topology
@@ -164,7 +166,7 @@ class CXLMemSim:
         sample_rate: float = 1.0,
         migration=None,
         cache=None,
-        coherency=None,
+        coherency: Optional[CoherencyModel] = None,
         analyzer: str = "epoch",  # 'epoch' (paper) | 'fine' (Gem5-like baseline)
         n_windows: int = 128,
         check_capacity: bool = True,
@@ -176,8 +178,6 @@ class CXLMemSim:
             raise _unsupported("migration", "slice 3")
         if cache is not None:
             raise _unsupported("the device cache", "slice 3")
-        if coherency is not None:
-            raise _unsupported("coherency traffic", "slice 2")
         if async_analysis:
             raise _unsupported("asynchronous analysis (the shared engine)", "slice 4")
         if analyzer not in ("epoch", "fine"):
@@ -189,6 +189,7 @@ class CXLMemSim:
         self.hw = hw
         self.inject_delays = inject_delays
         self.sample_rate = sample_rate
+        self.coherency = coherency
         self.analyzer_kind = analyzer
         self.n_windows = n_windows
         self.check_capacity = check_capacity
@@ -293,15 +294,32 @@ class AttachedProgram(EngineClient):
         """One step's epoch traces, as the analyzer receives them."""
         return list(self._traces()[0])
 
-    def _fold(self, bd: DelayBreakdown, analyzer_s: float, n_epochs: int) -> float:
+    def _epoch_batch(self):
+        """One step's epoch traces with coherency traffic applied, and the
+        step's coherency-miss latency in ns."""
+        traces = self._traces()[0]
+        if self.sim.coherency is None:
+            return list(traces), 0.0
+        batch: List[MemEvents] = []
+        coh_ns_total = 0.0
+        for tr in traces:
+            bi, coh_ns = self.sim.coherency.epoch_traffic(tr)
+            coh_ns_total += coh_ns
+            batch.append(concat_events([tr, bi]) if bi.n else tr)
+        return batch, coh_ns_total
+
+    def _fold(
+        self, bd: DelayBreakdown, coh_ns: float, analyzer_s: float, n_epochs: int
+    ) -> float:
         """Fold one analyzed batch into the report; returns its total delay
         in ns."""
-        delay_ns = bd.total_ns
+        delay_ns = bd.total_ns + coh_ns
         r = self._report
         r.epochs += n_epochs
         r.latency_s += ns_to_s(bd.latency_ns)
         r.congestion_s += ns_to_s(bd.congestion_ns)
         r.bandwidth_s += ns_to_s(bd.bandwidth_ns)
+        r.coherency_s += ns_to_s(coh_ns)
         r.per_pool_latency_ns += bd.per_pool_latency_ns
         r.per_switch_congestion_ns += bd.per_switch_congestion_ns
         r.per_switch_bandwidth_ns += bd.per_switch_bandwidth_ns
@@ -314,7 +332,7 @@ class AttachedProgram(EngineClient):
         fold_dispatch_stats(r, getattr(self._analyzer, "last_dispatch", None), 1)
         return delay_ns
 
-    def _analyze_and_accumulate(self, batch: List[MemEvents]) -> float:
+    def _analyze_and_accumulate(self, batch: List[MemEvents], coh_ns: float) -> float:
         """Analyze one step's epoch batch and fold it; returns the step's
         total delay in ns.  A failed batch is recorded as dropped before the
         error propagates."""
@@ -326,11 +344,11 @@ class AttachedProgram(EngineClient):
             self._report.dropped_epochs += len(batch)
             raise
         elapsed = time.perf_counter() - a0
-        return self._fold(bd, elapsed, len(batch))
+        return self._fold(bd, coh_ns, elapsed, len(batch))
 
     def step(self, *args, **kwargs):
         """Run one real step under simulation; returns the step's outputs."""
-        batch = self.epoch_traces()
+        batch, coh_ns = self._epoch_batch()
         t0 = time.perf_counter()
         out = self.step_fn(*args, **kwargs)
         _synchronize_outputs(out)
@@ -339,7 +357,7 @@ class AttachedProgram(EngineClient):
         self._report.simulated_s += native
         self._report.steps += 1
 
-        delay_ns = self._analyze_and_accumulate(batch)
+        delay_ns = self._analyze_and_accumulate(batch, coh_ns)
         if self.sim.inject_delays and delay_ns > 0:
             # the paper's delay injection: the host program observes the
             # simulated-topology execution speed

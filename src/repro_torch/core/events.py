@@ -17,8 +17,7 @@ them epoch-relative bounds their magnitude (epochs are ms-scale), so float32
 retains sub-ns resolution inside the analyzer; totals are accumulated
 host-side in float64.
 
-Multi-host merging (``merge_host_traces`` / ``split_by_host``) and the
-stager's ring slots, packed and stacked planes come with later slices.
+The stager's ring slots, packed and stacked planes come with later slices.
 """
 
 from __future__ import annotations
@@ -36,6 +35,8 @@ __all__ = [
     "Region",
     "RegionMap",
     "concat_events",
+    "merge_host_traces",
+    "split_by_host",
     "synthetic_trace",
 ]
 
@@ -102,8 +103,8 @@ class MemEvents:
     def sorted_by_time(self) -> "MemEvents":
         # Monotone fast path: a stable argsort of a non-decreasing key is the
         # identity permutation, so an already-sorted trace (the tracer's
-        # common case) costs one O(N) check instead of an argsort plus seven
-        # gathers.
+        # common case, and everything downstream of merge_host_traces) costs
+        # one O(N) check instead of an argsort plus seven gathers.
         if self.n <= 1 or bool(np.all(self.t_ns[1:] >= self.t_ns[:-1])):
             return self
         order = np.argsort(self.t_ns, kind="stable")
@@ -120,6 +121,23 @@ class MemEvents:
             host=self.host[idx],
             qos=self.qos[idx],
         )
+
+    def with_host(self, host: int) -> "MemEvents":
+        """Copy with every event tagged as issued by ``host``."""
+        return dataclasses.replace(
+            self, host=np.full((self.n,), int(host), np.int32)
+        )
+
+    def with_qos(self, qos) -> "MemEvents":
+        """Copy with events tagged as QoS class ``qos`` — a scalar (a
+        tenant's whole trace usually shares one class) or a per-event
+        array."""
+        q = np.asarray(qos, np.int32)
+        if q.ndim == 0:
+            q = np.full((self.n,), int(q), np.int32)
+        elif q.shape != (self.n,):
+            raise ValueError(f"qos shape {q.shape} != ({self.n},)")
+        return dataclasses.replace(self, qos=q)
 
     def sample(self, rate: float, seed: int = 0) -> "MemEvents":
         """PEBS-style sampling: keep each event with probability ``rate`` and
@@ -209,6 +227,30 @@ def concat_events(traces: Sequence[MemEvents]) -> MemEvents:
         host=np.concatenate([t.host for t in traces]),
         qos=np.concatenate([t.qos for t in traces]),
     )
+
+
+def merge_host_traces(
+    traces: Sequence[MemEvents],
+    hosts: Optional[Sequence[int]] = None,
+) -> MemEvents:
+    """Merge per-host epoch traces onto one shared fabric timeline.
+
+    ``traces[i]`` is tagged with host ``hosts[i]`` (default: index ``i``) and
+    the union is returned time-sorted, which is exactly the analyzer's staging
+    contract: co-scheduled epochs start at the same fabric instant, so their
+    epoch-relative times are directly comparable.
+    """
+    if hosts is None:
+        hosts = range(len(traces))
+    tagged = [tr.with_host(h) for tr, h in zip(traces, hosts)]
+    return concat_events(tagged).sorted_by_time()
+
+
+def split_by_host(trace: MemEvents, n_hosts: int) -> List[MemEvents]:
+    """Inverse of :func:`merge_host_traces`: per-host sub-traces, order kept."""
+    return [
+        trace.take(np.nonzero(trace.host == h)[0]) for h in range(int(n_hosts))
+    ]
 
 
 # --------------------------------------------------------------------------- #

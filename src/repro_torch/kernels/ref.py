@@ -1,8 +1,9 @@
-"""Plain PyTorch versions of the congestion cascade (port of
-``repro/kernels/ref.py``).
+"""Plain PyTorch versions of the congestion kernels (port of
+``repro/kernels/ref.py``): the fused cascade, single-host and
+host-segmented, and the single-switch scan.
 
-They define what the CUDA kernel (:mod:`repro_torch.kernels.congestion`)
-computes.  The CPU tests hold them against the reference, ``chip_smoke.py``
+They define what the CUDA kernels (:mod:`repro_torch.kernels.congestion`)
+compute.  The CPU tests hold them against the reference, ``chip_smoke.py``
 holds the kernel against them on the card, and :mod:`.ops` runs them for
 tensors that lie on the CPU.  On the card nothing on the main path calls
 them.
@@ -18,7 +19,12 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-__all__ = ["merge_sorted_runs", "serial_queue", "serial_queue_cascade"]
+__all__ = [
+    "congestion_scan",
+    "merge_sorted_runs",
+    "serial_queue",
+    "serial_queue_cascade",
+]
 
 
 def _big(dtype: torch.dtype) -> float:
@@ -46,6 +52,16 @@ def serial_queue(t_sorted: torch.Tensor, mask: torch.Tensor, stt) -> torch.Tenso
     g = torch.where(mask, t_sorted - stt * rankf, -_big(t_sorted.dtype))
     f = torch.cummax(g, dim=-1).values
     return torch.where(mask, f + stt * rankf, t_sorted)
+
+
+def congestion_scan(
+    t_sorted: torch.Tensor, mask: torch.Tensor, stt
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One switch's masked FIFO scan: ``(start, delay)`` over ``[..., N]``,
+    ``delay = start - t`` where masked and 0 elsewhere (the reference's
+    ``ops.congestion_queue``)."""
+    start = serial_queue(t_sorted, mask, stt)
+    return start, torch.where(mask, start - t_sorted, 0.0)
 
 
 def _scatter_drop(
@@ -112,7 +128,7 @@ def serial_queue_cascade(
     route_bits: torch.Tensor,  # [..., N] i32, bit s set iff event crosses stage s
     stts: torch.Tensor,  # [S] f32, service times in stage order
     merge_plan: Optional[Sequence] = None,  # per-stage ((changed_bit, within_bit|None), ...)
-    hosts: Optional[torch.Tensor] = None,
+    hosts: Optional[torch.Tensor] = None,  # [..., N] i32 host ids, input order
     n_hosts: int = 1,
 ):
     """Fused S-stage congestion cascade over time-sorted epochs.
@@ -131,13 +147,13 @@ def serial_queue_cascade(
     Returns ``(t_final [..., N], slot_idx [..., N] i32, per_stage_delay
     [..., S])``: ``t_final[k]`` is the post-congestion time of the event
     originally at sorted position ``slot_idx[k]``.
+
+    With ``hosts`` (per-event host ids in the same order as ``t_sorted``),
+    ``per_stage_delay`` is host-segmented to ``[..., S, n_hosts]``: a
+    stage's queueing delay is charged to the host whose event waited.
+    Hosts are recovered through the live permutation (``hosts[idx]``), so
+    the merges carry no extra payload.
     """
-    if hosts is not None:
-        raise NotImplementedError(
-            "host-segmented cascades (hosts=) come with the shared fabric, "
-            "slice 2 of the port"
-        )
-    del n_hosts
     dtype = t_sorted.dtype
     n = t_sorted.shape[-1]
     s_stages = int(stts.shape[0])
@@ -169,10 +185,23 @@ def serial_queue_cascade(
         start = torch.where(m, f + stt * rankf, ts)
         d = torch.where(m, start - ts, 0.0)
         dsum = d.sum(dim=-1, keepdim=True)
-        per_stage.append(dsum)
+        if hosts is None:
+            per_stage.append(dsum)
+        else:
+            # per-host sums accumulate in f64 (as the kernel's do), so their
+            # rounding does not depend on the order a scatter-add takes
+            h_cur = torch.gather(hosts, -1, idx.to(torch.int64)).to(torch.int64)
+            seg = torch.zeros(
+                ts.shape[:-1] + (n_hosts,), dtype=torch.float64, device=ts.device
+            )
+            per_stage.append(seg.scatter_add_(-1, h_cur, d.to(torch.float64)).to(dtype))
         dirty = dirty + dsum
         ts = torch.where(m, start, ts)
-    if per_stage:
+    if hosts is not None:
+        psd = torch.stack(per_stage, dim=-2) if per_stage else torch.zeros(
+            ts.shape[:-1] + (0, n_hosts), dtype=dtype, device=ts.device
+        )
+    elif per_stage:
         psd = torch.cat(per_stage, dim=-1)
     else:
         psd = torch.zeros(ts.shape[:-1] + (0,), dtype=dtype, device=ts.device)

@@ -146,12 +146,9 @@ def test_analyzer_runs_the_plain_cascade_on_cpu():
 
 def test_unported_options_name_their_slice():
     fig = t_topo.figure1_topology().flatten()
-    pooled = t_topo.pooled_topology(n_hosts=2).flatten()
     qos = t_topo.pooled_topology(n_hosts=1, discipline="priority").flatten()
     cases = [
-        (dict(flat=pooled), "slice 2"),
         (dict(flat=qos), "slice 5"),
-        (dict(flat=fig, fused=False), "slice 8"),
         (dict(flat=fig, pipeline=True), "slice 4"),
         (dict(flat=fig, mesh=object()), "slice 6"),
     ]

@@ -107,7 +107,6 @@ def test_default_device_is_cuda():
 @pytest.mark.parametrize("kw, slice_name", [
     (dict(migration=object()), "slice 3"),
     (dict(cache=object()), "slice 3"),
-    (dict(coherency=object()), "slice 2"),
     (dict(async_analysis=True), "slice 4"),
 ])
 def test_unported_options_name_their_slice(kw, slice_name):

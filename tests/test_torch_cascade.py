@@ -1,7 +1,8 @@
-"""Port parity: the plain PyTorch congestion cascade against the reference's
-jnp oracle and its Pallas kernel (interpret mode), at the bar of
+"""Port parity: the plain PyTorch congestion cascade (single-host and
+host-segmented) and the single-switch scan against the reference's jnp
+oracles and its Pallas kernels (interpret mode), at the bar of
 ``tests/test_fused_cascade.py``: per-stage delay to rtol 1e-5, final times
-to rtol 1e-6, slot indices exactly equal."""
+to rtol 1e-6, slot indices exactly equal; the scan to rtol 1e-6."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -9,9 +10,12 @@ import pytest
 import torch
 
 from repro.core.analyzer import plan_cascade as r_plan
-from repro.core.topology import chained_topology, figure1_topology
+from repro.core.topology import chained_topology, figure1_topology, pooled_topology
+from repro.kernels import ops as r_ops
 from repro.kernels import ref as r_ref
 from repro.kernels.congestion import congestion_cascade as r_pallas
+from repro.kernels.congestion import congestion_cascade_hosts as r_pallas_hosts
+from repro_torch.kernels import congestion as t_kernel
 from repro_torch.kernels import ops as t_ops
 from repro_torch.kernels import ref as t_ref
 
@@ -178,8 +182,131 @@ def test_zero_stages_and_hosts():
     np.testing.assert_array_equal(tf, ts)
     np.testing.assert_array_equal(idx, np.arange(64))
     assert psd.shape == (0,)
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        t_ref.serial_queue_cascade(
-            torch.from_numpy(ts), torch.from_numpy(bits), torch.from_numpy(STTS),
-            hosts=torch.zeros(64, dtype=torch.int32), n_hosts=2,
+    tf, idx, psd = t_ref.serial_queue_cascade(
+        torch.from_numpy(ts), torch.from_numpy(bits), torch.zeros(0),
+        hosts=torch.zeros(64, dtype=torch.int32), n_hosts=2,
+    )
+    np.testing.assert_array_equal(tf.numpy(), ts)
+    assert psd.shape == (0, 2)
+
+
+# --------------------------------------------------------------------------- #
+# host-segmented cascade (the shared fabric's kernel)
+# --------------------------------------------------------------------------- #
+
+
+def _hosts(seed, n, n_hosts):
+    return np.random.default_rng(seed + 100).integers(0, n_hosts, n).astype(np.int32)
+
+
+def _torch_hosts_row(ts, bits, hosts, stts, n_hosts, plan=None):
+    tf, idx, psd = t_ref.serial_queue_cascade(
+        torch.from_numpy(ts)[None], torch.from_numpy(bits)[None],
+        torch.from_numpy(stts), plan,
+        hosts=torch.from_numpy(hosts)[None], n_hosts=n_hosts,
+    )
+    return tf[0].numpy(), idx[0].numpy(), psd[0].numpy()
+
+
+@pytest.mark.parametrize("bursty", [False, True], ids=["uniform", "bursty"])
+def test_plain_hosts_cascade_matches_jnp_reference(bursty):
+    ts, bits = _inputs(6, bursty=bursty)
+    hosts = _hosts(6, ts.size, 3)
+    want = r_ref.serial_queue_cascade(
+        jnp.asarray(ts), jnp.asarray(bits), jnp.asarray(STTS),
+        hosts=jnp.asarray(hosts), n_hosts=3,
+    )
+    got = _torch_hosts_row(ts, bits, hosts, STTS, 3)
+    assert got[2].shape == (3, 3)
+    _assert_cascade_close(got, want)
+    # the host axis decomposes the single-host per-stage delays
+    _, idx1, psd1 = _torch_row(ts, bits, STTS)
+    np.testing.assert_array_equal(got[1], idx1)
+    np.testing.assert_allclose(got[2].sum(axis=1), psd1, rtol=1e-6)
+
+
+def test_plain_hosts_cascade_matches_pallas_interpret():
+    """Untied uniform times, so the Pallas kernel's per-stage merge guard
+    and the plain version's cumulative one decide alike."""
+    ts, bits = _inputs(8, n=2500)
+    hosts = _hosts(8, ts.size, 4)
+    want = r_pallas_hosts(
+        jnp.asarray(ts), jnp.asarray(bits), jnp.asarray(hosts), jnp.asarray(STTS),
+        n_hosts=4, block=1024, interpret=True,
+    )
+    _assert_cascade_close(_torch_hosts_row(ts, bits, hosts, STTS, 4), want)
+
+
+def test_plain_hosts_cascade_with_merge_plan():
+    """A pooled 3-host fabric's own bit table and pruned plan."""
+    flat = pooled_topology(n_hosts=3).flatten()
+    bits_pool, plan, order = r_plan(flat)
+    rng = np.random.default_rng(12)
+    n = 3000
+    ts = np.sort(rng.uniform(0, 2e4, n)).astype(np.float32)
+    vp = rng.integers(0, flat.route.shape[0], n)
+    bits = bits_pool[vp].astype(np.int32)
+    hosts = (vp // flat.n_pools).astype(np.int32)
+    stts = flat.switch_stt_ns[list(order)].astype(np.float32)
+    want = r_ref.serial_queue_cascade(
+        jnp.asarray(ts), jnp.asarray(bits), jnp.asarray(stts), merge_plan=plan,
+        hosts=jnp.asarray(hosts), n_hosts=3,
+    )
+    got = _torch_hosts_row(ts, bits, hosts, stts, 3, plan)
+    _assert_cascade_close(got, want)
+    assert (got[2][0] > 0).all()  # every host queues at the shared switch
+
+
+def test_batched_hosts_rows_equal_row_by_row():
+    rows = [_inputs(seed, bursty=seed % 2 == 0) for seed in range(3)]
+    ts = np.stack([r[0] for r in rows])
+    bits = np.stack([r[1] for r in rows])
+    hosts = np.stack([_hosts(seed, ts.shape[1], 2) for seed in range(3)])
+    tf, idx, psd = t_ops.congestion_cascade(
+        torch.from_numpy(ts), torch.from_numpy(bits), torch.from_numpy(STTS),
+        hosts=torch.from_numpy(hosts), n_hosts=2,
+    )
+    assert psd.shape == (3, 3, 2)
+    for b in range(3):
+        want = r_ref.serial_queue_cascade(
+            jnp.asarray(ts[b]), jnp.asarray(bits[b]), jnp.asarray(STTS),
+            hosts=jnp.asarray(hosts[b]), n_hosts=2,
         )
+        _assert_cascade_close((tf[b], idx[b], psd[b]), want)
+
+
+# --------------------------------------------------------------------------- #
+# single-switch scan (the unfused per-stage loop's kernel)
+# --------------------------------------------------------------------------- #
+
+
+@pytest.mark.parametrize("impl", ["ref", "pallas_interpret"])
+def test_plain_scan_matches_reference(impl):
+    rows = [_inputs(seed, n=3000, bursty=seed == 1)[0] for seed in (1, 2)]
+    masks = [np.random.default_rng(30 + i).random(3000) < 0.5 for i in range(2)]
+    start, delay = t_ops.congestion_queue(
+        torch.from_numpy(np.stack(rows)), torch.from_numpy(np.stack(masks)), 2.0
+    )
+    assert start.shape == delay.shape == (2, 3000)
+    for b in range(2):
+        w_start, w_delay = r_ops.congestion_queue(
+            jnp.asarray(rows[b]), jnp.asarray(masks[b]), 2.0, impl=impl, block=1024
+        )
+        np.testing.assert_allclose(start[b].numpy(), np.asarray(w_start), rtol=1e-6)
+        np.testing.assert_allclose(delay[b].numpy(), np.asarray(w_delay), rtol=1e-6)
+    unmasked = ~torch.from_numpy(np.stack(masks))
+    assert (delay[unmasked] == 0).all()
+    assert torch.equal(start[unmasked], torch.from_numpy(np.stack(rows))[unmasked])
+    assert float(delay.sum()) > 0
+
+
+def test_cpu_hosts_cascade_and_queue_take_the_plain_path():
+    ts, bits = _inputs(4, n=256)
+    t, b = torch.from_numpy(ts)[None], torch.from_numpy(bits)[None]
+    counts0 = (t_ops.plain_launches, t_kernel.launches, t_kernel.hosts_launches,
+               t_kernel.scan_launches)
+    t_ops.congestion_cascade(t, b, torch.from_numpy(STTS),
+                             hosts=torch.zeros_like(b), n_hosts=2)
+    t_ops.congestion_queue(t, b > 3, 1.0)
+    assert t_ops.plain_launches == counts0[0] + 2
+    assert (t_kernel.launches, t_kernel.hosts_launches, t_kernel.scan_launches) == counts0[1:]

@@ -63,9 +63,14 @@ def test_cpu_tensors_take_the_plain_path():
 
 def test_kernel_wrapper_refuses_cpu_tensors():
     t = torch.zeros(1, 8)
+    i32 = torch.zeros(1, 8, dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA tensors"):
-        t_kernel.congestion_cascade(t, torch.zeros(1, 8, dtype=torch.int32), torch.ones(1))
-    assert t_kernel._lib is None  # nothing was built or loaded
+        t_kernel.congestion_cascade(t, i32, torch.ones(1))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        t_kernel.congestion_cascade_hosts(t, i32, i32, torch.ones(1), 2)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        t_kernel.congestion_scan(t, torch.zeros(1, 8, dtype=torch.bool), 1.0)
+    assert not t_kernel._libs  # nothing was built or loaded
 
 
 @pytest.mark.parametrize("where", ["repo", "alone"])
