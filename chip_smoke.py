@@ -7,9 +7,10 @@ Phases (any failure exits non-zero and prints no result):
 
 1. environment: torch / CUDA versions, the card's name and power limit;
 2. build: the kernel libraries (congestion_cascade.cu: the single-host and
-   host-segmented cascades; congestion_scan.cu: the single-switch scan),
-   one nvcc per source, all started together, from the repository's
-   sources into build/repro_torch_kernels/;
+   host-segmented cascades; congestion_scan.cu: the single-switch scan;
+   qos_cascade.cu: the single-host and host-segmented QoS cascades), one
+   nvcc per source, all started together, from the repository's sources
+   into build/repro_torch_kernels/;
 3. kernels vs plain, each on the same CUDA inputs as its plain PyTorch
    version, with median times over CUDA events:
    - the cascade at [4, 3000] S=3, [32, 131072] with figure1's stages,
@@ -22,6 +23,18 @@ Phases (any failure exits non-zero and prints no result):
      sum over hosts equal to the single-host kernel's delays to rtol 1e-6;
    - the scan at [32, 131072] with a random mask and on one stage of the
      wide fabric's batch: start and delay to rtol 1e-6;
+   - the QoS cascade at [4, 3000] on a 3-switch QoS chain (3 classes,
+     weights 4:2:1) with disciplines (wfq, priority, fifo), and at
+     [32, 131072] on the same chain with (wfq, wfq, wfq), which elides
+     folds, and (priority, priority, priority), each on tie-free rows
+     (unique integers below 2**22) and tie-heavy rows (integers from a small
+     span); at [32, 131072] on figure1 declared with 3 classes and every
+     switch FIFO, whose final times must equal the FIFO cascade kernel's
+     bitwise and its per-stage totals to rtol 1e-6; on the qos-main path's
+     batch; and the host-segmented QoS cascade on the priority fabric's own
+     batch: slot indices exactly equal, final times to rtol 1e-6,
+     per-(host, class) delays to rtol 1e-5, their sum over hosts equal to the
+     single-host QoS kernel's to rtol 1e-6;
 4. slice-1 main path: CXLMemSim attached to a bf16 stand-in step on the
    card, with the qwen3-0.6b published config's layer-epoch trace (8 x 4096
    tokens) on the paper's Figure 1 topology, one warm-up step, then 3
@@ -42,12 +55,32 @@ Phases (any failure exits non-zero and prints no result):
    per-stage loop: 2 rounds, the scan's launch count must rise by stages x
    rounds and the plain path's by 0, and the totals must match
    ``analyze_ref``;
-7. a JSON ``kernels`` line, then the card's nvidia-smi line, then the result
+7. qos-main: phase 4 on Figure 1 re-declared with strict-priority switches
+   and 2 classes (every traced event is class 0, and priority with one
+   populated class is FIFO): one warm-up step, then 3 measured steps; the
+   single-host QoS kernel's launch count must rise by exactly 3 and every
+   other kernel's and the plain path's by 0, the totals must match
+   ``analyze_ref`` and equal phase 4's (latency and congestion to rel 1e-6),
+   and class 1 must carry no congestion;
+8. qos-fabric: phase 5's 8 tenants with tenants 0-1 in class 0 and 2-7 in
+   class 1, on pooled_topology(n_hosts=8, discipline="priority",
+   class_weights=(1, 1)): one warm-up round, then 3 measured rounds; the
+   host-segmented QoS kernel's launch count must rise by exactly 3 and every
+   other kernel's and the plain path's by 0; totals, per-host and per-class
+   results must match ``analyze_ref`` on the merged epochs, the per-class
+   sums close on the congestion total, and class 0's tenants must not wait
+   longer than in phase 5's FIFO run and together wait less; then the same
+   checks with discipline="wfq", class_weights=(4, 1) (the class-0 wait
+   against FIFO only printed): one warm-up round, 2 measured;
+9. a JSON ``kernels`` line, then the card's nvidia-smi line, then the result
    line ``{"ok": true, "device": {...}}``.
+
+The earlier phases (4-6) must show no QoS launch.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -70,6 +103,8 @@ from repro_torch.core import (  # noqa: E402
     EpochSchedule,
     EventStager,
     FabricSession,
+    Pool,
+    Switch,
     Tenant,
     Topology,
     analyze_ref,
@@ -91,6 +126,8 @@ MS_PER_S = 1e3
 BYTES_PER_EVENT = 16  # cascade: read t + route bits, write t_final + slot_idx
 HOSTS_BYTES_PER_EVENT = 20  # hosts cascade: + read the host id
 SCAN_BYTES_PER_EVENT = 13  # scan: read t + mask byte, write start + delay
+QOS_BYTES_PER_EVENT = 20  # QoS cascade: the cascade's 16 + read the class
+QOS_HOSTS_BYTES_PER_EVENT = 24  # host-segmented QoS cascade: + read the host id
 OPS_PER_QUEUED_EVENT = 6  # stt*rank, t - p, max, f + p, start - t, sum
 POLICY = {"opt_state": "cxl_pool2", "grad": "cxl_pool1"}
 # the shared fabric: the paper's KV-cache pooling scenario at qwen3-0.6b's widths
@@ -102,6 +139,10 @@ WIDE_HOSTS = 32
 WIDE_LOAD = dict(kind="decode", batch=8, seq=1, cache_len=1024)
 WIDE_EVENTS_PER_ACCESS = 256
 FABRIC_POLICY = {"kvcache": "shared_pool"}
+# the QoS chain of the reference's QoS tests: 3 switches, 3 classes
+QOS_WEIGHTS = (4.0, 2.0, 1.0)
+# the QoS fabric: tenants 0-1 latency-critical (class 0), 2-7 batch (class 1)
+FABRIC_CLASSES = (0, 0, 1, 1, 1, 1, 1, 1)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -247,6 +288,164 @@ def compare_scan(name, t, mask, stt, reps=20):
     return row
 
 
+def qos_chain(disciplines) -> Topology:
+    """A depth-3 switch chain with per-switch disciplines and 3 classes (a
+    copy of the reference's QoS test topology); the RC is a fourth, FIFO
+    stage."""
+    switches = [
+        Switch(f"sw{d}", 70.0, 64.0 - 8.0 * d, 2.0 + d, parent=f"sw{d - 1}" if d else None,
+               discipline=disc, class_weights=QOS_WEIGHTS if disc == "wfq" else None)
+        for d, disc in enumerate(disciplines)
+    ]
+    last = f"sw{len(switches) - 1}"
+    return Topology(
+        pools=[Pool("local", 88.9, 76.8, 1 << 36, is_local=True),
+               Pool("far1", 180.0, 32.0, 1 << 38, parent=last),
+               Pool("far2", 200.0, 32.0, 1 << 38, parent=last)],
+        switches=switches, n_qos_classes=len(QOS_WEIGHTS),
+    )
+
+
+def qos_tables(flat, dev):
+    """The stages' service times, discipline codes and class weights, in
+    the cascade's stage order."""
+    order = list(plan_cascade(flat)[2])
+    return (
+        torch.tensor(flat.switch_stt_ns[order], dtype=torch.float32, device=dev),
+        torch.tensor(flat.discipline_codes()[order], dtype=torch.int32, device=dev),
+        torch.tensor(flat.class_weight_table()[order], dtype=torch.float32, device=dev),
+    )
+
+
+def qos_inputs(flat, rows: int, n: int, seed: int, ties: bool, dev):
+    """Integer arrival times, tie-free (unique below 2**22) or tie-heavy
+    (about four events per integer), with each event a random pool's route
+    word and a random class."""
+    rng = np.random.default_rng(seed)
+    if ties:
+        t = rng.integers(0, max(2, n // 4), (rows, n))
+    else:
+        t = np.stack([rng.choice(1 << 22, size=n, replace=False) for _ in range(rows)])
+    t = np.sort(t, axis=1).astype(np.float32)
+    bits_pool = plan_cascade(flat)[0]
+    bits = bits_pool[rng.integers(0, flat.n_pools, (rows, n))].astype(np.int32)
+    qos = rng.integers(0, flat.n_qos_classes, (rows, n)).astype(np.int32)
+    return tuple(torch.from_numpy(a).to(dev) for a in (t, bits, qos))
+
+
+def qos_bound(t, bits, disc, n_classes, bytes_per_event, out_per_row):
+    """Bound of one QoS cascade call on these inputs: the queued events of
+    each stage times the scans that stage runs decide the operations."""
+    nbytes = bytes_per_event * t.numel() + 4 * t.shape[0] * out_per_row
+    scans = sum(
+        int(((bits >> s) & 1).sum()) * (1 if int(d) == kref.DISC_FIFO else n_classes)
+        for s, d in enumerate(disc.tolist())
+    )
+    return bound_ms(nbytes, OPS_PER_QUEUED_EVENT * scans)
+
+
+def compare_qos(name, t, bits, qos, stts, disc, w, reps=20):
+    """QoS cascade kernel vs plain on the same CUDA inputs."""
+    tk, ik, pk = kcong.qos_congestion_cascade(t, bits, qos, stts, disc, w)
+    tp, ip, pp = kref.qos_cascade_dyn(t, bits, stts, qos, disc, w)
+    torch.cuda.synchronize()
+    check(torch.equal(ik, ip), f"{name}: slot_idx differs from the plain version")
+    torch.testing.assert_close(tk, tp, rtol=1e-6, atol=0.0)
+    # per-class sums: double atomics in a run-dependent order (kernel) and an
+    # f64 scatter-add (plain), both rounded to f32
+    torch.testing.assert_close(pk, pp, rtol=1e-5, atol=0.0)
+    check(bool(torch.isfinite(pk).all()), f"{name}: non-finite delays")
+    err = float((tk - tp).abs().max())
+    ms = median_ms(lambda: kcong.qos_congestion_cascade(t, bits, qos, stts, disc, w), reps)
+    plain_ms = median_ms(lambda: kref.qos_cascade_dyn(t, bits, stts, qos, disc, w),
+                         max(3, reps // 4))
+    n_stages, n_classes = int(stts.shape[0]), int(w.shape[1])
+    bms, by = qos_bound(t, bits, disc, n_classes, QOS_BYTES_PER_EVENT, n_stages * n_classes)
+    row = dict(shape=list(t.shape), stages=n_stages, classes=n_classes,
+               disciplines=disc.tolist(), ms=ms, plain_ms=plain_ms, bound_ms=bms,
+               bound_by=by, max_abs_err=err,
+               delay_ns_per_class=[float(x) for x in pk.sum((0, 1, 2))])
+    print(f"[kernel] {name}: {json.dumps(row)}")
+    return row, (tk, ik, pk)
+
+
+def compare_qos_fifo(name, t, bits, qos, stts, disc, w):
+    """An all-FIFO QoS topology: the QoS kernel vs its plain version, and
+    its final times bitwise equal to the FIFO cascade kernel's."""
+    row, (tk, _, pk) = compare_qos(name, t, bits, qos, stts, disc, w)
+    tf, _, pf = kcong.congestion_cascade(t, bits, stts)
+    torch.cuda.synchronize()
+    check(torch.equal(tk, tf), f"{name}: final times differ from the FIFO cascade kernel's")
+    torch.testing.assert_close(pk.sum((2, 3)), pf, rtol=1e-6, atol=0.0)
+    print(f"[kernel] {name}: final times bitwise equal to the FIFO cascade kernel's")
+    return row
+
+
+def compare_qos_hosts(name, t, bits, qos, hosts, stts, disc, w, n_hosts, reps=20):
+    """Host-segmented QoS kernel vs plain, and vs the single-host QoS
+    kernel's per-class totals, on the same CUDA inputs."""
+    args = (t, bits, qos, hosts, stts, disc, w, n_hosts)
+    tk, ik, pk = kcong.qos_congestion_cascade_hosts(*args)
+    tp, ip, pp = kref.qos_cascade_dyn(t, bits, stts, qos, disc, w, hosts=hosts,
+                                      n_hosts=n_hosts)
+    _, i1, p1 = kcong.qos_congestion_cascade(t, bits, qos, stts, disc, w)
+    torch.cuda.synchronize()
+    check(torch.equal(ik, ip), f"{name}: slot_idx differs from the plain version")
+    check(torch.equal(ik, i1), f"{name}: slot_idx differs from the single-host QoS kernel")
+    torch.testing.assert_close(tk, tp, rtol=1e-6, atol=0.0)
+    torch.testing.assert_close(pk, pp, rtol=1e-5, atol=0.0)
+    torch.testing.assert_close(pk.sum(2, keepdim=True), p1, rtol=1e-6, atol=0.0)
+    check(bool(torch.isfinite(pk).all()), f"{name}: non-finite delays")
+    err = float((tk - tp).abs().max())
+    ms = median_ms(lambda: kcong.qos_congestion_cascade_hosts(*args), reps)
+    plain_ms = median_ms(
+        lambda: kref.qos_cascade_dyn(t, bits, stts, qos, disc, w, hosts=hosts,
+                                     n_hosts=n_hosts),
+        max(3, reps // 4),
+    )
+    n_stages, n_classes = int(stts.shape[0]), int(w.shape[1])
+    bms, by = qos_bound(t, bits, disc, n_classes, QOS_HOSTS_BYTES_PER_EVENT,
+                        n_stages * n_hosts * n_classes)
+    row = dict(shape=list(t.shape), stages=n_stages, hosts=n_hosts, classes=n_classes,
+               disciplines=disc.tolist(), ms=ms, plain_ms=plain_ms, bound_ms=bms,
+               bound_by=by, max_abs_err=err,
+               psd_max_rel_err=float(((pk - pp).abs() / pp.abs().clamp(min=1e-30)).max()),
+               delay_ns_per_host_class=pk.sum((0, 1)).tolist())
+    print(f"[kernel] {name}: {json.dumps(row)}")
+    return row
+
+
+def qos_kernel_phase(dev, shape=(32, 131072)):
+    """Phase 3, QoS part: the QoS kernels vs their plain versions at
+    synthetic shapes (``shape`` the full-size batch)."""
+    rows = []
+    flat = qos_chain(("wfq", "priority", "fifo")).flatten()
+    stts, disc, w = qos_tables(flat, dev)
+    for ties in (False, True):
+        t, bits, qos = qos_inputs(flat, 4, 3000, 7, ties, dev)
+        name = f"qos_ragged_mixed_{'ties' if ties else 'tie_free'}"
+        rows.append(compare_qos(name, t, bits, qos, stts, disc, w)[0])
+    for discs in (("wfq",) * 3, ("priority",) * 3):
+        flat = qos_chain(discs).flatten()
+        stts, disc, w = qos_tables(flat, dev)
+        for ties in (False, True):
+            t, bits, qos = qos_inputs(flat, *shape, 8, ties, dev)
+            name = f"qos_{discs[0]}x3_{'ties' if ties else 'tie_free'}"
+            rows.append(compare_qos(name, t, bits, qos, stts, disc, w, reps=10)[0])
+    fig = figure1_topology()
+    fig3 = Topology(fig.pools, fig.switches, fig.rc_latency_ns, fig.rc_bandwidth_gbps,
+                    fig.rc_stt_ns, fig.local_dram_latency_ns, n_qos_classes=3).flatten()
+    stts, disc, w = qos_tables(fig3, dev)
+    t, _ = synthetic_times(*shape, 9, dev)
+    rng = np.random.default_rng(9)
+    bits_pool = plan_cascade(fig3)[0]
+    bits = torch.from_numpy(
+        bits_pool[rng.integers(0, fig3.n_pools, shape)].astype(np.int32)).to(dev)
+    qos = torch.from_numpy(rng.integers(0, 3, shape).astype(np.int32)).to(dev)
+    rows.append(compare_qos_fifo("qos_figure1_all_fifo", t, bits, qos, stts, disc, w))
+    return rows
+
+
 def staged_batch(traces, flat, dev):
     """A batch's cascade inputs, staged exactly as the analyzer stages them
     (time-sorted rows, pads at finfo.max/4 with no route), with each
@@ -260,7 +459,8 @@ def staged_batch(traces, flat, dev):
     vp = hosts.long() * flat.n_pools + pool
     big = torch.finfo(torch.float32).max / 4
     t_cur = torch.where(valid, torch.from_numpy(buf["t"]).to(dev), big).contiguous()
-    out = dict(t=t_cur, hosts=hosts.contiguous(), vp=vp, valid=valid)
+    qos = torch.where(valid, torch.from_numpy(buf["qos"]).to(dev), 0).contiguous()
+    out = dict(t=t_cur, hosts=hosts.contiguous(), vp=vp, valid=valid, qos=qos)
     if flat.n_switches <= kcong.MAX_STAGES:
         bits_pool, _, order = plan_cascade(flat)
         out["bits"] = torch.where(valid, torch.from_numpy(bits_pool).to(dev)[vp], 0).contiguous()
@@ -297,14 +497,16 @@ def check_totals(tag, got, want, steps):
               f"rel err {abs(g - w) / max(abs(w), 1e-30):.3e}")
 
 
-def fabric_session(n_hosts, load, events_per_access, dev):
-    """n_hosts trace-only qwen3-0.6b tenants pooling their KV caches."""
+def fabric_session(n_hosts, load, events_per_access, dev, classes=None, **topo_kw):
+    """n_hosts trace-only qwen3-0.6b tenants pooling their KV caches, tenant
+    h in QoS class ``classes[h]`` (0 without ``classes``)."""
     tenants = []
     for h in range(n_hosts):
         regions, phases = build_regions_and_phases(CONFIG, **load)
-        tenants.append(Tenant(f"tenant{h}", phases, regions, ClassMapPolicy(FABRIC_POLICY)))
+        tenants.append(Tenant(f"tenant{h}", phases, regions, ClassMapPolicy(FABRIC_POLICY),
+                              qos_class=classes[h] if classes else 0))
     return FabricSession(
-        pooled_topology(n_hosts=n_hosts), tenants, epoch=EpochSchedule("layer"),
+        pooled_topology(n_hosts=n_hosts, **topo_kw), tenants, epoch=EpochSchedule("layer"),
         hw=H100_SXM, coherency=CoherencyConfig(shared_classes=("kvcache",)),
         max_events_per_access=events_per_access, device=dev,
     )
@@ -327,12 +529,21 @@ def timed_merges(sess):
 
 def reset_counts():
     kcong.launches = kcong.hosts_launches = kcong.scan_launches = 0
+    kcong.qos_launches = kcong.qos_hosts_launches = 0
     kops.plain_launches = 0
 
 
 def counts():
     return dict(cascade=kcong.launches, hosts=kcong.hosts_launches,
-                scan=kcong.scan_launches, plain=kops.plain_launches)
+                scan=kcong.scan_launches, qos=kcong.qos_launches,
+                qos_hosts=kcong.qos_hosts_launches, plain=kops.plain_launches)
+
+
+def check_launches(tag, c, kernel, want):
+    """Exactly ``want`` launches of ``kernel`` and none of anything else."""
+    check(c[kernel] == want, f"{tag}: {kernel} launched {c[kernel]} times, want {want}")
+    others = {k: v for k, v in c.items() if k != kernel and v}
+    check(not others, f"{tag}: other kernels or the plain path ran: {others}")
 
 
 def profile_batch(tag, an, traces):
@@ -353,13 +564,10 @@ def profile_batch(tag, an, traces):
     print(prof.key_averages().table(sort_by="device_time_total", row_limit=12))
 
 
-def slice1_main_path(dev):
-    """Phase 4: the attached qwen3-0.6b training step on figure1."""
-    regions, phases = build_regions_and_phases(CONFIG, "train", batch=8, seq=4096)
-    sim = CXLMemSim(
-        figure1_topology(), ClassMapPolicy(POLICY), epoch=EpochSchedule("layer"),
-        hw=H100_SXM, max_events_per_access=1024, check_capacity=False, device="cuda",
-    )
+def main_step(dev):
+    """The main paths' attached program: a bf16 stand-in for the qwen3-0.6b
+    training step (the config's SwiGLU MLP products, random weights from
+    seed 0) and its input."""
     gen = torch.Generator(device=dev).manual_seed(0)
     d, f, bf16 = CONFIG.d_model, CONFIG.d_ff, torch.bfloat16
     weights = [
@@ -378,7 +586,23 @@ def slice1_main_path(dev):
             h = h + (torch.nn.functional.silu(h @ wi) * (h @ wu)) @ wo
         return h
 
-    prog = sim.attach(step, phases, regions)
+    return step, x
+
+
+def attach_main(topology, step):
+    """CXLMemSim attached to ``step`` with the qwen3-0.6b layer-epoch trace
+    (8 x 4096 tokens) on ``topology``."""
+    regions, phases = build_regions_and_phases(CONFIG, "train", batch=8, seq=4096)
+    sim = CXLMemSim(
+        topology, ClassMapPolicy(POLICY), epoch=EpochSchedule("layer"),
+        hw=H100_SXM, max_events_per_access=1024, check_capacity=False, device="cuda",
+    )
+    return sim.attach(step, phases, regions)
+
+
+def slice1_main_path(dev, step, x):
+    """Phase 4: the attached qwen3-0.6b training step on figure1."""
+    prog = attach_main(figure1_topology(), step)
     traces = prog.epoch_traces()
     n_max = max(tr.n for tr in traces)
     print(f"[main] {len(traces)} epochs, up to {n_max} events, "
@@ -393,9 +617,7 @@ def slice1_main_path(dev):
     reset_counts()
     rep = prog.run(3, x)
     c = counts()
-    check(c["cascade"] == 3, f"kernel launched {c['cascade']} times in 3 steps, want 3")
-    check(c["plain"] == 0, f"plain cascade ran {c['plain']} times on the card")
-    check(c["hosts"] == 0 and c["scan"] == 0, f"fabric kernels ran on one host: {c}")
+    check_launches("main", c, "cascade", 3)
 
     check_totals("main", rep, oracle(prog.sim.flat, traces), rep.steps)
     # both switches queue; the RC cannot: every event through it has just
@@ -410,7 +632,7 @@ def slice1_main_path(dev):
           f"measured steps; warm-up step analyzer {warm_analyzer_s:.6f} s, "
           f"native {warm_native_s:.6f} s")
     profile_batch("profile", prog._analyzer, traces)
-    return main_row, c["cascade"]
+    return main_row, c["cascade"], rep
 
 
 def fabric_main_path(dev):
@@ -435,9 +657,7 @@ def fabric_main_path(dev):
     reset_counts()
     rep = sess.run(3)
     c = counts()
-    check(c["hosts"] == 3, f"hosts kernel launched {c['hosts']} times in 3 rounds, want 3")
-    check(c["plain"] == 0 and c["cascade"] == 0 and c["scan"] == 0,
-          f"other cascades ran on the fabric path: {c}")
+    check_launches("fabric", c, "hosts", 3)
     check(rep.rounds == 4 and rep.bi_messages > 0, f"rounds {rep.rounds}, BI {rep.bi_messages}")
 
     flat = sess.flat
@@ -469,7 +689,7 @@ def fabric_main_path(dev):
     row = compare_hosts("fabric_batch", b["t"], b["bits"], b["hosts"], b["stts"],
                         flat.n_hosts)
     profile_batch("fabric-profile", sess._analyzer, merged)
-    return row, c["hosts"]
+    return row, c["hosts"], rep
 
 
 def wide_fabric_path(dev):
@@ -489,10 +709,7 @@ def wide_fabric_path(dev):
     print(f"[wide] {len(merged)} merged epochs, up to {max(tr.n for tr in merged)} "
           f"events, {sum(tr.n for tr in merged)} per round; merge {merge_s[0]:.3f} s "
           f"(first round)")
-    check(c["scan"] == stages * 2,
-          f"scan launched {c['scan']} times in 2 rounds of {stages} stages")
-    check(c["plain"] == 0 and c["cascade"] == 0 and c["hosts"] == 0,
-          f"other kernels ran on the wide path: {c}")
+    check_launches("wide", c, "scan", stages * 2)
     flat = sess.flat
     ref = oracle(flat, merged)
     for k, rel, absol in (("latency", 1e-4, 1e-3), ("congestion", 1e-3, 1e-3)):
@@ -511,6 +728,115 @@ def wide_fabric_path(dev):
     row = compare_scan(f"wide_stage_{flat.switch_names[s0]}", b["t"], mask,
                        float(np.float32(flat.switch_stt_ns[s0])))
     return row, c["scan"]
+
+
+def qos_main_path(dev, step, x, fifo_rep):
+    """Phase 7: phase 4 on figure1 re-declared with strict-priority switches
+    and 2 classes."""
+    fig = figure1_topology()
+    topo = Topology(
+        fig.pools, [dataclasses.replace(sw, discipline="priority") for sw in fig.switches],
+        fig.rc_latency_ns, fig.rc_bandwidth_gbps, fig.rc_stt_ns, fig.local_dram_latency_ns,
+        n_qos_classes=2,
+    )
+    prog = attach_main(topo, step)
+    flat = prog.sim.flat
+    check(flat.has_qos and prog._analyzer.qos_on, "qos-main must take the QoS cascade")
+    traces = prog.epoch_traces()
+    b = staged_batch(traces, flat, dev)
+    stts, disc, w = qos_tables(flat, dev)
+    row, _ = compare_qos("qos_main_batch", b["t"], b["bits"], b["qos"], stts, disc, w)
+    prog.step(x)
+    warm_analyzer_s = prog.report.analyzer_s
+    reset_counts()
+    rep = prog.run(3, x)
+    c = counts()
+    check_launches("qos-main", c, "qos", 3)
+    check_totals("qos-main", rep, oracle(flat, traces), rep.steps)
+    for k in ("latency_s", "congestion_s"):
+        g, w_ = getattr(rep, k), getattr(fifo_rep, k)
+        check(abs(g - w_) <= 1e-6 * abs(w_), f"qos-main {k} {g!r} != phase 4's {w_!r}")
+    pcc = rep.per_class_congestion_ns
+    check(pcc.shape == (2,) and pcc[1] == 0.0, f"class 1 carries congestion: {pcc}")
+    check(abs(pcc.sum() - s_to_ns(rep.congestion_s)) <= 1e-6 * s_to_ns(rep.congestion_s),
+          f"per-class congestion {pcc} does not close on {s_to_ns(rep.congestion_s)} ns")
+    print(f"[qos-main] equal to phase 4: latency {rep.latency_s!r} s, congestion "
+          f"{rep.congestion_s!r} s (phase 4: {fifo_rep.congestion_s!r} s), bandwidth "
+          f"{rep.bandwidth_s!r} s (phase 4: {fifo_rep.bandwidth_s!r} s)")
+    print(f"[qos-main] per-class congestion ns {pcc.tolist()}")
+    print(f"[qos-main] analyzer {(rep.analyzer_s - warm_analyzer_s) / 3:.6f} s/step over "
+          f"the 3 measured steps; warm-up step analyzer {warm_analyzer_s:.6f} s")
+    profile_batch("qos-main-profile", prog._analyzer, traces)
+    return row, c["qos"]
+
+
+def qos_fabric_session(tag, dev, fifo_rep, discipline, weights, rounds):
+    """Phase 8: phase 5's tenants in two classes on a QoS fabric.  Under
+    priority class 0 must gain on phase 5's FIFO run; WFQ's per-class
+    servers run at their weight's share of the switch whether or not the
+    other class is busy, so there it is only printed."""
+    t0 = time.perf_counter()
+    sess = fabric_session(FABRIC_HOSTS, FABRIC_LOAD, FABRIC_EVENTS_PER_ACCESS, "cuda",
+                          classes=FABRIC_CLASSES, discipline=discipline,
+                          class_weights=weights)
+    merge_s = timed_merges(sess)
+    check(sess._analyzer.fused and sess._analyzer.qos_on,
+          f"{tag}: the QoS fabric must run the fused QoS cascade")
+    sess.round()  # warm-up
+    warm_s, warm_analyzer_s = time.perf_counter() - t0, sess.report.analyzer_s
+    reset_counts()
+    rep = sess.run(rounds)
+    c = counts()
+    check_launches(tag, c, "qos_hosts", rounds)
+    merged = sess._round_cache[0]
+    flat = sess.flat
+    ref = oracle(flat, merged)
+    check_totals(tag, rep, ref, rep.rounds)
+    lat_h = np.array([s_to_ns(h.latency_s) for h in rep.hosts])
+    cong_h = np.array([s_to_ns(h.congestion_s) for h in rep.hosts])
+    np.testing.assert_allclose(lat_h, rep.rounds * ref.per_host_latency_ns, rtol=1e-4)
+    np.testing.assert_allclose(cong_h, rep.rounds * ref.per_host_congestion_ns, rtol=5e-3)
+    pcc = rep.per_class_congestion_ns
+    np.testing.assert_allclose(pcc, rep.rounds * ref.per_class_congestion_ns, rtol=5e-3)
+    cong = s_to_ns(rep.congestion_s)
+    check(abs(pcc.sum() - cong) <= 1e-6 * cong,
+          f"{tag}: per-class congestion {pcc} does not close on {cong} ns")
+    fifo_h = np.array([s_to_ns(h.congestion_s) / fifo_rep.rounds for h in fifo_rep.hosts])
+    qos_h = cong_h / rep.rounds
+    crit = [h for h, cls in enumerate(FABRIC_CLASSES) if cls == 0]
+    # identical tenants tie exactly and ties queue the lower host first, so
+    # host 0 waits only behind itself under FIFO too: no class-0 tenant may
+    # lose, and together they must gain
+    check(discipline != "priority"
+          or (all(qos_h[h] <= fifo_h[h] * (1 + 1e-6) for h in crit)
+              and qos_h[crit].sum() < fifo_h[crit].sum()),
+          f"{tag}: class 0 did not gain: {qos_h[crit]} vs FIFO {fifo_h[crit]} ns/round")
+    print(f"[{tag}] class-0 tenants' congestion per round {qos_h[crit].tolist()} ns, "
+          f"under FIFO (phase 5) {fifo_h[crit].tolist()} ns")
+    print(f"[{tag}] per-host congestion ns/round {qos_h.tolist()}")
+    print(f"[{tag}] per-class congestion ns {pcc.tolist()}, analyze_ref "
+          f"{(rep.rounds * ref.per_class_congestion_ns).tolist()}, shares "
+          f"{rep.qos_delay_shares()}")
+    print(f"[{tag}] analyzer {(rep.analyzer_s - warm_analyzer_s) / rounds:.6f} s/round over "
+          f"the {rounds} measured rounds; warm-up round {warm_s:.3f} s (merge "
+          f"{merge_s[0]:.3f} s, analyzer {warm_analyzer_s:.6f} s)")
+    return sess, merged, c["qos_hosts"]
+
+
+def qos_fabric_path(dev, fifo_rep):
+    """Phase 8: the priority fabric (3 rounds), its batch against the plain
+    version, then the WFQ fabric (2 rounds)."""
+    sess, merged, launches = qos_fabric_session(
+        "qos-fabric", dev, fifo_rep, "priority", (1.0, 1.0), 3)
+    flat = sess.flat
+    b = staged_batch(merged, flat, dev)
+    stts, disc, w = qos_tables(flat, dev)
+    row = compare_qos_hosts("qos_fabric_batch", b["t"], b["bits"], b["qos"], b["hosts"],
+                            stts, disc, w, flat.n_hosts)
+    profile_batch("qos-fabric-profile", sess._analyzer, merged)
+    del sess, merged, b
+    qos_fabric_session("qos-fabric-wfq", dev, fifo_rep, "wfq", (4.0, 1.0), 2)
+    return row, launches
 
 
 def main() -> int:
@@ -566,15 +892,19 @@ def main() -> int:
     t, rng = synthetic_times(32, 131072, 6, dev)
     mask = torch.from_numpy(rng.random((32, 131072)) < 0.5).to(dev)
     scan_rows = [compare_scan("scan_random_mask", t, mask, 2.0)]
+    qos_rows = qos_kernel_phase(dev)
 
-    # -- 4-6. the main paths ------------------------------------------------ #
-    main_row, cascade_launches = slice1_main_path(dev)
-    fabric_row, hosts_launches = fabric_main_path(dev)
+    # -- 4-8. the main paths ------------------------------------------------ #
+    step, x = main_step(dev)
+    main_row, cascade_launches, main_rep = slice1_main_path(dev, step, x)
+    fabric_row, hosts_launches, fabric_rep = fabric_main_path(dev)
     wide_row, scan_launches = wide_fabric_path(dev)
+    qos_main_row, qos_launches = qos_main_path(dev, step, x, main_rep)
+    qos_fabric_row, qos_hosts_launches = qos_fabric_path(dev, fabric_rep)
     host_rows.append(fabric_row)
     scan_rows.append(wide_row)
 
-    # -- 7. the kernels line and the result --------------------------------- #
+    # -- 9. the kernels line and the result --------------------------------- #
     src = "src/repro_torch/kernels/csrc/"
     kernels = []
     for name, source, replaces, launches, comps, row in (
@@ -584,6 +914,10 @@ def main() -> int:
          hosts_launches, host_rows, fabric_row),
         ("congestion_scan", "congestion_scan.cu", "congestion.py:113",
          scan_launches, scan_rows, wide_row),
+        ("qos_congestion_cascade", "qos_cascade.cu", "congestion.py:542",
+         qos_launches, qos_rows + [qos_main_row], qos_main_row),
+        ("qos_congestion_cascade_hosts", "qos_cascade.cu", "congestion.py:542",
+         qos_hosts_launches, [qos_fabric_row], qos_fabric_row),
     ):
         kernels.append({
             "name": name,

@@ -50,6 +50,7 @@ from .timer import EpochSchedule, slice_by_quantum
 from .topology import (
     FlatTopology,
     Pool,
+    QosSpec,
     Switch,
     Topology,
     chained_topology,
@@ -97,6 +98,7 @@ __all__ = [
     "Phase",
     "PlacementPolicy",
     "Pool",
+    "QosSpec",
     "Region",
     "RegionArrays",
     "RegionMap",

@@ -20,8 +20,11 @@ Three implementations, in increasing speed order:
     of the reference's oracle).
   * :class:`EpochAnalyzer` — batched PyTorch analyzer over ``[B, N]``
     epochs.  Its congestion stage is the fused S-stage cascade
-    (:func:`repro_torch.kernels.ops.congestion_cascade`): the hand-written
-    CUDA kernel on the card, the plain PyTorch version on the CPU.
+    (:func:`repro_torch.kernels.ops.congestion_cascade`), or on topologies
+    whose switches arbitrate by QoS class the QoS cascade
+    (:func:`repro_torch.kernels.ops.qos_congestion_cascade`): the
+    hand-written CUDA kernels on the card, the plain PyTorch versions on the
+    CPU.
 
 The serial queue ``out_i = max(arr_i, out_{i-1} + STT)`` is solved in closed
 form with a cumulative max:  let ``f_i = cummax(arr_i − STT·rank_i)``; then
@@ -518,22 +521,28 @@ def _analyze_batch(
     n_hosts: int = 1,
     merge_plan=None,
     stage_stt_ns: Optional[Tuple[float, ...]] = None,  # unfused loop: per-switch STT
+    qos: Optional[torch.Tensor] = None,  # [B, N] i32 QoS classes; None: FIFO cascade
+    disc_code: Optional[torch.Tensor] = None,  # [S_stages] i32 codes, stage order
+    class_weights: Optional[torch.Tensor] = None,  # [S_stages, C] f32, stage order
 ) -> torch.Tensor:
-    """B epochs' three-delay analysis (FIFO switches), summed over the batch
-    on the device.
+    """B epochs' three-delay analysis, summed over the batch on the device.
 
-    Port of the reference's FIFO branches of ``_analyze_jax`` with the
-    ``vmap`` of ``_analyze_batch_jax`` written out as the leading dimension.
+    Port of the reference's ``_analyze_jax`` with the ``vmap`` of
+    ``_analyze_batch_jax`` written out as the leading dimension.
     Multi-host fabrics (``n_hosts > 1``) key every lookup by the virtual
     pool ``vp = host * P + pool`` (shared switches see the merged timeline,
     per-host RCs stay private) and host-segment every delay class.  The
     congestion stage is the fused cascade, or with ``stage_stt_ns`` given
     the unfused per-stage loop (a stable sort of each row, then one switch's
     queue scan, per stage) that fabrics wider than the 31-bit route word
-    take.  Returns one flat f32 tensor ``[latency, congestion, bandwidth,
-    per_pool_latency (P), per_switch_congestion (S), per_switch_bandwidth
-    (S), per_host_latency (H), per_host_congestion (H), per_host_bandwidth
-    (H)]`` so the host needs one transfer per batch.
+    take.  With ``qos`` (and the stages' ``disc_code`` / ``class_weights``)
+    the congestion stage is the QoS cascade instead, whose ``[B, S, H, C]``
+    delays also give the congestion per QoS class.  Returns one flat f32
+    tensor ``[latency, congestion, bandwidth, per_pool_latency (P),
+    per_switch_congestion (S), per_switch_bandwidth (S), per_host_latency
+    (H), per_host_congestion (H), per_host_bandwidth (H),
+    per_class_congestion (C, or 1 without ``qos``)]`` so the host needs one
+    transfer per batch.
     """
     n_rows = t.shape[0]
     V = pool_latency_ns.shape[0]
@@ -564,12 +573,30 @@ def _analyze_batch(
     big = torch.finfo(dtype).max / 4
     t_cur = torch.where(valid, t, big)
     per_switch_cong = torch.zeros((n_rows, S), dtype=dtype, device=dev)
-    if stage_stt_ns is None:
-        # -- congestion: the fused cascade (a kernel on the card) ----------- #
+    per_class_cong = None
+    if stage_stt_ns is None:  # the fused cascades: one route word per event
         ev_bits = torch.where(valid, bits_table[vp], 0)
         stage_idx = torch.tensor(stage_order, dtype=torch.int64, device=dev)
+        stage_stt = switch_stt_ns[stage_idx].contiguous()
+    if qos is not None:
+        # -- congestion: the QoS cascade (a kernel on the card) ------------- #
+        t_end, slot_idx, psd = kops.qos_congestion_cascade(
+            t_cur, ev_bits, stage_stt,
+            torch.where(valid, qos, 0), disc_code, class_weights,
+            hosts=None if n_hosts == 1 else host.contiguous(),
+            n_hosts=n_hosts,
+        )
+        # psd is [B, S_stages, H, C]: host- and class-segmented queueing delay
+        per_switch_cong[:, stage_idx] = psd.sum(dim=(2, 3))
+        per_class_cong = psd.sum(dim=(1, 2))
+        per_host_cong = None if n_hosts == 1 else psd.sum(dim=(1, 3))
+        # the QoS cascade's fold is data-driven, so slot order never
+        # matches input order
+        has_merges = True
+    elif stage_stt_ns is None:
+        # -- congestion: the fused cascade (a kernel on the card) ----------- #
         t_end, slot_idx, psd = kops.congestion_cascade(
-            t_cur, ev_bits, switch_stt_ns[stage_idx].contiguous(),
+            t_cur, ev_bits, stage_stt,
             merge_plan=merge_plan,
             hosts=None if n_hosts == 1 else host.contiguous(),
             n_hosts=n_hosts,
@@ -613,6 +640,8 @@ def _analyze_batch(
     congestion = per_switch_cong.sum(dim=1)
     if per_host_cong is None:
         per_host_cong = congestion[:, None]
+    if per_class_cong is None:
+        per_class_cong = congestion[:, None]
 
     if has_merges:
         # bandwidth runs in final slot order: gather the payloads through
@@ -665,7 +694,7 @@ def _analyze_batch(
         [
             latency[:, None], congestion[:, None], bandwidth[:, None],
             per_pool_lat, per_switch_cong, per_switch_bw,
-            per_host_lat, per_host_cong, per_host_bw,
+            per_host_lat, per_host_cong, per_host_bw, per_class_cong,
         ],
         dim=1,
     )
@@ -699,9 +728,12 @@ class EpochAnalyzer:
     Multi-host fabrics (``n_hosts > 1``) run the host-segmented cascade.
     ``fused=False`` runs the unfused per-stage loop, which fabrics whose
     switches plus per-host RCs exceed the 31-bit route word take
-    automatically, as in the reference.  QoS disciplines (slice 5),
-    ``pipeline=`` (slice 4) and ``mesh=`` (slice 6) raise
-    ``NotImplementedError``.
+    automatically, as in the reference.  Topologies with QoS classes or
+    arbitrating switches (``FlatTopology.has_qos``) run the QoS cascade,
+    host-segmented on multi-host fabrics, and report congestion per class;
+    it needs the fused cascade, so QoS on the unfused loop raises
+    ``ValueError`` as in the reference.  ``pipeline=`` (slice 4) and
+    ``mesh=`` (slice 6) raise ``NotImplementedError``.
     """
 
     def __init__(
@@ -714,10 +746,6 @@ class EpochAnalyzer:
         pipeline: bool = False,
         mesh=None,
     ):
-        if flat.has_qos:
-            raise NotImplementedError(
-                "QoS switch disciplines come with slice 5 of the port"
-            )
         if pipeline:
             raise NotImplementedError(
                 "the device-resident pipeline (pipeline=True) comes with "
@@ -741,6 +769,12 @@ class EpochAnalyzer:
         # included) in a 31-bit route word; wider fabrics fall back to the
         # unfused per-stage loop, slower but any host count works
         self.fused = bool(fused) and flat.n_switches <= 31
+        self.qos_on = bool(flat.has_qos)
+        if self.qos_on and not self.fused:
+            raise ValueError(
+                "QoS disciplines require the fused cascade: pass fused=True "
+                "and keep the fabric within the 31-switch route-word budget"
+            )
         if self.fused:
             bits_pool, self._merge_plan, self._stage_order = plan_cascade(flat)
             self._stage_stt = None
@@ -753,6 +787,16 @@ class EpochAnalyzer:
                 float(x) for x in np.asarray(flat.switch_stt_ns, np.float32)
             )
         self._bits_table = torch.tensor(bits_pool, dtype=torch.int32, device=dev)
+        if self.qos_on:  # per-stage disciplines and class weights, stage order
+            order = list(self._stage_order)
+            self._disc = torch.tensor(
+                flat.discipline_codes()[order], dtype=torch.int32, device=dev
+            )
+            self._weights = torch.tensor(
+                flat.class_weight_table()[order], dtype=f32, device=dev
+            )
+        else:
+            self._disc = self._weights = None
         self._stager = EventStager(np.float32)
 
     _bucket = staticmethod(bucket_pow2)
@@ -791,7 +835,7 @@ class EpochAnalyzer:
         traces = [tr for tr, _ in pairs]
         n_bucket = self._bucket(max(tr.n for tr in traces))
         b_bucket = self._bucket(len(traces), floor=1)
-        buf = self._stager.stage(traces, b_bucket, n_bucket)
+        buf = self._stager.stage(traces, b_bucket, n_bucket, qos=self.qos_on)
         scale_buf = np.ones((b_bucket, H * P), np.float32)
         for row, (_, sc) in enumerate(pairs):
             if sc is not None:
@@ -831,15 +875,16 @@ class EpochAnalyzer:
             n_hosts=H,
             merge_plan=self._merge_plan,
             stage_stt_ns=self._stage_stt,
+            qos=put(buf["qos"]) if self.qos_on else None,  # FIFO: no plane to move
+            disc_code=self._disc,
+            class_weights=self._weights,
         )
         # the single host-boundary crossing for the whole batch
         tot = out.cpu().numpy().astype(np.float64)
         lat, cong, bw = (float(x) for x in tot[:3])
-        parts = np.split(tot[3:], np.cumsum([P, S, S, H, H]))
-        ppl, psc, psb, phl, phc, phb = parts
-        return DelayBreakdown(
-            lat, cong, bw, ppl, psc, psb, phl, phc, phb, np.array([cong])
-        )
+        parts = np.split(tot[3:], np.cumsum([P, S, S, H, H, H]))
+        ppl, psc, psb, phl, phc, phb, pcc = parts
+        return DelayBreakdown(lat, cong, bw, ppl, psc, psb, phl, phc, phb, pcc)
 
     def analyze_batch_multi(self, *args, **kwargs):
         raise NotImplementedError(

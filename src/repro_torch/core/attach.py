@@ -324,9 +324,11 @@ class AttachedProgram(EngineClient):
         r.per_switch_congestion_ns += bd.per_switch_congestion_ns
         r.per_switch_bandwidth_ns += bd.per_switch_bandwidth_ns
         if bd.per_class_congestion_ns is not None:
-            r.per_class_congestion_ns += np.asarray(
-                bd.per_class_congestion_ns, np.float64
-            )
+            pcc = np.asarray(bd.per_class_congestion_ns, np.float64)
+            if len(pcc) == len(r.per_class_congestion_ns):
+                r.per_class_congestion_ns += pcc
+            else:  # qos-off breakdown on a multi-class fabric: all class 0
+                r.per_class_congestion_ns[0] += float(pcc.sum())
         r.simulated_s += ns_to_s(delay_ns)
         r.analyzer_s += analyzer_s
         fold_dispatch_stats(r, getattr(self._analyzer, "last_dispatch", None), 1)

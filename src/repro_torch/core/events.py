@@ -301,7 +301,11 @@ class EventStager:
         return buf
 
     def stage(
-        self, traces: Sequence["MemEvents"], b_bucket: int, n_bucket: int
+        self,
+        traces: Sequence["MemEvents"],
+        b_bucket: int,
+        n_bucket: int,
+        qos: bool = True,
     ) -> Dict[str, np.ndarray]:
         """Fill (in place) and return the buffer set for this bucket.
 
@@ -311,17 +315,21 @@ class EventStager:
         case is a monotone check plus plain copies).  Rows beyond
         ``len(traces)`` — and the tail of every row beyond its trace's
         event count — are marked invalid; ``span`` holds each epoch's max
-        issue time + 1 (0 for empty rows).
+        issue time + 1 (0 for empty rows).  ``qos=False`` leaves the ``qos``
+        plane as it was, for callers that do not read it (FIFO analyses).
         """
         if len(traces) > b_bucket:
             raise ValueError(f"{len(traces)} traces exceed batch bucket {b_bucket}")
         buf = self.buffers(b_bucket, n_bucket)
-        self._fill_rows(buf, traces, b_bucket)
+        self._fill_rows(buf, traces, b_bucket, qos)
         return buf
 
     @staticmethod
     def _fill_rows(
-        buf: Dict[str, np.ndarray], traces: Sequence["MemEvents"], b_bucket: int
+        buf: Dict[str, np.ndarray],
+        traces: Sequence["MemEvents"],
+        b_bucket: int,
+        with_qos: bool = True,
     ) -> None:
         """Fill one ``[B, N]`` buffer view."""
         for row in range(b_bucket):
@@ -343,7 +351,8 @@ class EventStager:
                 buf["bytes"][row, :n] = nbytes
                 buf["weight"][row, :n] = weight
                 buf["host"][row, :n] = host
-                buf["qos"][row, :n] = qos
+                if with_qos:
+                    buf["qos"][row, :n] = qos
                 buf["valid"][row, :n] = True
                 buf["span"][row] = float(t[-1]) + 1.0
             else:
@@ -353,7 +362,8 @@ class EventStager:
             buf["bytes"][row, n:] = 0.0
             buf["weight"][row, n:] = 0.0
             buf["host"][row, n:] = 0
-            buf["qos"][row, n:] = 0
+            if with_qos:
+                buf["qos"][row, n:] = 0
             buf["valid"][row, n:] = False
 
 

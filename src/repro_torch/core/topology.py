@@ -15,9 +15,10 @@ component is annotated with the paper's three quantities:
 
 Port of ``repro/core/topology.py`` (numpy only, arrays bitwise equal to the
 reference's).  The stacked parameter lowering (``TopologyOverride``,
-``FlatTopologyStack``, ``flatten_stack``) and ``QosSpec`` belong to later
-slices of the port; the per-switch discipline fields stay, because the
-analyzer reads ``FlatTopology.has_qos`` to refuse QoS fabrics.
+``FlatTopologyStack``, ``flatten_stack``) belongs to a later slice of the
+port.  Switches may arbitrate by QoS class (``Switch.discipline``,
+``class_weights``); :class:`QosSpec` re-disciplines a flattened topology's
+stages by name, as a sweep's ``qos`` axis does.
 
 **Multi-host fabrics** (the paper's pooling scenario): a topology may declare
 ``n_hosts`` attached servers.  Switches and expanders are *shared* fabric
@@ -43,6 +44,7 @@ __all__ = [
     "DISCIPLINES",
     "DISCIPLINE_CODES",
     "Pool",
+    "QosSpec",
     "Switch",
     "Topology",
     "FlatTopology",
@@ -57,6 +59,80 @@ __all__ = [
 # encoding the vectorized QoS cascade consumes (the reference's DESIGN.md §QoS arbitration)
 DISCIPLINES: Tuple[str, ...] = ("fifo", "priority", "wfq")
 DISCIPLINE_CODES: Dict[str, int] = {d: i for i, d in enumerate(DISCIPLINES)}
+
+
+@dataclasses.dataclass(frozen=True)
+class QosSpec:
+    """A hashable QoS arbitration policy — one value of a sweep's ``qos``
+    axis, applied on top of a topology's own per-switch settings.
+
+    ``discipline``/``class_weights`` set every switch; ``switch_disciplines``
+    / ``switch_weights`` override individual switches by name (a bare name
+    also matches its ECMP replicas ``name@r``).  Disciplines and weights are
+    *numeric data* to the QoS cascade, so scenarios differing only in a
+    :class:`QosSpec` run the same kernel.
+    """
+
+    discipline: Optional[str] = None
+    class_weights: Optional[Tuple[float, ...]] = None
+    switch_disciplines: Tuple[Tuple[str, str], ...] = ()
+    switch_weights: Tuple[Tuple[str, Tuple[float, ...]], ...] = ()
+
+    def __post_init__(self) -> None:
+        for d in (self.discipline, *(d for _, d in self.switch_disciplines)):
+            if d is not None and d not in DISCIPLINE_CODES:
+                raise ValueError(f"unknown discipline {d!r} (use {DISCIPLINES})")
+        for w in (self.class_weights, *(w for _, w in self.switch_weights)):
+            if w is not None and (len(w) == 0 or any(x <= 0 for x in w)):
+                raise ValueError("class weights must be non-empty and positive")
+
+    def n_classes(self) -> int:
+        n = len(self.class_weights) if self.class_weights else 1
+        for _, w in self.switch_weights:
+            n = max(n, len(w))
+        return n
+
+    def apply(
+        self,
+        disc_row: np.ndarray,  # [S] i32, mutated in place
+        w_row: np.ndarray,  # [S, C] float, mutated in place
+        switch_names: Sequence[str],
+    ) -> None:
+        base = [n.split("@")[0] for n in switch_names]
+
+        def select(name: str) -> List[int]:
+            sel = [
+                i for i, b in enumerate(base)
+                if b == name or switch_names[i] == name
+            ]
+            if not sel:
+                raise ValueError(f"QosSpec names unknown switch {name!r}")
+            return sel
+
+        if self.discipline is not None:
+            disc_row[:] = DISCIPLINE_CODES[self.discipline]
+        if self.class_weights is not None:
+            w = np.asarray(self.class_weights, w_row.dtype)
+            w_row[:, : len(w)] = w
+        for name, d in self.switch_disciplines:
+            disc_row[select(name)] = DISCIPLINE_CODES[d]
+        for name, ws in self.switch_weights:
+            w_row[np.ix_(select(name), range(len(ws)))] = np.asarray(
+                ws, w_row.dtype
+            )
+
+    def describe(self) -> str:
+        parts = []
+        if self.discipline is not None:
+            parts.append(self.discipline)
+        if self.class_weights is not None:
+            parts.append(":".join(f"{w:g}" for w in self.class_weights))
+        parts += [f"{n}={d}" for n, d in self.switch_disciplines]
+        parts += [
+            f"{n}={':'.join(f'{x:g}' for x in ws)}"
+            for n, ws in self.switch_weights
+        ]
+        return "qos[" + ",".join(parts or ["base"]) + "]"
 
 
 @dataclasses.dataclass(frozen=True)

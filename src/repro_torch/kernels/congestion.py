@@ -1,24 +1,28 @@
 """Build, binding and wrappers of the hand-written Hopper congestion kernels.
 
-Two CUDA C++ sources under ``csrc/``, each its own shared library with plain
-C entry points (their headers say which TPU kernel each replaces, what
+Three CUDA C++ sources under ``csrc/``, each its own shared library with
+plain C entry points (their headers say which TPU kernel each replaces, what
 bounds it and what the design does about that):
 
 - ``congestion_cascade.cu``: the fused S-stage cascade, single-host
   (:func:`congestion_cascade`) and host-segmented
   (:func:`congestion_cascade_hosts`), one template body;
 - ``congestion_scan.cu``: one switch's masked FIFO scan
-  (:func:`congestion_scan`), the unfused per-stage loop's kernel.
+  (:func:`congestion_scan`), the unfused per-stage loop's kernel;
+- ``qos_cascade.cu``: the QoS-arbitrated cascade (priority / WFQ / FIFO per
+  stage), single-host (:func:`qos_congestion_cascade`) and host-segmented
+  (:func:`qos_congestion_cascade_hosts`), one template body.
 
-Both include ``csrc/block_scan.cuh``.  Each library is compiled at first use
+All include ``csrc/block_scan.cuh``.  Each library is compiled at first use
 by ``nvcc`` for ``sm_90a``, cached under ``build/repro_torch_kernels/`` at the
 repository root by a hash of its sources and flags, and loaded with
 ``ctypes``; :func:`build_all` runs one ``nvcc`` per source at once.  Nothing
 is built or loaded when this module is imported.
 
 The wrappers take CUDA tensors only; :mod:`.ops` dispatches CPU tensors to
-the plain versions (:mod:`.ref`).  ``launches``, ``hosts_launches`` and
-``scan_launches`` count the launches each wrapper made.
+the plain versions (:mod:`.ref`).  ``launches``, ``hosts_launches``,
+``scan_launches``, ``qos_launches`` and ``qos_hosts_launches`` count the
+launches each wrapper made.
 """
 
 from __future__ import annotations
@@ -36,6 +40,8 @@ from typing import Dict, Tuple
 
 import torch
 
+from . import ref
+
 __all__ = [
     "BuildResult",
     "SOURCES",
@@ -46,6 +52,10 @@ __all__ = [
     "congestion_scan",
     "hosts_launches",
     "launches",
+    "qos_congestion_cascade",
+    "qos_congestion_cascade_hosts",
+    "qos_hosts_launches",
+    "qos_launches",
     "scan_launches",
 ]
 
@@ -53,6 +63,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = {
     "congestion_cascade": CSRC / "congestion_cascade.cu",
     "congestion_scan": CSRC / "congestion_scan.cu",
+    "qos_cascade": CSRC / "qos_cascade.cu",
 }
 HEADERS = (CSRC / "block_scan.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -62,11 +73,14 @@ NVCC_FLAGS = (
     "-Xptxas=-v",  # register / shared-memory / spill report in the build log
 )
 MAX_STAGES = 31  # stage s is bit s of an int32 route word
-MAX_HOSTS = 32  # per-host delay slots of the hosts kernel
+MAX_HOSTS = 32  # per-host delay slots of the hosts kernels
+MAX_CLASSES = 8  # QoS classes of the QoS kernel (kMaxClasses)
 
 launches = 0  # kernel launches made by congestion_cascade
 hosts_launches = 0  # kernel launches made by congestion_cascade_hosts
 scan_launches = 0  # kernel launches made by congestion_scan
+qos_launches = 0  # kernel launches made by qos_congestion_cascade
+qos_hosts_launches = 0  # kernel launches made by qos_congestion_cascade_hosts
 
 _libs: Dict[str, ctypes.CDLL] = {}
 
@@ -138,11 +152,18 @@ def _load(name: str) -> ctypes.CDLL:
                 i64, i64, i32, i32, ptr,
             ]
             lib.congestion_cascade_hosts_launch.restype = i32
-        else:
+        elif name == "congestion_scan":
             lib.congestion_scan_launch.argtypes = [
                 ptr, ptr, ctypes.c_float, ptr, ptr, i64, i64, ptr,
             ]
             lib.congestion_scan_launch.restype = i32
+        else:
+            lib.qos_cascade_launch.argtypes = [ptr] * 14 + [i64, i64, i32, i32, ptr]
+            lib.qos_cascade_launch.restype = i32
+            lib.qos_cascade_hosts_launch.argtypes = [ptr] * 15 + [
+                i64, i64, i32, i32, i32, ptr,
+            ]
+            lib.qos_cascade_hosts_launch.restype = i32
         err = getattr(lib, f"{name}_error_string")
         err.argtypes = [i32]
         err.restype = ctypes.c_char_p
@@ -294,3 +315,118 @@ def congestion_scan(
     _raise_on(rc, "congestion_scan", lib, "congestion_scan")
     scan_launches += 1
     return start, delay
+
+
+def _qos_limits(class_weights: torch.Tensor, n_hosts: int) -> int:
+    """The kernel's fixed limits, checked before anything else."""
+    n_classes = int(class_weights.shape[-1])
+    if not 1 <= n_classes <= MAX_CLASSES:
+        raise ValueError(
+            f"{n_classes} QoS classes: the QoS kernel takes 1 to "
+            f"kMaxClasses={MAX_CLASSES}"
+        )
+    if not 1 <= n_hosts <= MAX_HOSTS:
+        raise ValueError(f"n_hosts={n_hosts} outside [1, kMaxHosts={MAX_HOSTS}]")
+    return n_classes
+
+
+def _qos_inputs(t, bits, qos, stts, disc_code, class_weights) -> Tuple[int, int, int]:
+    n_rows, n, n_stages = _cascade_inputs(t, bits, stts)
+    _check("qos", qos, torch.int32, 2)
+    _check("disc_code", disc_code, torch.int32, 1)
+    _check("class_weights", class_weights, torch.float32, 2)
+    if qos.shape != t.shape or qos.device != t.device:
+        raise ValueError(
+            f"qos {tuple(qos.shape)} on {qos.device} must match t "
+            f"{tuple(t.shape)} on {t.device}"
+        )
+    if disc_code.device != t.device or class_weights.device != t.device:
+        raise ValueError("disc_code and class_weights must lie on t's device")
+    if disc_code.shape[0] != n_stages or class_weights.shape[0] != n_stages:
+        raise ValueError(
+            f"disc_code {tuple(disc_code.shape)} and class_weights "
+            f"{tuple(class_weights.shape)} must give one row per stage ({n_stages})"
+        )
+    return n_rows, n, n_stages
+
+
+def _qos_launch(t, bits, qos, hosts, stts, disc_code, class_weights, n_hosts):
+    n_classes = _qos_limits(class_weights, n_hosts)
+    n_rows, n, n_stages = _qos_inputs(t, bits, qos, stts, disc_code, class_weights)
+    table = ref.qos_service_table(stts, disc_code, class_weights)
+    t_out = torch.empty_like(t)
+    idx = torch.empty_like(bits)
+    psd = torch.empty(
+        (n_rows, n_stages, n_hosts, n_classes), dtype=torch.float32, device=t.device
+    )
+    bits_work, comp_t, comp_bits, comp_idx = _cascade_scratch(t, bits)
+    run_id = torch.empty(t.shape, dtype=torch.uint8, device=t.device)
+    lib = _load("qos_cascade")
+    with torch.cuda.device(t.device):
+        stream = torch.cuda.current_stream(t.device).cuda_stream
+        common = (
+            stts.data_ptr(), table.data_ptr(), disc_code.data_ptr(), t_out.data_ptr(),
+            idx.data_ptr(), bits_work.data_ptr(), comp_t.data_ptr(), comp_bits.data_ptr(),
+            comp_idx.data_ptr(), run_id.data_ptr(), psd.data_ptr(), n_rows, n, n_stages,
+            n_classes,
+        )
+        if hosts is None:
+            rc = lib.qos_cascade_launch(
+                t.data_ptr(), bits.data_ptr(), qos.data_ptr(), *common, stream
+            )
+        else:
+            rc = lib.qos_cascade_hosts_launch(
+                t.data_ptr(), bits.data_ptr(), qos.data_ptr(), hosts.data_ptr(), *common,
+                n_hosts, stream,
+            )
+    _raise_on(rc, "qos_cascade", lib,
+              "qos_congestion_cascade" + ("" if hosts is None else "_hosts"))
+    return t_out, idx, psd
+
+
+def qos_congestion_cascade(
+    t: torch.Tensor,  # [B, N] f32 CUDA, each row time-sorted (pads: finfo.max/4)
+    bits: torch.Tensor,  # [B, N] i32 CUDA route words
+    qos: torch.Tensor,  # [B, N] i32 CUDA QoS classes, same order as t
+    stts: torch.Tensor,  # [S] f32 CUDA, service times in stage order
+    disc_code: torch.Tensor,  # [S] i32 CUDA discipline codes (ref.DISC_*)
+    class_weights: torch.Tensor,  # [S, C] f32 CUDA per-stage class weights
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the QoS cascade on the current stream; returns ``(t_final
+    [B, N] f32, slot_idx [B, N] i32, per_stage_delay [B, S, 1, C] f32)`` with
+    the semantics of :func:`repro_torch.kernels.ref.qos_cascade_dyn`.
+    Classes outside ``[0, C)`` are clipped.  Does not synchronize."""
+    global qos_launches
+    out = _qos_launch(t, bits, qos, None, stts, disc_code, class_weights, 1)
+    qos_launches += 1
+    return out
+
+
+def qos_congestion_cascade_hosts(
+    t: torch.Tensor,  # [B, N] f32 CUDA, each row time-sorted (pads: finfo.max/4)
+    bits: torch.Tensor,  # [B, N] i32 CUDA route words
+    qos: torch.Tensor,  # [B, N] i32 CUDA QoS classes, same order as t
+    hosts: torch.Tensor,  # [B, N] i32 CUDA host ids in [0, n_hosts), same order as t
+    stts: torch.Tensor,  # [S] f32 CUDA, service times in stage order
+    disc_code: torch.Tensor,  # [S] i32 CUDA discipline codes (ref.DISC_*)
+    class_weights: torch.Tensor,  # [S, C] f32 CUDA per-stage class weights
+    n_hosts: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the host-segmented QoS cascade on the current stream; returns
+    ``(t_final [B, N] f32, slot_idx [B, N] i32, per_stage_delay [B, S,
+    n_hosts, C] f32)`` with the semantics of
+    :func:`repro_torch.kernels.ref.qos_cascade_dyn` with ``hosts``.  Host
+    ids outside ``[0, n_hosts)`` are charged to no host.  Does not
+    synchronize."""
+    global qos_hosts_launches
+    n_hosts = int(n_hosts)
+    _qos_limits(class_weights, n_hosts)
+    _check("hosts", hosts, torch.int32, 2)
+    if hosts.shape != t.shape or hosts.device != t.device:
+        raise ValueError(
+            f"hosts {tuple(hosts.shape)} on {hosts.device} must match t "
+            f"{tuple(t.shape)} on {t.device}"
+        )
+    out = _qos_launch(t, bits, qos, hosts, stts, disc_code, class_weights, n_hosts)
+    qos_hosts_launches += 1
+    return out

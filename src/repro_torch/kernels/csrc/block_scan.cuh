@@ -1,5 +1,5 @@
 // Block-wide scans shared by the congestion kernels (congestion_cascade.cu,
-// congestion_scan.cu): one block of kThreads threads walks an epoch row in
+// congestion_scan.cu, qos_cascade.cu): one block of kThreads threads walks an epoch row in
 // tiles of kTile events, kItems consecutive events per thread, and carries
 // the running count and max between tiles in registers.
 
@@ -117,9 +117,12 @@ __device__ __forceinline__ double block_sum(double v, Smem& sm) {
 // and the running max of t - stt*rank over earlier tiles.  On return m[k]
 // events have start[k] = max(carry, cummax(t - stt*rank)) + stt*rank, every
 // product and sum rounded by itself (no fused multiply-add), and the carries
-// include this tile.  Every thread of the block must call it.
+// include this tile.  Count is the carry's integer type (the rank converts to
+// f32 from its exact integer value either way).  Every thread of the block
+// must call it.
+template <typename Count>
 __device__ __forceinline__ void scan_tile(const float (&tv)[kItems], const bool (&m)[kItems],
-                                          float stt, long long& carry_c, float& carry_f,
+                                          float stt, Count& carry_c, float& carry_f,
                                           float (&start)[kItems], Smem& sm) {
   float p[kItems], lm[kItems];
   int rl[kItems];
@@ -134,7 +137,7 @@ __device__ __forceinline__ void scan_tile(const float (&tv)[kItems], const bool 
   float run = -INFINITY;
 #pragma unroll
   for (int k = 0; k < kItems; ++k) {
-    const long long rank = carry_c + excl_c + rl[k];
+    const long long rank = static_cast<long long>(carry_c) + excl_c + rl[k];
     p[k] = __fmul_rn(stt, __ll2float_rn(rank));
     const float g = m[k] ? __fsub_rn(tv[k], p[k]) : -INFINITY;
     run = fmaxf(run, g);

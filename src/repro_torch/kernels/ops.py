@@ -2,10 +2,10 @@
 
 A CPU tensor runs the plain PyTorch version (:mod:`.ref`); a CUDA tensor
 runs the hand-written kernel or raises.  There is no fallback from one to
-the other.  ``plain_launches`` counts the plain path's calls here, cascade
+the other.  ``plain_launches`` counts the plain path's calls here, cascades
 and queue alike; the kernel path counts its launches in
 :mod:`repro_torch.kernels.congestion` (``launches``, ``hosts_launches``,
-``scan_launches``).
+``scan_launches``, ``qos_launches``, ``qos_hosts_launches``).
 """
 
 from __future__ import annotations
@@ -17,9 +17,14 @@ import torch
 from . import congestion as _kernel
 from . import ref
 
-__all__ = ["congestion_cascade", "congestion_queue", "plain_launches"]
+__all__ = [
+    "congestion_cascade",
+    "congestion_queue",
+    "plain_launches",
+    "qos_congestion_cascade",
+]
 
-plain_launches = 0  # congestion_cascade / congestion_queue calls that ran the plain version
+plain_launches = 0  # calls of this module's entry points that ran the plain version
 
 
 def congestion_cascade(
@@ -68,3 +73,34 @@ def congestion_queue(
     if t.device.type == "cuda":
         return _kernel.congestion_scan(t, mask, stt)
     raise ValueError(f"no congestion_queue for tensors on {t.device}")
+
+
+def qos_congestion_cascade(
+    t: torch.Tensor,  # [B, N] f32, each row time-sorted
+    bits: torch.Tensor,  # [B, N] i32 route words
+    stts: torch.Tensor,  # [S] f32 service times in stage order
+    qos: torch.Tensor,  # [B, N] i32 QoS classes, same order as t
+    disc_code: torch.Tensor,  # [S] i32 discipline codes (ref.DISC_*)
+    class_weights: torch.Tensor,  # [S, C] f32 per-stage class weights
+    hosts: Optional[torch.Tensor] = None,  # [B, N] i32 host ids, same order as t
+    n_hosts: int = 1,
+):
+    """QoS-arbitrated cascade (priority / WFQ / FIFO per stage) over a batch
+    of time-sorted epochs; returns ``(t_final [B, N], slot_idx [B, N],
+    per_stage_delay [B, S, H, C])`` with ``H = n_hosts`` (1 without
+    ``hosts``); see :func:`repro_torch.kernels.ref.qos_cascade_dyn`.  On the
+    card the single-host kernel runs, or with ``hosts`` the host-segmented
+    one."""
+    global plain_launches
+    if t.device.type == "cpu":
+        plain_launches += 1
+        return ref.qos_cascade_dyn(
+            t, bits, stts, qos, disc_code, class_weights, hosts=hosts, n_hosts=n_hosts
+        )
+    if t.device.type == "cuda":
+        if hosts is None:
+            return _kernel.qos_congestion_cascade(t, bits, qos, stts, disc_code, class_weights)
+        return _kernel.qos_congestion_cascade_hosts(
+            t, bits, qos, hosts, stts, disc_code, class_weights, n_hosts
+        )
+    raise ValueError(f"no qos_congestion_cascade for tensors on {t.device}")

@@ -1,6 +1,8 @@
 """Plain PyTorch versions of the congestion kernels (port of
 ``repro/kernels/ref.py``): the fused cascade, single-host and
-host-segmented, and the single-switch scan.
+host-segmented, the single-switch scan, and the QoS-arbitrated cascade
+(priority / WFQ / FIFO per switch; a static-discipline spec and the
+data-driven form the kernel computes).
 
 They define what the CUDA kernels (:mod:`repro_torch.kernels.congestion`)
 compute.  The CPU tests hold them against the reference, ``chip_smoke.py``
@@ -20,11 +22,21 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 __all__ = [
+    "DISC_FIFO",
+    "DISC_PRIORITY",
+    "DISC_WFQ",
     "congestion_scan",
     "merge_sorted_runs",
+    "qos_cascade_dyn",
+    "qos_serial_queue_cascade",
+    "qos_service_table",
     "serial_queue",
     "serial_queue_cascade",
 ]
+
+# discipline codes of the data-driven QoS cascade (the topology's
+# DISCIPLINE_CODES order: fifo, priority, wfq)
+DISC_FIFO, DISC_PRIORITY, DISC_WFQ = 0, 1, 2
 
 
 def _big(dtype: torch.dtype) -> float:
@@ -205,4 +217,311 @@ def serial_queue_cascade(
         psd = torch.cat(per_stage, dim=-1)
     else:
         psd = torch.zeros(ts.shape[:-1] + (0,), dtype=dtype, device=ts.device)
+    return ts, idx.contiguous(), psd
+
+
+# --------------------------------------------------------------------------- #
+# QoS arbitration cascades
+# --------------------------------------------------------------------------- #
+
+
+def qos_service_table(
+    stts: torch.Tensor,  # [S] f32 service times in stage order
+    disc_code: torch.Tensor,  # [S] i32 DISC_* codes
+    class_weights: torch.Tensor,  # [S, C] per-stage class weights
+) -> torch.Tensor:
+    """``[S, C]`` f32 service time of each (stage, class) queue: ``(stt·W) /
+    w_c`` under WFQ, ``W`` the f32 sum of the stage's weights in class
+    order, and ``stt`` under FIFO and priority.  The plain cascades and the
+    kernel's wrapper both take their service times from here, so they
+    start from the same f32 values."""
+    stts = stts.to(torch.float32)
+    w = class_weights.to(device=stts.device, dtype=torch.float32)
+    total = w[:, 0]
+    for c in range(1, w.shape[1]):
+        total = total + w[:, c]
+    wfq = (disc_code.to(stts.device) == DISC_WFQ)[:, None]
+    return torch.where(wfq, (stts * total)[:, None] / w, stts[:, None]).contiguous()
+
+
+def _class_delays(
+    d: torch.Tensor,  # [..., N] per-slot delay
+    q_cur: torch.Tensor,  # [..., N] actual class of the event in each slot
+    idx: torch.Tensor,  # [..., N] slot -> input position
+    hosts: Optional[torch.Tensor],  # [..., N] host ids in input order
+    n_hosts: int,
+    n_classes: int,
+) -> torch.Tensor:
+    """``[..., H, C]`` delay sums by (host, class), accumulated in f64 (as
+    the kernel's are) and rounded to ``d``'s type."""
+    seg = q_cur.to(torch.int64)
+    if hosts is not None:
+        h = torch.gather(hosts, -1, idx.to(torch.int64)).to(torch.int64)
+        seg = h * n_classes + seg
+    out = torch.zeros(
+        d.shape[:-1] + (n_hosts * n_classes,), dtype=torch.float64, device=d.device
+    )
+    out.scatter_add_(-1, seg, d.to(torch.float64))
+    return out.to(d.dtype).view(d.shape[:-1] + (n_hosts, n_classes))
+
+
+def _qos_fold(ts, bits, idx, qos, s, n_classes, dirty, fifo_like):
+    """Restore sortedness after stage ``s``'s per-class scans (the static
+    spec's fold): ``C`` sequential :func:`merge_sorted_runs` calls, step
+    ``c`` merging class ``c``'s run *within* the subsequence that excludes
+    the not-yet-folded classes ``> c``.  ``fifo_like`` treats every event
+    as class 0, which makes step 0 the conservative full two-run merge and
+    the rest identities.  Rows whose cumulative delay is not positive keep
+    their order."""
+    go = dirty > 0
+    for c in range(n_classes):
+        m_cur = ((bits >> s) & 1) == 1
+        q_cur = torch.gather(qos, -1, idx.to(torch.int64))
+        if fifo_like:
+            q_cur = torch.zeros_like(q_cur)
+        changed = m_cur & (q_cur == c)
+        within = ~(m_cur & (q_cur > c))
+        m_ts, m_bits, m_idx = merge_sorted_runs(ts, changed, bits, idx, within=within)
+        ts = torch.where(go, m_ts, ts)
+        bits = torch.where(go, m_bits, bits)
+        idx = torch.where(go, m_idx, idx)
+    return ts, bits, idx
+
+
+def qos_serial_queue_cascade(
+    t_sorted: torch.Tensor,  # [..., N] f32, time-sorted arrivals per row
+    route_bits: torch.Tensor,  # [..., N] i32, bit s set iff event crosses stage s
+    stts: torch.Tensor,  # [S] f32, service times in stage order
+    qos: torch.Tensor,  # [..., N] i32 QoS class per event, input order
+    class_weights: torch.Tensor,  # [S, C] per-stage WFQ class weights
+    disciplines: Sequence[str],  # one of "fifo" | "priority" | "wfq" per stage
+    merge_plan: Optional[Sequence] = None,  # forwarded to the all-FIFO path
+    hosts: Optional[torch.Tensor] = None,  # [..., N] i32 host ids, input order
+    n_hosts: int = 1,
+):
+    """QoS-arbitrated S-stage cascade with static disciplines (the spec the
+    data-driven :func:`qos_cascade_dyn` is held to).
+
+    * ``fifo`` — the plain serial queue;
+    * ``priority`` — strict priority, FIFO within class (class 0 highest):
+      an event of class ``c`` starts as the FIFO scan over the classes
+      ``<= c`` says — it waits behind every earlier higher-or-equal arrival
+      and is invisible to them;
+    * ``wfq`` — class ``c`` is its own FIFO queue with service time
+      ``stt·W / w_c`` (the fluid GPS limit: a ``w_c / W`` bandwidth share).
+
+    With every stage ``fifo`` this takes exactly the
+    :func:`serial_queue_cascade` path (its merge schedule and scan
+    arithmetic), so final times and slot indices are bitwise equal; the
+    class only splits the delays.  Otherwise every stage but the last is
+    followed by the per-class fold of :func:`_qos_fold`.
+
+    Returns ``(t_final [..., N], slot_idx [..., N], per_stage_delay)``, the
+    delays ``[..., S, C]`` (``[..., S, n_hosts, C]`` with ``hosts``),
+    charged to the (host, class) whose event waited.
+    """
+    dtype = t_sorted.dtype
+    n = t_sorted.shape[-1]
+    s_stages = int(stts.shape[0])
+    n_classes = int(class_weights.shape[-1])
+    disciplines = tuple(disciplines)
+    if len(disciplines) != s_stages:
+        raise ValueError(f"{len(disciplines)} disciplines for {s_stages} stages")
+    codes = []
+    for d in disciplines:
+        if d not in ("fifo", "priority", "wfq"):
+            raise ValueError(f"unknown discipline {d!r}")
+        codes.append(("fifo", "priority", "wfq").index(d))
+    all_fifo = all(d == "fifo" for d in disciplines)
+    if merge_plan is None:
+        merge_plan = tuple(((s - 1, None),) if s else () for s in range(s_stages))
+    table = qos_service_table(
+        stts, torch.tensor(codes, dtype=torch.int32, device=stts.device), class_weights
+    )
+    ts = t_sorted
+    bits = route_bits.to(torch.int32)
+    qos = qos.to(torch.int32).clamp(0, n_classes - 1)
+    idx = torch.arange(n, dtype=torch.int32, device=ts.device).expand_as(bits)
+    if hosts is None:
+        n_hosts = 1
+    dirty = torch.zeros(ts.shape[:-1] + (1,), dtype=dtype, device=ts.device)
+    per_stage = []
+    for s in range(s_stages):
+        if all_fifo:
+            # serial_queue_cascade's merge schedule, bitwise
+            for changed_bit, within_bit in merge_plan[s]:
+                changed = ((bits >> changed_bit) & 1) == 1
+                within = None if within_bit is None else ((bits >> within_bit) & 1) == 1
+                m_ts, m_bits, m_idx = merge_sorted_runs(
+                    ts, changed, bits, idx, within=within
+                )
+                go = dirty > 0
+                ts = torch.where(go, m_ts, ts)
+                bits = torch.where(go, m_bits, bits)
+                idx = torch.where(go, m_idx, idx)
+        m = ((bits >> s) & 1) == 1
+        q_cur = torch.gather(qos, -1, idx.to(torch.int64))
+        disc = disciplines[s]
+        if disc == "fifo":
+            start = serial_queue(ts, m, stts[s])
+        elif disc == "priority":
+            start = ts
+            for lvl in range(n_classes):
+                sc = serial_queue(ts, m & (q_cur <= lvl), stts[s])
+                start = torch.where(m & (q_cur == lvl), sc, start)
+        else:
+            start = ts
+            for c in range(n_classes):
+                M = m & (q_cur == c)
+                start = torch.where(M, serial_queue(ts, M, table[s, c]), start)
+        d = torch.where(m, start - ts, 0.0)
+        dsum = d.sum(dim=-1, keepdim=True)
+        if hosts is None and n_classes == 1:
+            per_stage.append(dsum)  # the FIFO cascade's own sum, bitwise
+        else:
+            per_stage.append(_class_delays(d, q_cur, idx, hosts, n_hosts, n_classes))
+        dirty = dirty + dsum
+        ts = torch.where(m, start, ts)
+        if not all_fifo and s < s_stages - 1:
+            ts, bits, idx = _qos_fold(
+                ts, bits, idx, qos, s, n_classes, dirty, fifo_like=(disc == "fifo")
+            )
+    if hosts is None and n_classes == 1:
+        psd = torch.stack(per_stage, dim=-2)  # [..., S, 1]
+    else:
+        psd = torch.stack(per_stage, dim=-3)
+        if hosts is None:
+            psd = psd[..., 0, :]
+    return ts, idx.contiguous(), psd
+
+
+def _f32_sort_key(ts: torch.Tensor) -> torch.Tensor:
+    """Order-preserving int32 image of an f32 tensor: non-negative floats'
+    bit patterns are already monotone, negatives get their magnitude bits
+    flipped so that more negative sorts lower."""
+    x = ts.to(torch.float32).contiguous().view(torch.int32)
+    return torch.where(x >= 0, x, x ^ 0x7FFFFFFF)
+
+
+def _qos_rank_fold(ts, bits, idx, run_id, n_runs):
+    """Restore time order after a stage by ONE stable multi-run merge.
+
+    Each row interleaves ``n_runs`` individually sorted runs (the per-class
+    start-time runs and the untouched events).  An element's merged
+    position is its rank in its own run plus, for every other run ``j``,
+    the run-``j`` elements that precede it: with ``a`` the run-``j`` keys
+    below its key, ``a2`` those at or below, and ``pc`` the run-``j``
+    elements at earlier array positions, that count is ``clamp(pc, a,
+    a2)`` — tied elements keep their array order.  That is the DES heap's
+    tie rule (push order, which is the previous stage's processing order).
+    ``a`` and ``a2`` are ``searchsorted`` counts against run ``j``'s cummax
+    key envelope (within a run, keys never decrease along the row)."""
+    key = _f32_sort_key(ts)
+    neg = torch.iinfo(torch.int32).min
+    pos = torch.zeros_like(key)
+    for j in range(n_runs):
+        mj = run_id == j
+        env = torch.cummax(torch.where(mj, key, neg), dim=-1).values.contiguous()
+        pcj = torch.cumsum(mj.to(torch.int32), dim=-1, dtype=torch.int32)  # inclusive
+        counts = []
+        for right in (False, True):
+            p = torch.searchsorted(env, key, right=right)
+            got = torch.gather(pcj, -1, (p - 1).clamp(min=0))
+            counts.append(torch.where(p > 0, got, 0))
+        stable = torch.minimum(torch.maximum(pcj, counts[0]), counts[1])
+        pos = pos + torch.where(mj, pcj - 1, stable)
+    pos = pos.to(torch.int64)
+    return tuple(torch.zeros_like(x).scatter(-1, pos, x) for x in (ts, bits, idx))
+
+
+def qos_cascade_dyn(
+    t_sorted: torch.Tensor,  # [..., N] f32, time-sorted arrivals per row
+    route_bits: torch.Tensor,  # [..., N] i32, bit s set iff event crosses stage s
+    stts: torch.Tensor,  # [S] f32, service times in stage order
+    qos: torch.Tensor,  # [..., N] i32 QoS class per event, input order
+    disc_code: torch.Tensor,  # [S] i32 DISC_* code per stage
+    class_weights: torch.Tensor,  # [S, C] per-stage class weights
+    hosts: Optional[torch.Tensor] = None,  # [..., N] i32 host ids, input order
+    n_hosts: int = 1,
+):
+    """Data-driven QoS cascade: disciplines and weights are operands (the
+    plain version of the QoS cascade kernel).
+
+    Per stage ``s`` with nonzero service, ``C`` per-class closed-form scans
+    (:func:`serial_queue`): class ``c``'s queue holds the stage's events with
+    ``q_eff <= c`` under priority and ``q_eff == c`` otherwise, ``q_eff``
+    being the event's class (0 for every event at a FIFO stage), with the
+    service time of :func:`qos_service_table`; an event starts as its own
+    class's scan says.  A zero-service stage is an identity (the DES never
+    queues there).  Delays are charged to the event's *actual* class.
+
+    After every stage but the last, rows whose cumulative delay is positive
+    are re-sorted by the stable rank fold :func:`_qos_rank_fold` over the
+    ``C + 1`` runs (the stage's events keyed by ``q_eff``, then the untouched
+    ones) — unless the next stage is WFQ over the same events of the row
+    (WFQ reads only each class's own subsequence, which every stage leaves
+    sorted) or is the last stage and serves in zero time.
+
+    The schedule (stable fold, fold elision, zero-service skip, cumulative
+    guard) is that of the reference's ``qos_cascade_dyn``; the per-stage
+    arithmetic is the FIFO cascade's closed form, class by class.
+
+    Returns ``(t_final [..., N], slot_idx [..., N] i32, per_stage_delay
+    [..., S, H, C])`` with ``H = n_hosts`` (1 without ``hosts``).
+    """
+    dtype = t_sorted.dtype
+    n = t_sorted.shape[-1]
+    s_stages = int(stts.shape[0])
+    n_classes = int(class_weights.shape[-1])
+    ts = t_sorted
+    bits = route_bits.to(torch.int32)
+    qos = qos.to(torch.int32).clamp(0, n_classes - 1)
+    idx = torch.arange(n, dtype=torch.int32, device=ts.device).expand_as(bits)
+    if hosts is None:
+        n_hosts = 1
+    codes = [int(x) for x in disc_code.tolist()]
+    served = [float(x) > 0 for x in stts.tolist()]
+    table = qos_service_table(stts, disc_code, class_weights)
+    # cumulative delay per row, f64 as the kernel's: 0 => nothing moved
+    dirty = torch.zeros(ts.shape[:-1] + (1,), dtype=torch.float64, device=ts.device)
+    per_stage = []
+    for s in range(s_stages):
+        m = ((bits >> s) & 1) == 1
+        q_cur = torch.gather(qos, -1, idx.to(torch.int64))
+        q_eff = torch.zeros_like(q_cur) if codes[s] == DISC_FIFO else q_cur
+        if served[s]:
+            start = ts
+            for c in range(1 if codes[s] == DISC_FIFO else n_classes):
+                sel = (q_eff <= c) if codes[s] == DISC_PRIORITY else (q_eff == c)
+                sc = serial_queue(ts, m & sel, table[s, c])
+                start = torch.where(m & (q_eff == c), sc, start)
+            d = torch.where(m, start - ts, 0.0)
+            ts = torch.where(m, start, ts)
+        else:
+            d = torch.zeros_like(ts)
+        per_stage.append(_class_delays(d, q_cur, idx, hosts, n_hosts, n_classes))
+        dirty = dirty + d.to(torch.float64).sum(dim=-1, keepdim=True)
+        if s == s_stages - 1:
+            break
+        nxt = ((bits >> (s + 1)) & 1) == 1
+        if codes[s + 1] == DISC_WFQ:
+            skip = (nxt == m).all(dim=-1, keepdim=True)
+        else:
+            skip = torch.zeros_like(dirty, dtype=torch.bool)
+        if s + 1 == s_stages - 1 and not served[s + 1]:
+            skip = torch.ones_like(skip)
+        do_fold = (dirty > 0) & ~skip
+        if not bool(do_fold.any()):
+            continue
+        run_id = torch.where(m, q_eff, n_classes)
+        f_ts, f_bits, f_idx = _qos_rank_fold(ts, bits, idx, run_id, n_classes + 1)
+        ts = torch.where(do_fold, f_ts, ts)
+        bits = torch.where(do_fold, f_bits, bits)
+        idx = torch.where(do_fold, f_idx, idx)
+    if per_stage:
+        psd = torch.stack(per_stage, dim=-3)
+    else:
+        psd = torch.zeros(
+            ts.shape[:-1] + (0, n_hosts, n_classes), dtype=dtype, device=ts.device
+        )
     return ts, idx.contiguous(), psd

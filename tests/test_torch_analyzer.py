@@ -146,9 +146,7 @@ def test_analyzer_runs_the_plain_cascade_on_cpu():
 
 def test_unported_options_name_their_slice():
     fig = t_topo.figure1_topology().flatten()
-    qos = t_topo.pooled_topology(n_hosts=1, discipline="priority").flatten()
     cases = [
-        (dict(flat=qos), "slice 5"),
         (dict(flat=fig, pipeline=True), "slice 4"),
         (dict(flat=fig, mesh=object()), "slice 6"),
     ]
