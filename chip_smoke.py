@@ -8,9 +8,10 @@ Phases (any failure exits non-zero and prints no result):
 1. environment: torch / CUDA versions, the card's name and power limit;
 2. build: the kernel libraries (congestion_cascade.cu: the single-host and
    host-segmented cascades; congestion_scan.cu: the single-switch scan;
-   qos_cascade.cu: the single-host and host-segmented QoS cascades), one
-   nvcc per source, all started together, from the repository's sources
-   into build/repro_torch_kernels/;
+   qos_cascade.cu: the single-host and host-segmented QoS cascades;
+   ssd_scan.cu: Mamba2's SSD chunked scan), one nvcc per source, all
+   started together, from the repository's sources into
+   build/repro_torch_kernels/;
 3. kernels vs plain, each on the same CUDA inputs as its plain PyTorch
    version, with median times over CUDA events:
    - the cascade at [4, 3000] S=3, [32, 131072] with figure1's stages,
@@ -72,10 +73,26 @@ Phases (any failure exits non-zero and prints no result):
    longer than in phase 5's FIFO run and together wait less; then the same
    checks with discipline="wfq", class_weights=(4, 1) (the class-0 wait
    against FIFO only printed): one warm-up round, 2 measured;
-9. a JSON ``kernels`` line, then the card's nvidia-smi line, then the result
+9. Mamba2 serving at mamba2-2.7b's published widths (random weights from
+   seed 0, bf16 compute): the SSD kernel (built with the others from
+   ssd_scan.cu) against the plain chunked version at the reference's four
+   test cases (f32; the first also against the sequential recurrence) and
+   at the prefill shape x[8, 4096, 80, 64], N=128, chunk=128, in bf16 and
+   f32; then prefill S-1 tokens plus one decode step against the last
+   logits of a prefill of S, at full width, in f32 (8 layers, every
+   sequence's rel < 5e-4) and bf16 (2 layers, the median sequence's rel <
+   3e-2, every one < 0.15); then 8 requests of 4096 tokens served
+   (one prefill, 16 greedy decode steps) on the 64-layer model; then the
+   prefill step attached to CXLMemSim on Figure 1 with the weights in
+   cxl_pool1 (one warm-up step, 3 measured: exactly 64 SSD launches and one
+   cascade per step, totals against ``analyze_ref``) and the decode step
+   from the prefill's caches (one warm-up, 8 measured: one cascade per step,
+   no SSD launch); then a torch.profiler table of one prefill;
+10. a JSON ``kernels`` line, then the card's nvidia-smi line, then the result
    line ``{"ok": true, "device": {...}}``.
 
-The earlier phases (4-6) must show no QoS launch.
+The earlier phases (4-6) must show no QoS launch, and no phase before 9 an
+SSD launch.
 """
 
 from __future__ import annotations
@@ -94,6 +111,7 @@ from torch.profiler import ProfilerActivity, profile
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch.configs.mamba2_2_7b import CONFIG as M2_CONFIG  # noqa: E402
 from repro_torch.configs.qwen3_0_6b import CONFIG  # noqa: E402
 from repro_torch.core import (  # noqa: E402
     H100_SXM,
@@ -117,8 +135,11 @@ from repro_torch.core import (  # noqa: E402
 from repro_torch.core.units import s_to_ns  # noqa: E402
 from repro_torch.kernels import congestion as kcong  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
+from repro_torch.kernels import build as kbuild  # noqa: E402
 from repro_torch.kernels import ref as kref  # noqa: E402
-from repro_torch.models import build_regions_and_phases  # noqa: E402
+from repro_torch.kernels import ssd_scan as kssd  # noqa: E402
+from repro_torch.launch.steps import make_decode_step, make_prefill_step  # noqa: E402
+from repro_torch.models import Model, build_regions_and_phases  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
@@ -143,6 +164,31 @@ FABRIC_POLICY = {"kvcache": "shared_pool"}
 QOS_WEIGHTS = (4.0, 2.0, 1.0)
 # the QoS fabric: tenants 0-1 latency-critical (class 0), 2-7 batch (class 1)
 FABRIC_CLASSES = (0, 0, 1, 1, 1, 1, 1, 1)
+# Mamba2 serving: mamba2-2.7b at its published widths, 8 requests of 4096 tokens
+SSD_CASES = [  # tests/test_kernels.py's cases: B, L, H, P, N, chunk
+    (2, 256, 4, 32, 16, 64),
+    (1, 128, 2, 64, 128, 128),
+    (1, 512, 8, 16, 32, 128),
+    (2, 64, 1, 8, 8, 32),
+]
+SERVE_BATCH, SERVE_SEQ, SERVE_DECODES = 8, 4096, 16
+M2_POLICY = {"param": "cxl_pool1"}  # the weights in the CXL pool behind switch0
+# prefill S-1 + decode 1 against prefill S at full width, cut in depth.  The
+# error of a sequence: max abs logit difference over its max abs logit.
+# f32, 8 layers: every sequence under the reference's bar
+# (tests/test_arch_smoke.py).  bf16, 2 layers: the median sequence under
+# 1.5x the bar of the bf16 CPU test at SMOKE, every sequence under a guard
+# of 0.15.  Not the median bar on each: the two bf16 paths round in
+# different places (conv and SSD output in bf16 in prefill, f32 in decode,
+# as in the reference), and on some sequences the layers amplify that.  At
+# this width and depth, on the port's weights drawn on the CPU and 8 x 4096
+# tokens, the reference's own bf16 roundtrip parts by 0.068 on one sequence
+# (0.009 on a typical one) and the two packages' bf16 prefills by 0.112 on
+# it (tests/test_torch_mamba2.py::
+# test_full_width_bf16_roundtrip_parts_in_the_reference_too); the guard is
+# about twice the reference's split.
+ROUNDTRIP_F32 = (8, 5e-4)  # layers, bar on every sequence
+ROUNDTRIP_BF16 = (2, 3e-2, 0.15)  # layers, bar on the median, guard on every sequence
 
 
 def check(cond: bool, msg: str) -> None:
@@ -530,19 +576,24 @@ def timed_merges(sess):
 def reset_counts():
     kcong.launches = kcong.hosts_launches = kcong.scan_launches = 0
     kcong.qos_launches = kcong.qos_hosts_launches = 0
+    kssd.ssd_launches = 0
     kops.plain_launches = 0
 
 
 def counts():
     return dict(cascade=kcong.launches, hosts=kcong.hosts_launches,
                 scan=kcong.scan_launches, qos=kcong.qos_launches,
-                qos_hosts=kcong.qos_hosts_launches, plain=kops.plain_launches)
+                qos_hosts=kcong.qos_hosts_launches, ssd=kssd.ssd_launches,
+                plain=kops.plain_launches)
 
 
-def check_launches(tag, c, kernel, want):
-    """Exactly ``want`` launches of ``kernel`` and none of anything else."""
-    check(c[kernel] == want, f"{tag}: {kernel} launched {c[kernel]} times, want {want}")
-    others = {k: v for k, v in c.items() if k != kernel and v}
+def check_launches(tag, c, kernel, want, **also):
+    """Exactly ``want`` launches of ``kernel`` (and ``also[k]`` of kernel k)
+    and none of anything else."""
+    wants = {kernel: want, **also}
+    for k, w in wants.items():
+        check(c[k] == w, f"{tag}: {k} launched {c[k]} times, want {w}")
+    others = {k: v for k, v in c.items() if k not in wants and v}
     check(not others, f"{tag}: other kernels or the plain path ran: {others}")
 
 
@@ -839,6 +890,234 @@ def qos_fabric_path(dev, fifo_rep):
     return row, launches
 
 
+# --------------------------------------------------------------------------- #
+# Mamba2 serving (mamba2-2.7b): the SSD kernel and the attached model
+# --------------------------------------------------------------------------- #
+
+
+def ssd_inputs(B, L, H, P, N, seed, dtype, dev):
+    """tests/test_kernels.py's distributions, drawn with numpy from ``seed``;
+    x in ``dtype``, the rest f32."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, L, H, P)).astype(np.float32)
+    dt = (np.logaddexp(0.0, rng.standard_normal((B, L, H))) * 0.1).astype(np.float32)
+    A = (-np.exp(rng.standard_normal(H) * 0.3)).astype(np.float32)
+    Bm = (rng.standard_normal((B, L, N)) * 0.5).astype(np.float32)
+    Cm = (rng.standard_normal((B, L, N)) * 0.5).astype(np.float32)
+    out = [torch.from_numpy(a).to(dev) for a in (x, dt, A, Bm, Cm)]
+    out[0] = out[0].to(dtype)
+    return out
+
+
+def ssd_bound(x, Bm, chunk):
+    """Bound of one SSD call: x, dt, A, B, C read once and y written once,
+    against the chunked algorithm's f32 FLOPs over the f32 peak: C·Bᵀ on and
+    below the diagonal once per (batch row, chunk), as B and C are one group
+    shared by every head; W·x on and below the diagonal, C·h and the state
+    update per head."""
+    B, L, H, P = x.shape
+    N = Bm.shape[-1]
+    nbytes = 2 * x.numel() * x.element_size() + 4 * (B * L * H + H + 2 * B * L * N)
+    c = min(chunk, L)
+    flops = B * (L // c) * c * (c + 1) * N + B * H * (L // c) * (c * (c + 1) * P + 4 * c * N * P)
+    return bound_ms(nbytes, flops)
+
+
+def compare_ssd(name, x, dt, A, Bm, Cm, chunk, reps=10, naive=False):
+    """SSD kernel vs the plain chunked version (and, with ``naive``, the
+    sequential recurrence) on the same CUDA inputs.  f32: max abs error
+    within 2e-5 of the output's largest magnitude (sums of up to chunk + N
+    f32 products in another order); bf16 y: that f32 allowance plus one
+    bf16 rounding (rtol 2**-7), as both round nearly equal f32 values
+    once."""
+    yk = kssd.ssd_scan(x, dt, A, Bm, Cm, chunk)
+    yp = kref.ssd_chunked(x, dt, A, Bm, Cm, chunk=min(chunk, x.shape[1]))
+    torch.cuda.synchronize()
+    check(yk.dtype == x.dtype and yk.shape == x.shape, f"{name}: y {yk.dtype} {tuple(yk.shape)}")
+    check(bool(torch.isfinite(yk).all()), f"{name}: non-finite outputs")
+    err = float((yk.float() - yp.float()).abs().max())
+    scale = float(yp.float().abs().max())
+    if x.dtype == torch.float32:
+        check(err <= 2e-5 * scale, f"{name}: max abs error {err} over 2e-5 x {scale}")
+    else:
+        torch.testing.assert_close(yk.float(), yp.float(), rtol=2 ** -7, atol=2e-5 * scale)
+    row = dict(shape=list(x.shape), N=int(Bm.shape[-1]), chunk=chunk, dtype=str(x.dtype),
+               max_abs_err=err, max_abs_y=scale)
+    if naive:
+        yn = kref.ssd_naive(x, dt, A, Bm, Cm)
+        nerr = float((yk.float() - yn.float()).abs().max())
+        check(nerr <= 2e-4 * max(1.0, scale), f"{name}: {nerr} from ssd_naive")
+        row["naive_max_abs_err"] = nerr
+    row["ms"] = median_ms(lambda: kssd.ssd_scan(x, dt, A, Bm, Cm, chunk), reps)
+    row["plain_ms"] = median_ms(
+        lambda: kref.ssd_chunked(x, dt, A, Bm, Cm, chunk=min(chunk, x.shape[1])),
+        max(3, reps // 4))
+    row["bound_ms"], row["bound_by"] = ssd_bound(x, Bm, chunk)
+    print(f"[kernel] {name}: {json.dumps(row)}")
+    return row
+
+
+def ssd_kernel_phase(dev):
+    """Phase 9a: the SSD kernel at the reference's test cases (f32, the
+    first also against the sequential recurrence) and at the prefill shape
+    [8, 4096, 80, 64], N=128, chunk=128, in bf16 (the model path's x) and
+    f32."""
+    rows = []
+    for i, (B, L, H, P, N, chunk) in enumerate(SSD_CASES):
+        args = ssd_inputs(B, L, H, P, N, L + H, torch.float32, dev)
+        rows.append(compare_ssd(f"ssd_case{i}", *args, chunk, naive=i == 0))
+    H, P, N = M2_CONFIG.ssm_heads, M2_CONFIG.ssm_d_head, M2_CONFIG.ssm_state
+    full = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        args = ssd_inputs(SERVE_BATCH, SERVE_SEQ, H, P, N, 0, dtype, dev)
+        full[dtype] = compare_ssd(f"ssd_prefill_{str(dtype)[6:]}", *args,
+                                  M2_CONFIG.ssm_chunk)
+        del args
+    # a layout that does not fit one block's shared memory is refused, not launched
+    launches0 = kssd.ssd_launches
+    wide = ssd_inputs(1, 128, 1, 128, 256, 0, torch.float32, dev)
+    try:
+        kssd.ssd_scan(*wide, 128)
+    except ValueError as e:
+        print(f"[kernel] ssd_scan refuses P=128, N=256, chunk=128: {e}")
+    else:
+        check(False, "ssd_scan launched P=128, N=256, chunk=128")
+    check(kssd.ssd_launches == launches0, "ssd_scan counted a refused launch")
+    return rows + list(full.values()), full[torch.bfloat16]
+
+
+def seq_errs(got, want) -> list:
+    """Each sequence's max abs difference over its max abs value."""
+    got, want = got.double(), want.double()
+    return ((got - want).abs().amax(-1) / want.abs().amax(-1)).tolist()
+
+
+def roundtrip(cfg, tokens, dev):
+    """Prefill S-1 tokens and decode the last against the last-position
+    logits of a prefill of all S (kernel plus _final_state against the
+    kernel-free decode recurrence); returns each sequence's error."""
+    model = Model(cfg, device=dev, seed=0)
+    prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
+    want, _, _ = prefill(model, {"tokens": tokens})
+    _, caches, clen = prefill(model, {"tokens": tokens[:, :-1]})
+    got, _, _ = decode(model, {"token": tokens[:, -1:], "caches": caches, "cache_len": clen})
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(got).all()), f"roundtrip {cfg.name}: non-finite logits")
+    return seq_errs(got, want)
+
+
+def mamba2_serving_path(dev):
+    """Phase 9b: mamba2-2.7b on the card: the prefill/decode roundtrip, 8
+    requests served (one prefill, 16 decodes), then the prefill and decode
+    steps attached to CXLMemSim with the weights in CXL pool 1."""
+    gen = torch.Generator(device=dev).manual_seed(1)
+    tokens = torch.randint(0, M2_CONFIG.vocab_size, (SERVE_BATCH, SERVE_SEQ), generator=gen,
+                           device=dev)
+    layers, bar = ROUNDTRIP_F32
+    f32 = dict(dtype=torch.float32, cache_dtype=torch.float32)
+    t0 = time.perf_counter()
+    errs = roundtrip(dataclasses.replace(M2_CONFIG, n_layers=layers, **f32), tokens, dev)
+    print(f"[mamba2] roundtrip float32 at {layers} layers: per-sequence rel {errs} "
+          f"(bar {bar} on each) in {time.perf_counter() - t0:.3f} s")
+    check(max(errs) < bar, f"roundtrip float32 at {layers} layers: {max(errs)} >= {bar}")
+
+    layers, bar, guard = ROUNDTRIP_BF16
+    t0 = time.perf_counter()
+    errs = roundtrip(dataclasses.replace(M2_CONFIG, n_layers=layers), tokens, dev)
+    med = float(np.median(errs))
+    print(f"[mamba2] roundtrip bfloat16 at {layers} layers: per-sequence rel {errs}, median "
+          f"{med!r} (bar {bar}), max {max(errs)!r} (guard {guard}) in "
+          f"{time.perf_counter() - t0:.3f} s")
+    check(med < bar and max(errs) < guard,
+          f"roundtrip bfloat16 at {layers} layers: median {med}, max {max(errs)}")
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    model = Model(M2_CONFIG, device=dev, seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params == M2_CONFIG.param_counts()["total"], f"{n_params} parameters")
+    print(f"[mamba2] {M2_CONFIG.name}: {n_params} f32 parameters on the card in "
+          f"{time.perf_counter() - t0:.3f} s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    prefill, decode = make_prefill_step(M2_CONFIG), make_decode_step(M2_CONFIG)
+    batch = {"tokens": tokens}
+
+    # serve: one prefill of the 8 requests, then 16 decode steps, greedy
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    logits, caches, clen = prefill(model, batch)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    check(logits.shape == (SERVE_BATCH, M2_CONFIG.vocab_size)
+          and bool(torch.isfinite(logits).all()), "prefill logits")
+    check(caches["ssm_state"].shape == (M2_CONFIG.n_groups, 1, SERVE_BATCH,
+                                        M2_CONFIG.ssm_heads, M2_CONFIG.ssm_state,
+                                        M2_CONFIG.ssm_d_head), "ssm cache shape")
+    state = {"token": logits.argmax(-1, keepdim=True), "caches": caches, "cache_len": clen}
+    t0 = time.perf_counter()
+    for _ in range(SERVE_DECODES):
+        step_logits, new_caches, new_len = decode(model, state)
+        state = {"token": step_logits.argmax(-1, keepdim=True), "caches": new_caches,
+                 "cache_len": new_len}
+    torch.cuda.synchronize()
+    decode_s = (time.perf_counter() - t0) / SERVE_DECODES
+    check(state["cache_len"] == SERVE_SEQ + SERVE_DECODES
+          and bool(torch.isfinite(step_logits).all()), "decode logits")
+    print(f"[mamba2] served {SERVE_BATCH} x {SERVE_SEQ} tokens: prefill {prefill_s:.6f} s "
+          f"(first call), then {SERVE_DECODES} decode steps at {decode_s:.6f} s each; "
+          f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    # attached prefill: the paper's offload scenario for a serving job
+    regions, phases = build_regions_and_phases(M2_CONFIG, "prefill", batch=SERVE_BATCH,
+                                               seq=SERVE_SEQ)
+    sim = CXLMemSim(figure1_topology(), ClassMapPolicy(M2_POLICY), epoch=EpochSchedule("layer"),
+                    hw=H100_SXM, max_events_per_access=1024, device=dev)
+    prog = sim.attach(prefill, phases, regions)
+    traces = prog.epoch_traces()
+    print(f"[mamba2-prefill] {len(traces)} epochs, up to {max(tr.n for tr in traces)} events, "
+          f"{sum(tr.n for tr in traces)} events per step")
+    prog.step(model, batch)  # warm-up
+    warm = prog.report
+    warm_analyzer_s, warm_native_s = warm.analyzer_s, warm.native_s
+    reset_counts()
+    rep = prog.run(3, model, batch)
+    c = counts()
+    check_launches("mamba2-prefill", c, "ssd", 3 * M2_CONFIG.n_layers, cascade=3)
+    prefill_launches = c["ssd"]
+    check_totals("mamba2-prefill", rep, oracle(prog.sim.flat, traces), rep.steps)
+    print(f"[mamba2-prefill] summary {json.dumps(rep.summary())}")
+    print(f"[mamba2-prefill] analyzer {(rep.analyzer_s - warm_analyzer_s) / 3:.6f} s/step and "
+          f"native {(rep.native_s - warm_native_s) / 3:.6f} s/step over the 3 measured "
+          f"steps; warm-up step analyzer {warm_analyzer_s:.6f} s, native {warm_native_s:.6f} s")
+
+    # attached decode from the prefill's caches
+    regions, phases = build_regions_and_phases(M2_CONFIG, "decode", batch=SERVE_BATCH, seq=1,
+                                               cache_len=SERVE_SEQ)
+    sim_d = CXLMemSim(figure1_topology(), ClassMapPolicy(M2_POLICY),
+                      epoch=EpochSchedule("layer"), hw=H100_SXM, max_events_per_access=1024,
+                      device=dev)
+    prog_d = sim_d.attach(decode, phases, regions)
+    traces_d = prog_d.epoch_traces()
+    state = {"token": logits.argmax(-1, keepdim=True), "caches": caches, "cache_len": clen}
+    prog_d.step(model, state)  # warm-up
+    warm_analyzer_s, warm_native_s = prog_d.report.analyzer_s, prog_d.report.native_s
+    reset_counts()
+    rep_d = prog_d.run(8, model, state)
+    c = counts()
+    check_launches("mamba2-decode", c, "cascade", 8)
+    check_totals("mamba2-decode", rep_d, oracle(prog_d.sim.flat, traces_d), rep_d.steps)
+    print(f"[mamba2-decode] summary {json.dumps(rep_d.summary())}")
+    print(f"[mamba2-decode] analyzer {(rep_d.analyzer_s - warm_analyzer_s) / 8:.6f} s/step "
+          f"and native {(rep_d.native_s - warm_native_s) / 8:.6f} s/step over the 8 measured "
+          f"steps; warm-up step analyzer {warm_analyzer_s:.6f} s, native {warm_native_s:.6f} s")
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        prefill(model, batch)
+        torch.cuda.synchronize()
+    print(prof.key_averages().table(sort_by="device_time_total", row_limit=12))
+    return prefill_launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script needs a card",
@@ -861,7 +1140,7 @@ def main() -> int:
     print(f"[env] nvidia-smi: {smi}")
 
     # -- 2. build, one nvcc per source, all at once ------------------------- #
-    for name, res in kcong.build_all().items():
+    for name, res in kbuild.build_all().items():
         print(f"[build] {name}: {res.path.relative_to(ROOT)} in {res.seconds:.3f} s")
         for line in res.log.splitlines():
             if "registers" in line or "spill" in line or "smem" in line or "Compiling" in line:
@@ -894,7 +1173,7 @@ def main() -> int:
     scan_rows = [compare_scan("scan_random_mask", t, mask, 2.0)]
     qos_rows = qos_kernel_phase(dev)
 
-    # -- 4-8. the main paths ------------------------------------------------ #
+    # -- 4-9. the main paths ------------------------------------------------ #
     step, x = main_step(dev)
     main_row, cascade_launches, main_rep = slice1_main_path(dev, step, x)
     fabric_row, hosts_launches, fabric_rep = fabric_main_path(dev)
@@ -903,8 +1182,10 @@ def main() -> int:
     qos_fabric_row, qos_hosts_launches = qos_fabric_path(dev, fabric_rep)
     host_rows.append(fabric_row)
     scan_rows.append(wide_row)
+    ssd_rows, ssd_row = ssd_kernel_phase(dev)
+    ssd_launches = mamba2_serving_path(dev)
 
-    # -- 9. the kernels line and the result --------------------------------- #
+    # -- 10. the kernels line and the result -------------------------------- #
     src = "src/repro_torch/kernels/csrc/"
     kernels = []
     for name, source, replaces, launches, comps, row in (
@@ -918,6 +1199,7 @@ def main() -> int:
          qos_launches, qos_rows + [qos_main_row], qos_main_row),
         ("qos_congestion_cascade_hosts", "qos_cascade.cu", "congestion.py:542",
          qos_hosts_launches, [qos_fabric_row], qos_fabric_row),
+        ("ssd_scan", "ssd_scan.cu", "ssd_scan.py:82", ssd_launches, ssd_rows, ssd_row),
     ):
         kernels.append({
             "name": name,

@@ -5,7 +5,9 @@ The reference (``repro``) and the port share no objects.  Their
 ``FlatTopology`` and ``MemEvents`` have the same fields, so a caller hands
 the reference's fields over as numpy arrays (and tuples, for names) and gets
 the port's object built from exactly those values — both packages then
-provably compute on the same topology and traces.
+provably compute on the same topology and traces.  Model parameters cross
+the same way: the reference's parameter tree as numpy arrays in, the port's
+:class:`~repro_torch.models.model.Model` out.
 """
 
 from __future__ import annotations
@@ -14,11 +16,14 @@ import dataclasses
 from typing import Any, Mapping
 
 import numpy as np
+import torch
 
 from .core.events import MemEvents
 from .core.topology import FlatTopology
+from .models.config import ModelConfig
+from .models.model import Model
 
-__all__ = ["flat_topology_from_arrays", "mem_events_from_arrays"]
+__all__ = ["flat_topology_from_arrays", "mem_events_from_arrays", "model_params_from_arrays"]
 
 def _check_keys(d: Mapping[str, Any], cls) -> None:
     fields = {f.name for f in dataclasses.fields(cls)}
@@ -61,3 +66,50 @@ def mem_events_from_arrays(d: Mapping[str, Any]) -> MemEvents:
     return MemEvents(
         **{name: np.array(v, copy=True) for name, v in d.items() if v is not None}
     )
+
+
+def _flatten(tree: Mapping[str, Any], prefix: str = "") -> dict:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            out.update(_flatten(v, f"{prefix}{k}."))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def model_params_from_arrays(
+    cfg: ModelConfig, tree: Mapping[str, Any], device="cuda"
+) -> Model:
+    """The port's :class:`Model` holding the reference's parameters.
+
+    ``tree`` is the reference's ``Model.init`` tree with numpy leaves:
+    ``blocks`` stacked on a leading ``n_groups`` axis (one slice per group
+    module here), every other leaf as it is.  Both packages store matrices
+    ``[d_in, d_out]`` and apply them as ``x @ W``, so nothing is transposed.
+    Every parameter of the port must be given, with its shape, and nothing
+    else."""
+    model = Model(cfg, device=device)
+    flat = _flatten(tree)
+    used = set()
+    with torch.no_grad():
+        for name, param in model.named_parameters():
+            if name.startswith("blocks."):
+                _, g, rest = name.split(".", 2)
+                key, index = f"blocks.{rest}", (int(g),)
+            else:
+                key, index = name, ()
+            if key not in flat:
+                raise KeyError(f"the tree has no leaf {key!r} for parameter {name!r}")
+            value = np.array(np.asarray(flat[key])[index], dtype=np.float32)
+            if tuple(value.shape) != tuple(param.shape):
+                raise ValueError(
+                    f"{name}: the tree gives shape {value.shape}, the port needs "
+                    f"{tuple(param.shape)}"
+                )
+            param.copy_(torch.from_numpy(value))
+            used.add(key)
+    unknown = set(flat) - used
+    if unknown:
+        raise KeyError(f"the port has no parameters for {sorted(unknown)}")
+    return model

@@ -1,4 +1,4 @@
-"""Build, binding and wrappers of the hand-written Hopper congestion kernels.
+"""Bindings and wrappers of the hand-written Hopper congestion kernels.
 
 Three CUDA C++ sources under ``csrc/``, each its own shared library with
 plain C entry points (their headers say which TPU kernel each replaces, what
@@ -13,11 +13,9 @@ bounds it and what the design does about that):
   stage), single-host (:func:`qos_congestion_cascade`) and host-segmented
   (:func:`qos_congestion_cascade_hosts`), one template body.
 
-All include ``csrc/block_scan.cuh``.  Each library is compiled at first use
-by ``nvcc`` for ``sm_90a``, cached under ``build/repro_torch_kernels/`` at the
-repository root by a hash of its sources and flags, and loaded with
-``ctypes``; :func:`build_all` runs one ``nvcc`` per source at once.  Nothing
-is built or loaded when this module is imported.
+All include ``csrc/block_scan.cuh``.  :mod:`.build` compiles each library at
+first use (``build`` and ``build_all`` are re-exported here); nothing is
+built or loaded when this module is imported.
 
 The wrappers take CUDA tensors only; :mod:`.ops` dispatches CPU tensors to
 the plain versions (:mod:`.ref`).  ``launches``, ``hosts_launches``,
@@ -27,20 +25,14 @@ launches each wrapper made.
 
 from __future__ import annotations
 
-import concurrent.futures
 import ctypes
-import dataclasses
-import hashlib
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
-from typing import Dict, Tuple
+from typing import Tuple
 
 import torch
 
 from . import ref
+from .build import SOURCES, BuildResult, build, build_all, check_tensor, load, raise_on
+from .build import _libs  # noqa: F401  (the loaded libraries)
 
 __all__ = [
     "BuildResult",
@@ -59,19 +51,6 @@ __all__ = [
     "scan_launches",
 ]
 
-CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = {
-    "congestion_cascade": CSRC / "congestion_cascade.cu",
-    "congestion_scan": CSRC / "congestion_scan.cu",
-    "qos_cascade": CSRC / "qos_cascade.cu",
-}
-HEADERS = (CSRC / "block_scan.cuh",)
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-    "-Xptxas=-v",  # register / shared-memory / spill report in the build log
-)
 MAX_STAGES = 31  # stage s is bit s of an int32 route word
 MAX_HOSTS = 32  # per-host delay slots of the hosts kernels
 MAX_CLASSES = 8  # QoS classes of the QoS kernel (kMaxClasses)
@@ -82,119 +61,39 @@ scan_launches = 0  # kernel launches made by congestion_scan
 qos_launches = 0  # kernel launches made by qos_congestion_cascade
 qos_hosts_launches = 0  # kernel launches made by qos_congestion_cascade_hosts
 
-_libs: Dict[str, ctypes.CDLL] = {}
+
+_PTR, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 
 
-@dataclasses.dataclass(frozen=True)
-class BuildResult:
-    path: Path  # the shared library
-    seconds: float  # nvcc wall time (0 when the cached library was reused)
-    log: str  # nvcc's output (ptxas resource report)
+def _bind_cascade(lib: ctypes.CDLL) -> None:
+    lib.congestion_cascade_launch.argtypes = [_PTR] * 10 + [_I64, _I64, _I32, _PTR]
+    lib.congestion_cascade_launch.restype = _I32
+    lib.congestion_cascade_hosts_launch.argtypes = [_PTR] * 11 + [
+        _I64, _I64, _I32, _I32, _PTR,
+    ]
+    lib.congestion_cascade_hosts_launch.restype = _I32
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = Path("/usr/local/cuda/bin/nvcc")
-    if default.exists():
-        return str(default)
-    raise RuntimeError(
-        "nvcc not found (neither on PATH nor under /usr/local/cuda/bin): the "
-        "congestion kernels are built from source at first use"
-    )
+def _bind_scan(lib: ctypes.CDLL) -> None:
+    lib.congestion_scan_launch.argtypes = [
+        _PTR, _PTR, ctypes.c_float, _PTR, _PTR, _I64, _I64, _PTR,
+    ]
+    lib.congestion_scan_launch.restype = _I32
 
 
-def build(name: str = "congestion_cascade") -> BuildResult:
-    """Compile library ``name`` (a key of :data:`SOURCES`) if no library of
-    these sources and flags exists yet; raises with nvcc's output when
-    compilation fails."""
-    source = SOURCES[name]
-    digest = hashlib.sha256(source.read_bytes())
-    for header in HEADERS:
-        digest.update(header.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
-    out = BUILD_DIR / f"{name}_{digest.hexdigest()[:16]}.so"
-    if out.exists():
-        return BuildResult(out, 0.0, "")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}:\n{' '.join(cmd)}\n{log}"
-        )
-    os.replace(tmp, out)  # atomic: a concurrent builder never loads a torn file
-    return BuildResult(out, seconds, log)
-
-
-def build_all() -> Dict[str, BuildResult]:
-    """Build every library, one ``nvcc`` per source, all started together."""
-    with concurrent.futures.ThreadPoolExecutor(len(SOURCES)) as pool:
-        futures = {name: pool.submit(build, name) for name in SOURCES}
-        return {name: f.result() for name, f in futures.items()}
-
-
-def _load(name: str) -> ctypes.CDLL:
-    lib = _libs.get(name)
-    if lib is None:
-        lib = ctypes.CDLL(str(build(name).path))
-        ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        if name == "congestion_cascade":
-            lib.congestion_cascade_launch.argtypes = [ptr] * 10 + [i64, i64, i32, ptr]
-            lib.congestion_cascade_launch.restype = i32
-            lib.congestion_cascade_hosts_launch.argtypes = [ptr] * 11 + [
-                i64, i64, i32, i32, ptr,
-            ]
-            lib.congestion_cascade_hosts_launch.restype = i32
-        elif name == "congestion_scan":
-            lib.congestion_scan_launch.argtypes = [
-                ptr, ptr, ctypes.c_float, ptr, ptr, i64, i64, ptr,
-            ]
-            lib.congestion_scan_launch.restype = i32
-        else:
-            lib.qos_cascade_launch.argtypes = [ptr] * 14 + [i64, i64, i32, i32, ptr]
-            lib.qos_cascade_launch.restype = i32
-            lib.qos_cascade_hosts_launch.argtypes = [ptr] * 15 + [
-                i64, i64, i32, i32, i32, ptr,
-            ]
-            lib.qos_cascade_hosts_launch.restype = i32
-        err = getattr(lib, f"{name}_error_string")
-        err.argtypes = [i32]
-        err.restype = ctypes.c_char_p
-        _libs[name] = lib
-    return lib
-
-
-def _raise_on(rc: int, name: str, lib: ctypes.CDLL, what: str) -> None:
-    if rc != 0:
-        msg = getattr(lib, f"{name}_error_string")(rc).decode()
-        raise RuntimeError(f"{what} launch failed: CUDA error {rc} ({msg})")
-
-
-def _check(name: str, x: torch.Tensor, dtype: torch.dtype, ndim: int) -> None:
-    if x.device.type != "cuda":
-        raise ValueError(
-            f"{name} lies on {x.device}: the CUDA kernel takes CUDA tensors "
-            "(repro_torch.kernels.ops dispatches CPU tensors to the plain version)"
-        )
-    if x.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {x.dtype}")
-    if x.dim() != ndim:
-        raise ValueError(f"{name} must have {ndim} dimensions, got shape {tuple(x.shape)}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+def _bind_qos(lib: ctypes.CDLL) -> None:
+    lib.qos_cascade_launch.argtypes = [_PTR] * 14 + [_I64, _I64, _I32, _I32, _PTR]
+    lib.qos_cascade_launch.restype = _I32
+    lib.qos_cascade_hosts_launch.argtypes = [_PTR] * 15 + [
+        _I64, _I64, _I32, _I32, _I32, _PTR,
+    ]
+    lib.qos_cascade_hosts_launch.restype = _I32
 
 
 def _cascade_inputs(t, bits, stts) -> Tuple[int, int, int]:
-    _check("t", t, torch.float32, 2)
-    _check("bits", bits, torch.int32, 2)
-    _check("stts", stts, torch.float32, 1)
+    check_tensor("t", t, torch.float32, 2)
+    check_tensor("bits", bits, torch.int32, 2)
+    check_tensor("stts", stts, torch.float32, 1)
     if bits.shape != t.shape:
         raise ValueError(f"bits shape {tuple(bits.shape)} != t shape {tuple(t.shape)}")
     if bits.device != t.device or stts.device != t.device:
@@ -229,7 +128,7 @@ def congestion_cascade(
     idx = torch.empty_like(bits)
     psd = torch.empty((n_rows, n_stages), dtype=torch.float32, device=t.device)
     bits_work, comp_t, comp_bits, comp_idx = _cascade_scratch(t, bits)
-    lib = _load("congestion_cascade")
+    lib = load("congestion_cascade", _bind_cascade)
     with torch.cuda.device(t.device):
         stream = torch.cuda.current_stream(t.device).cuda_stream
         rc = lib.congestion_cascade_launch(
@@ -238,7 +137,7 @@ def congestion_cascade(
             comp_bits.data_ptr(), comp_idx.data_ptr(), psd.data_ptr(),
             n_rows, n, n_stages, stream,
         )
-    _raise_on(rc, "congestion_cascade", lib, "congestion_cascade")
+    raise_on(rc, "congestion_cascade", lib, "congestion_cascade")
     launches += 1
     return t_out, idx, psd
 
@@ -258,7 +157,7 @@ def congestion_cascade_hosts(
     synchronize."""
     global hosts_launches
     n_rows, n, n_stages = _cascade_inputs(t, bits, stts)
-    _check("hosts", hosts, torch.int32, 2)
+    check_tensor("hosts", hosts, torch.int32, 2)
     if hosts.shape != t.shape or hosts.device != t.device:
         raise ValueError(
             f"hosts {tuple(hosts.shape)} on {hosts.device} must match t "
@@ -271,7 +170,7 @@ def congestion_cascade_hosts(
     idx = torch.empty_like(bits)
     psd = torch.empty((n_rows, n_stages, n_hosts), dtype=torch.float32, device=t.device)
     bits_work, comp_t, comp_bits, comp_idx = _cascade_scratch(t, bits)
-    lib = _load("congestion_cascade")
+    lib = load("congestion_cascade", _bind_cascade)
     with torch.cuda.device(t.device):
         stream = torch.cuda.current_stream(t.device).cuda_stream
         rc = lib.congestion_cascade_hosts_launch(
@@ -280,7 +179,7 @@ def congestion_cascade_hosts(
             comp_t.data_ptr(), comp_bits.data_ptr(), comp_idx.data_ptr(),
             psd.data_ptr(), n_rows, n, n_stages, n_hosts, stream,
         )
-    _raise_on(rc, "congestion_cascade", lib, "congestion_cascade_hosts")
+    raise_on(rc, "congestion_cascade", lib, "congestion_cascade_hosts")
     hosts_launches += 1
     return t_out, idx, psd
 
@@ -295,8 +194,8 @@ def congestion_scan(
     :func:`repro_torch.kernels.ref.congestion_scan`.  Does not
     synchronize."""
     global scan_launches
-    _check("t", t, torch.float32, 2)
-    _check("mask", mask, torch.bool, 2)
+    check_tensor("t", t, torch.float32, 2)
+    check_tensor("mask", mask, torch.bool, 2)
     if mask.shape != t.shape or mask.device != t.device:
         raise ValueError(
             f"mask {tuple(mask.shape)} on {mask.device} must match t "
@@ -305,14 +204,14 @@ def congestion_scan(
     n_rows, n = t.shape
     start = torch.empty_like(t)
     delay = torch.empty_like(t)
-    lib = _load("congestion_scan")
+    lib = load("congestion_scan", _bind_scan)
     with torch.cuda.device(t.device):
         stream = torch.cuda.current_stream(t.device).cuda_stream
         rc = lib.congestion_scan_launch(
             t.data_ptr(), mask.data_ptr(), float(stt), start.data_ptr(),
             delay.data_ptr(), n_rows, n, stream,
         )
-    _raise_on(rc, "congestion_scan", lib, "congestion_scan")
+    raise_on(rc, "congestion_scan", lib, "congestion_scan")
     scan_launches += 1
     return start, delay
 
@@ -332,9 +231,9 @@ def _qos_limits(class_weights: torch.Tensor, n_hosts: int) -> int:
 
 def _qos_inputs(t, bits, qos, stts, disc_code, class_weights) -> Tuple[int, int, int]:
     n_rows, n, n_stages = _cascade_inputs(t, bits, stts)
-    _check("qos", qos, torch.int32, 2)
-    _check("disc_code", disc_code, torch.int32, 1)
-    _check("class_weights", class_weights, torch.float32, 2)
+    check_tensor("qos", qos, torch.int32, 2)
+    check_tensor("disc_code", disc_code, torch.int32, 1)
+    check_tensor("class_weights", class_weights, torch.float32, 2)
     if qos.shape != t.shape or qos.device != t.device:
         raise ValueError(
             f"qos {tuple(qos.shape)} on {qos.device} must match t "
@@ -361,7 +260,7 @@ def _qos_launch(t, bits, qos, hosts, stts, disc_code, class_weights, n_hosts):
     )
     bits_work, comp_t, comp_bits, comp_idx = _cascade_scratch(t, bits)
     run_id = torch.empty(t.shape, dtype=torch.uint8, device=t.device)
-    lib = _load("qos_cascade")
+    lib = load("qos_cascade", _bind_qos)
     with torch.cuda.device(t.device):
         stream = torch.cuda.current_stream(t.device).cuda_stream
         common = (
@@ -379,7 +278,7 @@ def _qos_launch(t, bits, qos, hosts, stts, disc_code, class_weights, n_hosts):
                 t.data_ptr(), bits.data_ptr(), qos.data_ptr(), hosts.data_ptr(), *common,
                 n_hosts, stream,
             )
-    _raise_on(rc, "qos_cascade", lib,
+    raise_on(rc, "qos_cascade", lib,
               "qos_congestion_cascade" + ("" if hosts is None else "_hosts"))
     return t_out, idx, psd
 
@@ -421,7 +320,7 @@ def qos_congestion_cascade_hosts(
     global qos_hosts_launches
     n_hosts = int(n_hosts)
     _qos_limits(class_weights, n_hosts)
-    _check("hosts", hosts, torch.int32, 2)
+    check_tensor("hosts", hosts, torch.int32, 2)
     if hosts.shape != t.shape or hosts.device != t.device:
         raise ValueError(
             f"hosts {tuple(hosts.shape)} on {hosts.device} must match t "

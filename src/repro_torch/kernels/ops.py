@@ -2,10 +2,11 @@
 
 A CPU tensor runs the plain PyTorch version (:mod:`.ref`); a CUDA tensor
 runs the hand-written kernel or raises.  There is no fallback from one to
-the other.  ``plain_launches`` counts the plain path's calls here, cascades
-and queue alike; the kernel path counts its launches in
+the other.  ``plain_launches`` counts the plain path's calls here, cascades,
+queue and SSD scan alike; the kernel path counts its launches in
 :mod:`repro_torch.kernels.congestion` (``launches``, ``hosts_launches``,
-``scan_launches``, ``qos_launches``, ``qos_hosts_launches``).
+``scan_launches``, ``qos_launches``, ``qos_hosts_launches``) and
+:mod:`repro_torch.kernels.ssd_scan` (``ssd_launches``).
 """
 
 from __future__ import annotations
@@ -16,12 +17,14 @@ import torch
 
 from . import congestion as _kernel
 from . import ref
+from . import ssd_scan as _ssd
 
 __all__ = [
     "congestion_cascade",
     "congestion_queue",
     "plain_launches",
     "qos_congestion_cascade",
+    "ssd",
 ]
 
 plain_launches = 0  # calls of this module's entry points that ran the plain version
@@ -104,3 +107,23 @@ def qos_congestion_cascade(
             t, bits, qos, hosts, stts, disc_code, class_weights, n_hosts
         )
     raise ValueError(f"no qos_congestion_cascade for tensors on {t.device}")
+
+
+def ssd(
+    x: torch.Tensor,  # [B, L, H, P]
+    dt: torch.Tensor,  # [B, L, H] f32, softplus-activated
+    A: torch.Tensor,  # [H] f32, negative
+    Bm: torch.Tensor,  # [B, L, N] f32
+    Cm: torch.Tensor,  # [B, L, N] f32
+    chunk: int = 128,
+) -> torch.Tensor:
+    """Mamba2 SSD mixer: ``x [B, L, H, P] -> y [B, L, H, P]`` in x's dtype,
+    at chunk ``min(chunk, L)`` (L a multiple of it); see
+    :func:`repro_torch.kernels.ref.ssd_chunked`."""
+    global plain_launches
+    if x.device.type == "cpu":
+        plain_launches += 1
+        return ref.ssd_chunked(x, dt, A, Bm, Cm, chunk=min(chunk, x.shape[1]))
+    if x.device.type == "cuda":
+        return _ssd.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
+    raise ValueError(f"no ssd for tensors on {x.device}")

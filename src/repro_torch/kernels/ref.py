@@ -1,11 +1,11 @@
-"""Plain PyTorch versions of the congestion kernels (port of
-``repro/kernels/ref.py``): the fused cascade, single-host and
-host-segmented, the single-switch scan, and the QoS-arbitrated cascade
-(priority / WFQ / FIFO per switch; a static-discipline spec and the
-data-driven form the kernel computes).
+"""Plain PyTorch versions of the kernels (port of ``repro/kernels/ref.py``):
+the fused cascade, single-host and host-segmented, the single-switch scan,
+the QoS-arbitrated cascade (priority / WFQ / FIFO per switch; a
+static-discipline spec and the data-driven form the kernel computes), and
+Mamba2's SSD scan (the sequential recurrence and the chunked algorithm).
 
-They define what the CUDA kernels (:mod:`repro_torch.kernels.congestion`)
-compute.  The CPU tests hold them against the reference, ``chip_smoke.py``
+They define what the CUDA kernels (:mod:`repro_torch.kernels.congestion`,
+:mod:`repro_torch.kernels.ssd_scan`) compute.  The CPU tests hold them against the reference, ``chip_smoke.py``
 holds the kernel against them on the card, and :mod:`.ops` runs them for
 tensors that lie on the CPU.  On the card nothing on the main path calls
 them.
@@ -32,6 +32,8 @@ __all__ = [
     "qos_service_table",
     "serial_queue",
     "serial_queue_cascade",
+    "ssd_chunked",
+    "ssd_naive",
 ]
 
 # discipline codes of the data-driven QoS cascade (the topology's
@@ -525,3 +527,90 @@ def qos_cascade_dyn(
             ts.shape[:-1] + (0, n_hosts, n_classes), dtype=dtype, device=ts.device
         )
     return ts, idx.contiguous(), psd
+
+
+# --------------------------------------------------------------------------- #
+# Mamba2 SSD
+# --------------------------------------------------------------------------- #
+
+
+def ssd_naive(
+    x: torch.Tensor,  # [B, L, H, P]   (P = head dim)
+    dt: torch.Tensor,  # [B, L, H]      (softplus-activated step)
+    A: torch.Tensor,  # [H]            (negative; per-head scalar decay rate)
+    Bm: torch.Tensor,  # [B, L, N]      (input projection onto state, 1 group)
+    Cm: torch.Tensor,  # [B, L, N]      (state readout, 1 group)
+) -> torch.Tensor:
+    """Sequential state-space recurrence (the exact semantics), in f32:
+
+        h_t = exp(A·dt_t) ⊙ h_{t−1} + dt_t · B_t ⊗ x_t        h ∈ [N, P]
+        y_t = C_t · h_t
+
+    returned in x's dtype.
+    """
+    Bsz, L, H, P = x.shape
+    N = Bm.shape[-1]
+    f32 = torch.float32
+    xf, dtf, Bf, Cf = (a.to(f32) for a in (x, dt, Bm, Cm))
+    decay = torch.exp(A.to(f32)[None, None, :] * dtf)  # [B, L, H]
+    h = torch.zeros((Bsz, H, N, P), dtype=f32, device=x.device)
+    ys = []
+    for t in range(L):
+        inp = dtf[:, t, :, None, None] * (Bf[:, t, None, :, None] * xf[:, t, :, None, :])
+        h = decay[:, t, :, None, None] * h + inp
+        ys.append(torch.einsum("bn,bhnp->bhp", Cf[:, t], h))
+    return torch.stack(ys, dim=1).to(x.dtype)  # [B, L, H, P]
+
+
+def ssd_chunked(
+    x: torch.Tensor,  # [B, L, H, P]
+    dt: torch.Tensor,  # [B, L, H]
+    A: torch.Tensor,  # [H]
+    Bm: torch.Tensor,  # [B, L, N]
+    Cm: torch.Tensor,  # [B, L, N]
+    chunk: int = 64,
+) -> torch.Tensor:
+    """Chunked SSD (state-space duality), the blocked algorithm the kernel
+    implements: quadratic attention-like math within chunks, linear state
+    passing between chunks.  Must agree with :func:`ssd_naive`."""
+    Bsz, L, H, P = x.shape
+    N = Bm.shape[-1]
+    if L % chunk:
+        raise ValueError(f"sequence length {L} is not a multiple of chunk {chunk}")
+    C = L // chunk
+    f32 = torch.float32
+    x_ = x.to(f32).reshape(Bsz, C, chunk, H, P)
+    dt_ = dt.to(f32).reshape(Bsz, C, chunk, H)
+    B_ = Bm.to(f32).reshape(Bsz, C, chunk, N)
+    C_ = Cm.to(f32).reshape(Bsz, C, chunk, N)
+
+    # per-position log decay a_t = A·dt_t, cumulative within the chunk
+    acum = torch.cumsum(A.to(f32) * dt_, dim=2)  # [B, C, c, H]
+
+    # ---- intra-chunk (quadratic, like masked attention) ------------------- #
+    # y_intra[t] = sum_{s<=t} C_t·B_s dt_s exp(acum_t - acum_s) x_s; above the
+    # diagonal the exponent is -inf before exp, never exp(...) masked after
+    seg = acum[:, :, :, None, :] - acum[:, :, None, :, :]  # [B, C, t, s, H]
+    tri = torch.ones((chunk, chunk), dtype=torch.bool, device=x.device).tril()
+    seg = seg.masked_fill(~tri[None, None, :, :, None], float("-inf"))
+    G = torch.einsum("bctn,bcsn->bcts", C_, B_)  # [B, C, t, s]
+    W = G[..., None] * torch.exp(seg) * dt_[:, :, None, :, :]  # [B, C, t, s, H]
+    y_intra = torch.einsum("bctsh,bcshp->bcthp", W, x_)
+
+    # ---- chunk states ------------------------------------------------------ #
+    # state_c = sum_s B_s dt_s exp(acum_last - acum_s) x_s, in [N, P]
+    decay_to_end = torch.exp(acum[:, :, -1:, :] - acum)  # [B, C, c, H]
+    S = torch.einsum("bcsn,bcshp->bchnp", B_, (dt_ * decay_to_end)[..., None] * x_)
+    chunk_decay = torch.exp(acum[:, :, -1, :])  # [B, C, H]
+
+    # ---- inter-chunk scan: the state entering each chunk ------------------- #
+    h = torch.zeros((Bsz, H, N, P), dtype=f32, device=x.device)
+    h_prev = []
+    for c in range(C):
+        h_prev.append(h)
+        h = chunk_decay[:, c, :, None, None] * h + S[:, c]
+    h_prev = torch.stack(h_prev, dim=1)  # [B, C, H, N, P]
+
+    # ---- inter-chunk contribution: y_inter[t] = C_t · (exp(acum_t) h_prev) - #
+    y_inter = torch.einsum("bctn,bchnp->bcthp", C_, h_prev) * torch.exp(acum)[..., None]
+    return (y_intra + y_inter).reshape(Bsz, L, H, P).to(x.dtype)

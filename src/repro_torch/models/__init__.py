@@ -1,6 +1,8 @@
-"""Model descriptions the simulator reads: configs and memory programs."""
+"""Model descriptions the simulator reads (configs and memory programs) and
+the model zoo's serving forward (the ssm family so far)."""
 
 from .config import ModelConfig
+from .model import Model
 from .phases import build_regions_and_phases, group_param_bytes
 
-__all__ = ["ModelConfig", "build_regions_and_phases", "group_param_bytes"]
+__all__ = ["Model", "ModelConfig", "build_regions_and_phases", "group_param_bytes"]

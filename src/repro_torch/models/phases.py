@@ -11,6 +11,11 @@ Accounting (per group, per step):
            optimizer reads G + M (2 moments) + P, writes M + P.
   prefill: reads W, writes A + KV.
   decode:  reads W + KV(cache_len·kv_bytes_per_tok) + states, writes 1 token KV.
+
+One repair against the reference: a model without attention (the ssm
+family) allocates no ``block{g}.kv`` region, and the reference still lists
+zero-byte accesses to it, which its trace synthesis refuses ("unknown
+region"); here the KV accesses exist only where the KV region does.
 """
 
 from __future__ import annotations
@@ -101,16 +106,16 @@ def build_regions_and_phases(
                 Access(f"block{g}.grad", pg, is_write=True),
             ]
         elif kind == "prefill":
-            acc += [
-                Access(f"block{g}.act", act_bytes, is_write=True),
-                Access(f"block{g}.kv", tokens * kv_per_tok, is_write=True),
-            ]
+            acc += [Access(f"block{g}.act", act_bytes, is_write=True)]
+            if kv_per_tok:
+                acc += [Access(f"block{g}.kv", tokens * kv_per_tok, is_write=True)]
         else:  # decode
-            acc += [
-                Access(f"block{g}.act", act_bytes, is_write=True),
-                Access(f"block{g}.kv", batch * max(cache_len, seq) * kv_per_tok),
-                Access(f"block{g}.kv", batch * kv_per_tok, is_write=True),
-            ]
+            acc += [Access(f"block{g}.act", act_bytes, is_write=True)]
+            if kv_per_tok:
+                acc += [
+                    Access(f"block{g}.kv", batch * max(cache_len, seq) * kv_per_tok),
+                    Access(f"block{g}.kv", batch * kv_per_tok, is_write=True),
+                ]
         phases.append(Phase(f"block{g}", flops=flops_g, accesses=tuple(acc)))
 
     if kind == "train":

@@ -1,7 +1,7 @@
 """The port stands alone: no file of ``src/repro_torch`` (nor the chip smoke
 script) imports JAX or the JAX package, CPU tensors take the plain path
-without touching the kernel, and the chip smoke script refuses to report
-without a card."""
+without touching the kernel, entry points default to the card and raise
+without one, and the chip smoke script refuses to report without a card."""
 
 import ast
 import os
@@ -12,8 +12,10 @@ from pathlib import Path
 import pytest
 import torch
 
+from repro_torch.configs import mamba2_2_7b as t_m2cfg
 from repro_torch.kernels import congestion as t_kernel
 from repro_torch.kernels import ops as t_ops
+from repro_torch.kernels import ssd_scan as t_ssd
 
 torch.set_num_threads(2)
 
@@ -40,9 +42,19 @@ def _imported_roots(path):
                 yield str(node.args[0].value).split(".")[0]
 
 
+# the model zoo's modules, checked by name so a move cannot drop them
+ZOO_FILES = (
+    "configs/mamba2_2_7b.py", "interop.py", "kernels/build.py", "kernels/ssd_scan.py",
+    "launch/steps.py", "models/config.py", "models/layers.py", "models/mamba2.py",
+    "models/model.py", "models/phases.py", "models/transformer.py",
+)
+
+
 def test_port_imports_neither_jax_nor_the_reference():
     files = _port_files()
     assert len(files) >= 15 and all(f.exists() for f in files)
+    port = REPO / "src" / "repro_torch"
+    assert {port / f for f in ZOO_FILES} <= set(files)
     bad = {
         str(f.relative_to(REPO)): sorted(set(_imported_roots(f)) & set(FORBIDDEN))
         for f in files
@@ -61,6 +73,36 @@ def test_cpu_tensors_take_the_plain_path():
     assert tf.shape == t.shape and psd.shape == (2, 2)
 
 
+def test_cpu_tensors_take_the_plain_ssd_path():
+    x = torch.randn(1, 32, 2, 4)
+    dt = torch.full((1, 32, 2), 0.1)
+    bm = torch.randn(1, 32, 8)
+    plain0, kernel0 = t_ops.plain_launches, t_ssd.ssd_launches
+    y = t_ops.ssd(x, dt, -torch.ones(2), bm, bm, chunk=16)
+    assert t_ops.plain_launches == plain0 + 1
+    assert t_ssd.ssd_launches == kernel0
+    assert y.shape == x.shape and y.dtype == x.dtype
+
+
+def test_model_entry_points_default_to_the_card():
+    import inspect
+
+    from repro_torch.interop import model_params_from_arrays
+    from repro_torch.models import Model
+    from repro_torch.models.mamba2 import init_mamba2_cache
+
+    for fn in (Model.__init__, model_params_from_arrays, init_mamba2_cache):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Model(t_m2cfg.SMOKE)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        model_params_from_arrays(t_m2cfg.SMOKE, {})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_mamba2_cache(1, 2, 4, 8)
+
+
 def test_kernel_wrapper_refuses_cpu_tensors():
     t = torch.zeros(1, 8)
     i32 = torch.zeros(1, 8, dtype=torch.int32)
@@ -70,6 +112,10 @@ def test_kernel_wrapper_refuses_cpu_tensors():
         t_kernel.congestion_cascade_hosts(t, i32, i32, torch.ones(1), 2)
     with pytest.raises(ValueError, match="CUDA tensors"):
         t_kernel.congestion_scan(t, torch.zeros(1, 8, dtype=torch.bool), 1.0)
+    x = torch.zeros(1, 8, 1, 4)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        t_ssd.ssd_scan(x, torch.zeros(1, 8, 1), torch.ones(1), torch.zeros(1, 8, 2),
+                       torch.zeros(1, 8, 2))
     assert not t_kernel._libs  # nothing was built or loaded
 
 

@@ -1,0 +1,131 @@
+"""Port parity: Mamba2's SSD scan.  The port's plain versions
+(``repro_torch.kernels.ref.ssd_chunked`` / ``ssd_naive``) against the
+reference's plain versions and its Pallas kernel in interpret mode, on the
+reference's own test cases, with inputs made from a seed with numpy; the
+device dispatch of ``ops.ssd``; and the CUDA wrapper's refusals on the
+CPU."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref as r_ref
+from repro.kernels.ssd_scan import ssd_scan as r_ssd_scan
+from repro_torch.kernels import ops as t_ops
+from repro_torch.kernels import ref as t_ref
+from repro_torch.kernels import ssd_scan as t_ssd
+
+torch.set_num_threads(2)
+
+SSD_CASES = [  # tests/test_kernels.py's cases: B, L, H, P, N, chunk
+    (2, 256, 4, 32, 16, 64),
+    (1, 128, 2, 64, 128, 128),
+    (1, 512, 8, 16, 32, 128),
+    (2, 64, 1, 8, 8, 32),
+]
+IDS = [str(c) for c in SSD_CASES]
+
+
+def _inputs(B, L, H, P, N, seed):
+    """The distributions of tests/test_kernels.py, drawn with numpy."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, L, H, P)).astype(np.float32)
+    dt = (np.logaddexp(0.0, rng.standard_normal((B, L, H))) * 0.1).astype(np.float32)
+    A = (-np.exp(rng.standard_normal(H) * 0.3)).astype(np.float32)
+    Bm = (rng.standard_normal((B, L, N)) * 0.5).astype(np.float32)
+    Cm = (rng.standard_normal((B, L, N)) * 0.5).astype(np.float32)
+    return x, dt, A, Bm, Cm
+
+
+def _both(case):
+    B, L, H, P, N, chunk = case
+    arrays = _inputs(B, L, H, P, N, seed=L + H)
+    return chunk, [jnp.asarray(a) for a in arrays], [torch.from_numpy(a) for a in arrays]
+
+
+@pytest.mark.parametrize("case", SSD_CASES, ids=IDS)
+def test_plain_chunked_matches_reference_chunked(case):
+    chunk, r_in, t_in = _both(case)
+    want = np.asarray(r_ref.ssd_chunked(*r_in, chunk=chunk))
+    got = t_ref.ssd_chunked(*t_in, chunk=chunk).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("case", SSD_CASES, ids=IDS)
+def test_plain_chunked_matches_reference_naive(case):
+    chunk, r_in, t_in = _both(case)
+    want = np.asarray(r_ref.ssd_naive(*r_in))
+    got = t_ref.ssd_chunked(*t_in, chunk=chunk).numpy()
+    np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("case", SSD_CASES, ids=IDS)
+def test_plain_chunked_matches_pallas_interpret(case):
+    chunk, r_in, t_in = _both(case)
+    want = np.asarray(r_ssd_scan(*r_in, chunk=chunk, interpret=True))
+    got = t_ref.ssd_chunked(*t_in, chunk=chunk).numpy()
+    np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("case", SSD_CASES, ids=IDS)
+def test_plain_naive_matches_reference_naive(case):
+    _, r_in, t_in = _both(case)
+    want = np.asarray(r_ref.ssd_naive(*r_in))
+    got = t_ref.ssd_naive(*t_in).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_plain_chunked_keeps_bf16_and_matches_f32_at_bf16_rounding():
+    chunk, _, t_in = _both(SSD_CASES[0])
+    x16 = t_in[0].to(torch.bfloat16)
+    y16 = t_ref.ssd_chunked(x16, *t_in[1:], chunk=chunk)
+    y32 = t_ref.ssd_chunked(x16.float(), *t_in[1:], chunk=chunk)
+    assert y16.dtype == torch.bfloat16
+    # the same f32 arithmetic, rounded once to bf16 at the end
+    torch.testing.assert_close(y16, y32.to(torch.bfloat16), rtol=0.0, atol=0.0)
+
+
+def test_plain_chunked_refuses_a_ragged_length():
+    _, _, t_in = _both(SSD_CASES[3])  # L = 64
+    with pytest.raises(ValueError, match="multiple of chunk"):
+        t_ref.ssd_chunked(*t_in, chunk=48)
+
+
+def test_ops_ssd_takes_the_plain_path_on_cpu():
+    chunk, r_in, t_in = _both(SSD_CASES[3])
+    plain0, kernel0 = t_ops.plain_launches, t_ssd.ssd_launches
+    got = t_ops.ssd(*t_in, chunk=4 * chunk)  # chunk above L: min(chunk, L), as the reference
+    assert t_ops.plain_launches == plain0 + 1 and t_ssd.ssd_launches == kernel0
+    want = np.asarray(r_ref.ssd_chunked(*r_in, chunk=t_in[0].shape[1]))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+def test_ops_ssd_refuses_other_devices():
+    _, _, t_in = _both(SSD_CASES[3])
+    with pytest.raises(ValueError, match="no ssd for tensors on meta"):
+        t_ops.ssd(*(a.to("meta") for a in t_in))
+
+
+def test_kernel_wrapper_refuses_cpu_tensors_and_builds_nothing():
+    _, _, t_in = _both(SSD_CASES[3])
+    launches0 = t_ssd.ssd_launches
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        t_ssd.ssd_scan(*t_in, chunk=32)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        t_ssd.ssd_scan(t_in[0].double(), *t_in[1:], chunk=32)
+    assert t_ssd.ssd_launches == launches0
+    assert "ssd_scan" not in t_ssd.load.__globals__["_libs"]  # nothing was built or loaded
+
+
+@pytest.mark.parametrize("case", SSD_CASES, ids=IDS)
+def test_plain_chunked_bf16_matches_reference_chunked(case):
+    """x in bf16, as on the model path: both packages compute in f32 and
+    round y to bf16 once, so they agree to one bf16 rounding."""
+    chunk, r_in, t_in = _both(case)
+    want = np.asarray(r_ref.ssd_chunked(r_in[0].astype(jnp.bfloat16), *r_in[1:], chunk=chunk)
+                      .astype(jnp.float32))
+    got = t_ref.ssd_chunked(t_in[0].to(torch.bfloat16), *t_in[1:], chunk=chunk)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=2 ** -7,
+                               atol=1e-5 * float(np.abs(want).max()))
