@@ -88,11 +88,31 @@ Phases (any failure exits non-zero and prints no result):
    cascade per step, totals against ``analyze_ref``) and the decode step
    from the prefill's caches (one warm-up, 8 measured: one cascade per step,
    no SSD launch); then a torch.profiler table of one prefill;
-10. a JSON ``kernels`` line, then the card's nvidia-smi line, then the result
+10. dense serving at qwen3-0.6b's published widths (random weights from
+   seed 0, bf16 compute): the flash attention kernel (built with the others
+   from flash_attention.cu) against the plain full-matrix version
+   ``ref.mha_attention`` at the reference's five test cases (f32 within
+   2e-5, bf16 within 2e-2) and at the prefill shape q[8, 16, 4096, 128] x
+   k, v[8, 8, 4096, 128], causal, in bf16 (within 2e-2) and f32, timed
+   beside its bound, the plain version and scaled_dot_product_attention;
+   then prefill S-1 tokens plus one decode step against the last logits of a
+   prefill of S, at full width, in f32 (all 28 layers) and bf16 (2 layers),
+   every sequence's rel < 5e-4 and < 3e-2; then 8 requests of 4096 tokens served (one prefill padded to
+   4112, 16 greedy decode steps) on the 28-layer model; then ops.attention,
+   the kernel's entry point, on layer 0's own q/k/v from that prefill
+   (against the model's chunked attention) and at the decode shape (Sq = 1,
+   q_offset = the cache length, over the padded cache, against the decode
+   block's attention): exactly 2 flash launches; then the prefill step
+   attached to CXLMemSim on Figure 1 with the KV cache in cxl_pool1 (one
+   warm-up step, 3 measured: one cascade per step, totals against
+   ``analyze_ref``) and the decode step from the prefill's caches (one
+   warm-up, 8 measured); then a torch.profiler table of one prefill;
+11. a JSON ``kernels`` line, then the card's nvidia-smi line, then the result
    line ``{"ok": true, "device": {...}}``.
 
-The earlier phases (4-6) must show no QoS launch, and no phase before 9 an
-SSD launch.
+The earlier phases (4-6) must show no QoS launch, no phase before 9 an SSD
+launch, and no attached step a flash launch (the model's attention is the
+plain chunked version, as in the reference).
 """
 
 from __future__ import annotations
@@ -136,13 +156,17 @@ from repro_torch.core.units import s_to_ns  # noqa: E402
 from repro_torch.kernels import congestion as kcong  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels import build as kbuild  # noqa: E402
+from repro_torch.kernels import flash_attention as kflash  # noqa: E402
 from repro_torch.kernels import ref as kref  # noqa: E402
 from repro_torch.kernels import ssd_scan as kssd  # noqa: E402
 from repro_torch.launch.steps import make_decode_step, make_prefill_step  # noqa: E402
 from repro_torch.models import Model, build_regions_and_phases  # noqa: E402
+from repro_torch.models import attention as mattn  # noqa: E402
+from repro_torch.models.layers import rms_norm  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
+BF16_OPS_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
 MS_PER_S = 1e3
 BYTES_PER_EVENT = 16  # cascade: read t + route bits, write t_final + slot_idx
 HOSTS_BYTES_PER_EVENT = 20  # hosts cascade: + read the host id
@@ -189,6 +213,25 @@ M2_POLICY = {"param": "cxl_pool1"}  # the weights in the CXL pool behind switch0
 # about twice the reference's split.
 ROUNDTRIP_F32 = (8, 5e-4)  # layers, bar on every sequence
 ROUNDTRIP_BF16 = (2, 3e-2, 0.15)  # layers, bar on the median, guard on every sequence
+# Dense serving: qwen3-0.6b at its published widths, 8 requests of 4096 tokens
+ATTN_CASES = [  # tests/test_kernels.py's cases: B, H, Hk, Sq, Sk, D, causal, q_offset
+    (1, 4, 2, 256, 256, 64, True, 0),
+    (2, 8, 2, 128, 128, 32, False, 0),
+    (1, 2, 2, 128, 512, 64, True, 384),
+    (1, 16, 8, 512, 512, 128, True, 0),
+    (2, 4, 4, 256, 256, 128, True, 0),
+]
+ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # tests/test_kernels.py's bars
+Q3_PAD_TO = SERVE_SEQ + SERVE_DECODES  # the decode budget of the prefill's KV cache
+Q3_POLICY = {"kvcache": "cxl_pool1"}  # the KV cache in the CXL pool behind switch0
+# prefill S-1 + decode 1 against prefill S, as for mamba2.  f32: all 28
+# layers, every sequence under the reference's bar.  bf16: 2 layers, every
+# sequence under 3e-2 (mamba2's median bar, held here on each): five times
+# the reference's own split at this width and depth, 0.0059 on its witness
+# sequence (tests/test_torch_qwen3.py::
+# test_full_width_bf16_roundtrip_in_the_reference).
+Q3_ROUNDTRIP_F32 = (28, 5e-4)  # layers, bar on every sequence
+Q3_ROUNDTRIP_BF16 = (2, 3e-2)  # layers, bar on every sequence
 
 
 def check(cond: bool, msg: str) -> None:
@@ -577,6 +620,7 @@ def reset_counts():
     kcong.launches = kcong.hosts_launches = kcong.scan_launches = 0
     kcong.qos_launches = kcong.qos_hosts_launches = 0
     kssd.ssd_launches = 0
+    kflash.flash_launches = 0
     kops.plain_launches = 0
 
 
@@ -584,7 +628,7 @@ def counts():
     return dict(cascade=kcong.launches, hosts=kcong.hosts_launches,
                 scan=kcong.scan_launches, qos=kcong.qos_launches,
                 qos_hosts=kcong.qos_hosts_launches, ssd=kssd.ssd_launches,
-                plain=kops.plain_launches)
+                flash=kflash.flash_launches, plain=kops.plain_launches)
 
 
 def check_launches(tag, c, kernel, want, **also):
@@ -992,14 +1036,15 @@ def seq_errs(got, want) -> list:
     return ((got - want).abs().amax(-1) / want.abs().amax(-1)).tolist()
 
 
-def roundtrip(cfg, tokens, dev):
-    """Prefill S-1 tokens and decode the last against the last-position
-    logits of a prefill of all S (kernel plus _final_state against the
-    kernel-free decode recurrence); returns each sequence's error."""
+def roundtrip(cfg, tokens, dev, pad_to=None):
+    """Prefill S-1 tokens (the KV cache padded to ``pad_to``) and decode the
+    last against the last-position logits of a prefill of all S (for
+    mamba2: kernel plus _final_state against the kernel-free decode
+    recurrence); returns each sequence's error."""
     model = Model(cfg, device=dev, seed=0)
-    prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
-    want, _, _ = prefill(model, {"tokens": tokens})
-    _, caches, clen = prefill(model, {"tokens": tokens[:, :-1]})
+    decode = make_decode_step(cfg)
+    want, _, _ = make_prefill_step(cfg)(model, {"tokens": tokens})
+    _, caches, clen = make_prefill_step(cfg, pad_to=pad_to)(model, {"tokens": tokens[:, :-1]})
     got, _, _ = decode(model, {"token": tokens[:, -1:], "caches": caches, "cache_len": clen})
     torch.cuda.synchronize()
     check(bool(torch.isfinite(got).all()), f"roundtrip {cfg.name}: non-finite logits")
@@ -1118,6 +1163,252 @@ def mamba2_serving_path(dev):
     return prefill_launches
 
 
+# --------------------------------------------------------------------------- #
+# Dense serving (qwen3-0.6b): the flash attention kernel and the served model
+# --------------------------------------------------------------------------- #
+
+
+def attn_inputs(B, H, Hk, Sq, Sk, D, seed, dtype, dev):
+    """q, k, v standard normal, drawn with numpy from ``seed``."""
+    rng = np.random.default_rng(seed)
+    shapes = ((B, H, Sq, D), (B, Hk, Sk, D), (B, Hk, Sk, D))
+    return [torch.from_numpy(rng.standard_normal(sh).astype(np.float32)).to(dev).to(dtype)
+            for sh in shapes]
+
+
+def flash_bound(q, k, causal, q_offset):
+    """Bound of one attention call: q, k, v read once and o written once,
+    against 4·D FLOPs per visible (query, key) pair and head over the peak
+    rate for the inputs' type: bf16 on the tensor cores, f32 on the CUDA
+    cores (the f32 CUDA-core time is returned beside it)."""
+    B, H, Sq, D = q.shape
+    Sk = k.shape[2]
+    rows = torch.arange(Sq, dtype=torch.float64) + q_offset
+    visible = (rows + 1).clamp(0, Sk).sum() if causal else torch.tensor(float(Sq * Sk))
+    flops = 4.0 * D * B * H * float(visible)
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    t_bytes = nbytes / HBM_BYTES_PER_S * MS_PER_S
+    rate = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else F32_OPS_PER_S
+    t_ops = flops / rate * MS_PER_S
+    bound = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return bound, flops, flops / F32_OPS_PER_S * MS_PER_S
+
+
+def compare_flash(name, q, k, v, causal, q_offset, reps=10, library=False):
+    """Flash kernel vs the plain full-matrix version on the same CUDA
+    inputs, at tests/test_kernels.py's bars (f32 2e-5; bf16 2e-2: both round
+    nearly equal f32 values once)."""
+    o = kflash.flash_attention(q, k, v, q_offset=q_offset, causal=causal)
+    want = kref.mha_attention(q, k, v, causal=causal, q_offset=q_offset)
+    torch.cuda.synchronize()
+    check(o.dtype == q.dtype and o.shape == q.shape, f"{name}: o {o.dtype} {tuple(o.shape)}")
+    check(bool(torch.isfinite(o).all()), f"{name}: non-finite outputs")
+    tol = ATTN_TOL[q.dtype]
+    torch.testing.assert_close(o.float(), want.float(), rtol=tol, atol=tol)
+    err = float((o.float() - want.float()).abs().max())
+    del want
+    (bms, by), flops, f32_ms = flash_bound(q, k, causal, q_offset)
+    row = dict(shape=[list(q.shape), list(k.shape)], causal=causal, q_offset=q_offset,
+               dtype=str(q.dtype), max_abs_err=err, flops=flops, bound_ms=bms, bound_by=by,
+               f32_cuda_core_ms=f32_ms)
+    row["ms"] = median_ms(lambda: kflash.flash_attention(q, k, v, q_offset=q_offset,
+                                                         causal=causal), reps)
+    row["plain_ms"] = median_ms(
+        lambda: kref.mha_attention(q, k, v, causal=causal, q_offset=q_offset), max(3, reps // 4))
+    if library:
+        # the yardstick only: one PyTorch call computing the same function
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        lib = sdpa(q, k, v, is_causal=causal, enable_gqa=True)
+        torch.testing.assert_close(lib.float(), o.float(), rtol=tol, atol=tol)
+        row["library_ms"] = median_ms(lambda: sdpa(q, k, v, is_causal=causal, enable_gqa=True),
+                                      4 * reps)
+    print(f"[kernel] {name}: {json.dumps(row)}")
+    return row
+
+
+def flash_kernel_phase(dev):
+    """Phase 10a: the flash kernel at the reference's test cases (f32 and
+    bf16) and at qwen3-0.6b's prefill shape (bf16, and f32)."""
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for i, (B, H, Hk, Sq, Sk, D, causal, qoff) in enumerate(ATTN_CASES):
+            q, k, v = attn_inputs(B, H, Hk, Sq, Sk, D, B * Sq + D, dtype, dev)
+            rows.append(compare_flash(f"flash_case{i}_{str(dtype)[6:]}", q, k, v, causal, qoff))
+    H, Hk, D = CONFIG.n_heads, CONFIG.n_kv_heads, CONFIG.d_head
+    full = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = attn_inputs(SERVE_BATCH, H, Hk, SERVE_SEQ, SERVE_SEQ, D, 0, dtype, dev)
+        full[dtype] = compare_flash(f"flash_prefill_{str(dtype)[6:]}", q, k, v, True, 0,
+                                    library=dtype == torch.bfloat16)
+        del q, k, v
+        torch.cuda.empty_cache()
+    return rows + list(full.values()), full[torch.bfloat16]
+
+
+def qwen3_kernel_on_model(model, tokens, caches, clen):
+    """Phase 10c: ops.attention, the flash kernel's entry point, on the
+    served model's own layer-0 tensors: its prefill q/k/v (k must equal the
+    prefill's cache) against the model's chunked attention, and the decode
+    shape (Sq = 1, q_offset = cache_len over the padded cache) against the
+    decode block's attention.  Returns the comparison rows and the launches
+    of this run."""
+    cfg = model.cfg
+    sub = model.blocks[0].sub0
+    B, S = tokens.shape
+    dims = (cfg.n_heads, cfg.n_kv_heads, cfg.d_head)
+    tol = ATTN_TOL[cfg.dtype]
+    with torch.inference_mode():
+        pos = model._positions(B, S)
+        h = rms_norm(model._embed(tokens), sub.norm1)
+        q, k, v = mattn._project_qkv(sub.attn, h, *dims, pos, cfg.rope_variant, cfg.qk_norm,
+                                     cfg.rope_theta)
+        check(torch.equal(k.to(cfg.cache_dtype), caches["kv"]["k"][0, 0, :, :, :S]),
+              "layer 0's k differs from the prefill's KV cache")
+        want = mattn.chunked_attention(q, k, v, causal=cfg.causal, block_q=cfg.attn_block_q,
+                                       block_k=cfg.attn_block_k, window=cfg.window)
+        nxt = torch.randint(0, cfg.vocab_size, (B, 1), generator=torch.Generator(
+            device=tokens.device).manual_seed(2), device=tokens.device)
+        h1 = rms_norm(model._embed(nxt), sub.norm1)
+        q1, k1, v1 = mattn._project_qkv(sub.attn, h1, *dims, model._positions(B, 1, clen),
+                                        cfg.rope_variant, cfg.qk_norm, cfg.rope_theta)
+        ck = caches["kv"]["k"][0, 0].clone()
+        cv = caches["kv"]["v"][0, 0].clone()
+        ck[:, :, clen], cv[:, :, clen] = k1[:, :, 0], v1[:, :, 0]
+        want1 = mattn.decode_attention(q1, ck, cv, clen, cfg.window)
+        q, k, v, q1 = (t.contiguous() for t in (q, k, v, q1))
+        torch.cuda.synchronize()
+        reset_counts()
+        got = kops.attention(q, k, v, q_offset=0, causal=cfg.causal)
+        got1 = kops.attention(q1, ck, cv, q_offset=clen, causal=True)
+        torch.cuda.synchronize()
+        c = counts()
+    check_launches("qwen3-attention", c, "flash", 2)
+    rows = []
+    for name, o, w in (("flash_model_prefill", got, want), ("flash_model_decode", got1, want1)):
+        check(o.dtype == cfg.dtype and bool(torch.isfinite(o).all()), f"{name}: outputs")
+        torch.testing.assert_close(o.float(), w.float(), rtol=tol, atol=tol)
+        rows.append(dict(max_abs_err=float((o.float() - w.float()).abs().max()),
+                         shape=[list(o.shape), list(ck.shape if o is got1 else k.shape)]))
+        print(f"[qwen3] ops.attention {name[6:]} on layer 0's tensors: "
+              f"{json.dumps(rows[-1])} (bar {tol})")
+    decode_row = dict(rows[1], ms=median_ms(
+        lambda: kflash.flash_attention(q1, ck, cv, q_offset=clen), 20))
+    (decode_row["bound_ms"], decode_row["bound_by"]), _, _ = flash_bound(q1, ck, True, clen)
+    print(f"[kernel] flash_decode: {json.dumps(decode_row)}")
+    return rows, c["flash"]
+
+
+def qwen3_serving_path(dev):
+    """Phase 10b-e: qwen3-0.6b on the card: the prefill/decode roundtrip, 8
+    requests served (one prefill, 16 decodes), the kernel on the model's own
+    tensors, then the prefill and decode steps attached to CXLMemSim with
+    the KV cache in CXL pool 1."""
+    gen = torch.Generator(device=dev).manual_seed(1)
+    tokens = torch.randint(0, CONFIG.vocab_size, (SERVE_BATCH, SERVE_SEQ), generator=gen,
+                           device=dev)
+    layers, bar = Q3_ROUNDTRIP_F32
+    f32 = dict(dtype=torch.float32, cache_dtype=torch.float32)
+    t0 = time.perf_counter()
+    errs = roundtrip(dataclasses.replace(CONFIG, n_layers=layers, **f32), tokens, dev,
+                     pad_to=Q3_PAD_TO)
+    print(f"[qwen3] roundtrip float32 at {layers} layers: per-sequence rel {errs} "
+          f"(bar {bar} on each) in {time.perf_counter() - t0:.3f} s")
+    check(max(errs) < bar, f"roundtrip float32 at {layers} layers: {max(errs)} >= {bar}")
+    layers, bar = Q3_ROUNDTRIP_BF16
+    t0 = time.perf_counter()
+    errs = roundtrip(dataclasses.replace(CONFIG, n_layers=layers), tokens, dev,
+                     pad_to=Q3_PAD_TO)
+    print(f"[qwen3] roundtrip bfloat16 at {layers} layers: per-sequence rel {errs}, median "
+          f"{float(np.median(errs))!r} (bar {bar} on each) in {time.perf_counter() - t0:.3f} s")
+    check(max(errs) < bar, f"roundtrip bfloat16 at {layers} layers: {max(errs)} >= {bar}")
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    model = Model(CONFIG, device=dev, seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params == CONFIG.param_counts()["total"], f"{n_params} parameters")
+    print(f"[qwen3] {CONFIG.name}: {n_params} f32 parameters on the card in "
+          f"{time.perf_counter() - t0:.3f} s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    prefill = make_prefill_step(CONFIG, pad_to=Q3_PAD_TO)
+    decode = make_decode_step(CONFIG)
+    batch = {"tokens": tokens}
+
+    # serve: one prefill of the 8 requests, then 16 decode steps, greedy
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    logits, caches, clen = prefill(model, batch)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    check(logits.shape == (SERVE_BATCH, CONFIG.vocab_size)
+          and bool(torch.isfinite(logits).all()), "prefill logits")
+    kv_shape = (CONFIG.n_groups, 1, SERVE_BATCH, CONFIG.n_kv_heads, Q3_PAD_TO, CONFIG.d_head)
+    check(clen == SERVE_SEQ and caches["kv"]["k"].shape == kv_shape
+          and caches["kv"]["k"].dtype == CONFIG.cache_dtype, "KV cache shape")
+    rows, flash_launches = qwen3_kernel_on_model(model, tokens, caches, clen)
+    state = {"token": logits.argmax(-1, keepdim=True), "caches": caches, "cache_len": clen}
+    t0 = time.perf_counter()
+    for _ in range(SERVE_DECODES):
+        step_logits, new_caches, new_len = decode(model, state)
+        state = {"token": step_logits.argmax(-1, keepdim=True), "caches": new_caches,
+                 "cache_len": new_len}
+    torch.cuda.synchronize()
+    decode_s = (time.perf_counter() - t0) / SERVE_DECODES
+    check(state["cache_len"] == Q3_PAD_TO and bool(torch.isfinite(step_logits).all())
+          and bool(caches["kv"]["k"][:, :, :, :, Q3_PAD_TO - 1].any()), "decode logits")
+    print(f"[qwen3] served {SERVE_BATCH} x {SERVE_SEQ} tokens: prefill {prefill_s:.6f} s "
+          f"(first call), then {SERVE_DECODES} decode steps at {decode_s:.6f} s each; "
+          f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    # attached prefill: the paper's KV-cache-in-the-pool case for a serving job
+    regions, phases = build_regions_and_phases(CONFIG, "prefill", batch=SERVE_BATCH,
+                                               seq=SERVE_SEQ)
+    sim = CXLMemSim(figure1_topology(), ClassMapPolicy(Q3_POLICY), epoch=EpochSchedule("layer"),
+                    hw=H100_SXM, max_events_per_access=1024, device=dev)
+    prog = sim.attach(prefill, phases, regions)
+    traces = prog.epoch_traces()
+    print(f"[qwen3-prefill] {len(traces)} epochs, up to {max(tr.n for tr in traces)} events, "
+          f"{sum(tr.n for tr in traces)} events per step")
+    prog.step(model, batch)  # warm-up
+    warm_analyzer_s, warm_native_s = prog.report.analyzer_s, prog.report.native_s
+    reset_counts()
+    rep = prog.run(3, model, batch)
+    c = counts()
+    check_launches("qwen3-prefill", c, "cascade", 3)
+    check_totals("qwen3-prefill", rep, oracle(prog.sim.flat, traces), rep.steps)
+    print(f"[qwen3-prefill] summary {json.dumps(rep.summary())}")
+    print(f"[qwen3-prefill] analyzer {(rep.analyzer_s - warm_analyzer_s) / 3:.6f} s/step and "
+          f"native {(rep.native_s - warm_native_s) / 3:.6f} s/step over the 3 measured "
+          f"steps; warm-up step analyzer {warm_analyzer_s:.6f} s, native {warm_native_s:.6f} s")
+
+    # attached decode from the served prefill's caches (each step writes slot 4096 again)
+    regions, phases = build_regions_and_phases(CONFIG, "decode", batch=SERVE_BATCH, seq=1,
+                                               cache_len=SERVE_SEQ)
+    sim_d = CXLMemSim(figure1_topology(), ClassMapPolicy(Q3_POLICY),
+                      epoch=EpochSchedule("layer"), hw=H100_SXM, max_events_per_access=1024,
+                      device=dev)
+    prog_d = sim_d.attach(decode, phases, regions)
+    traces_d = prog_d.epoch_traces()
+    state = {"token": logits.argmax(-1, keepdim=True), "caches": caches, "cache_len": clen}
+    prog_d.step(model, state)  # warm-up
+    warm_analyzer_s, warm_native_s = prog_d.report.analyzer_s, prog_d.report.native_s
+    reset_counts()
+    rep_d = prog_d.run(8, model, state)
+    c = counts()
+    check_launches("qwen3-decode", c, "cascade", 8)
+    check_totals("qwen3-decode", rep_d, oracle(prog_d.sim.flat, traces_d), rep_d.steps)
+    print(f"[qwen3-decode] summary {json.dumps(rep_d.summary())}")
+    print(f"[qwen3-decode] analyzer {(rep_d.analyzer_s - warm_analyzer_s) / 8:.6f} s/step "
+          f"and native {(rep_d.native_s - warm_native_s) / 8:.6f} s/step over the 8 measured "
+          f"steps; warm-up step analyzer {warm_analyzer_s:.6f} s, native {warm_native_s:.6f} s")
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        prefill(model, batch)
+        torch.cuda.synchronize()
+    print(prof.key_averages().table(sort_by="device_time_total", row_limit=12))
+    return rows, flash_launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script needs a card",
@@ -1173,7 +1464,7 @@ def main() -> int:
     scan_rows = [compare_scan("scan_random_mask", t, mask, 2.0)]
     qos_rows = qos_kernel_phase(dev)
 
-    # -- 4-9. the main paths ------------------------------------------------ #
+    # -- 4-10. the main paths ----------------------------------------------- #
     step, x = main_step(dev)
     main_row, cascade_launches, main_rep = slice1_main_path(dev, step, x)
     fabric_row, hosts_launches, fabric_rep = fabric_main_path(dev)
@@ -1184,8 +1475,11 @@ def main() -> int:
     scan_rows.append(wide_row)
     ssd_rows, ssd_row = ssd_kernel_phase(dev)
     ssd_launches = mamba2_serving_path(dev)
+    torch.cuda.empty_cache()
+    flash_rows, flash_row = flash_kernel_phase(dev)
+    model_rows, flash_launches = qwen3_serving_path(dev)
 
-    # -- 10. the kernels line and the result -------------------------------- #
+    # -- 11. the kernels line and the result -------------------------------- #
     src = "src/repro_torch/kernels/csrc/"
     kernels = []
     for name, source, replaces, launches, comps, row in (
@@ -1200,6 +1494,8 @@ def main() -> int:
         ("qos_congestion_cascade_hosts", "qos_cascade.cu", "congestion.py:542",
          qos_hosts_launches, [qos_fabric_row], qos_fabric_row),
         ("ssd_scan", "ssd_scan.cu", "ssd_scan.py:82", ssd_launches, ssd_rows, ssd_row),
+        ("flash_attention", "flash_attention.cu", "flash_attention.py:94", flash_launches,
+         flash_rows + model_rows, flash_row),
     ):
         kernels.append({
             "name": name,
@@ -1212,7 +1508,7 @@ def main() -> int:
             "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"],
-            "library_ms": None,
+            "library_ms": row.get("library_ms"),
         })
     print(f"[done] chip_smoke ran {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

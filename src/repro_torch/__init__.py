@@ -5,3 +5,15 @@ of it and never imports ``jax``.  Entry points take a ``device`` argument
 that defaults to ``"cuda"``; ``device="cpu"`` runs the plain PyTorch
 versions of the kernels.  See ``ROADMAP.md`` for what is ported so far.
 """
+
+import torch as _torch
+
+# PyTorch's CPU build sets up its vectorized elementwise kernels lazily, and
+# not safely across its intra-op threads: when the first such op of a
+# process (exp, cos, ...) runs on a tensor large enough to be split over
+# several threads, a thread can take a path that is off by about 1e-4
+# relative (seen for exp with torch 2.13 on an AMX-capable Xeon, in about 1
+# of 10 fresh processes, and never after one small single-threaded call).
+# The port's plain versions are the CPU reference of its kernels, so that
+# call is made here, once, before any of them runs.
+_torch.exp(_torch.zeros(1))

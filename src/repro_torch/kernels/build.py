@@ -33,6 +33,7 @@ SOURCES = {
     "congestion_scan": CSRC / "congestion_scan.cu",
     "qos_cascade": CSRC / "qos_cascade.cu",
     "ssd_scan": CSRC / "ssd_scan.cu",
+    "flash_attention": CSRC / "flash_attention.cu",
 }
 HEADERS = (CSRC / "block_scan.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"

@@ -3,10 +3,11 @@
 A CPU tensor runs the plain PyTorch version (:mod:`.ref`); a CUDA tensor
 runs the hand-written kernel or raises.  There is no fallback from one to
 the other.  ``plain_launches`` counts the plain path's calls here, cascades,
-queue and SSD scan alike; the kernel path counts its launches in
-:mod:`repro_torch.kernels.congestion` (``launches``, ``hosts_launches``,
-``scan_launches``, ``qos_launches``, ``qos_hosts_launches``) and
-:mod:`repro_torch.kernels.ssd_scan` (``ssd_launches``).
+queue, SSD scan and attention alike; the kernel path counts its launches
+in :mod:`repro_torch.kernels.congestion` (``launches``, ``hosts_launches``,
+``scan_launches``, ``qos_launches``, ``qos_hosts_launches``),
+:mod:`repro_torch.kernels.ssd_scan` (``ssd_launches``) and
+:mod:`repro_torch.kernels.flash_attention` (``flash_launches``).
 """
 
 from __future__ import annotations
@@ -16,10 +17,12 @@ from typing import Optional, Sequence
 import torch
 
 from . import congestion as _kernel
+from . import flash_attention as _flash
 from . import ref
 from . import ssd_scan as _ssd
 
 __all__ = [
+    "attention",
     "congestion_cascade",
     "congestion_queue",
     "plain_launches",
@@ -127,3 +130,25 @@ def ssd(
     if x.device.type == "cuda":
         return _ssd.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
     raise ValueError(f"no ssd for tensors on {x.device}")
+
+
+def attention(
+    q: torch.Tensor,  # [B, H, Sq, D]
+    k: torch.Tensor,  # [B, Hk, Sk, D]
+    v: torch.Tensor,  # [B, Hk, Sk, D]
+    q_offset: int = 0,
+    causal: bool = True,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """GQA attention: ``q [B, H, Sq, D]`` x ``k, v [B, Hk, Sk, D] -> [B, H,
+    Sq, D]`` in q's dtype, causal on absolute positions (q[0] at
+    ``q_offset``); see :func:`repro_torch.kernels.ref.mha_attention`.  The
+    kernel picks its own tiles: the reference's ``block_q`` / ``block_k``
+    were the TPU kernel's."""
+    global plain_launches
+    if q.device.type == "cpu":
+        plain_launches += 1
+        return ref.mha_attention(q, k, v, causal=causal, scale=scale, q_offset=q_offset)
+    if q.device.type == "cuda":
+        return _flash.flash_attention(q, k, v, q_offset=q_offset, causal=causal, scale=scale)
+    raise ValueError(f"no attention for tensors on {q.device}")

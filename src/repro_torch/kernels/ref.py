@@ -1,11 +1,13 @@
 """Plain PyTorch versions of the kernels (port of ``repro/kernels/ref.py``):
 the fused cascade, single-host and host-segmented, the single-switch scan,
 the QoS-arbitrated cascade (priority / WFQ / FIFO per switch; a
-static-discipline spec and the data-driven form the kernel computes), and
-Mamba2's SSD scan (the sequential recurrence and the chunked algorithm).
+static-discipline spec and the data-driven form the kernel computes),
+Mamba2's SSD scan (the sequential recurrence and the chunked algorithm), and
+full-matrix GQA attention.
 
 They define what the CUDA kernels (:mod:`repro_torch.kernels.congestion`,
-:mod:`repro_torch.kernels.ssd_scan`) compute.  The CPU tests hold them against the reference, ``chip_smoke.py``
+:mod:`repro_torch.kernels.ssd_scan`, :mod:`repro_torch.kernels.flash_attention`)
+compute.  The CPU tests hold them against the reference, ``chip_smoke.py``
 holds the kernel against them on the card, and :mod:`.ops` runs them for
 tensors that lie on the CPU.  On the card nothing on the main path calls
 them.
@@ -27,6 +29,7 @@ __all__ = [
     "DISC_WFQ",
     "congestion_scan",
     "merge_sorted_runs",
+    "mha_attention",
     "qos_cascade_dyn",
     "qos_serial_queue_cascade",
     "qos_service_table",
@@ -527,6 +530,46 @@ def qos_cascade_dyn(
             ts.shape[:-1] + (0, n_hosts, n_classes), dtype=dtype, device=ts.device
         )
     return ts, idx.contiguous(), psd
+
+
+# --------------------------------------------------------------------------- #
+# flash attention
+# --------------------------------------------------------------------------- #
+
+
+def mha_attention(
+    q: torch.Tensor,  # [B, H, Sq, D]
+    k: torch.Tensor,  # [B, Hk, Sk, D]
+    v: torch.Tensor,  # [B, Hk, Sk, D]
+    causal: bool = True,
+    scale: Optional[float] = None,
+    q_offset: int = 0,
+) -> torch.Tensor:
+    """Full-matrix GQA attention in f32 (the flash kernel's plain version),
+    returned in q's dtype.  Query head h reads KV head ``h // (H // Hk)``.
+
+    ``q_offset``: absolute position of q[0] (for decode: Sq = 1, offset =
+    cache length), so causality is computed on absolute positions.  As in
+    the reference, masked logits are ``-inf``: a row with no visible key
+    is NaN here (the kernel returns 0 there).
+    """
+    B, H, Sq, D = q.shape
+    Hk, Sk = k.shape[1], k.shape[2]
+    if H % Hk:
+        raise ValueError(f"GQA needs H % Hk == 0, got H={H}, Hk={Hk}")
+    g = H // Hk
+    if scale is None:
+        scale = 1.0 / (D ** 0.5)
+    f32 = torch.float32
+    kk = k.to(f32).repeat_interleave(g, dim=1)
+    vv = v.to(f32).repeat_interleave(g, dim=1)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.to(f32), kk) * scale
+    if causal:
+        qpos = torch.arange(Sq, device=q.device) + q_offset
+        kpos = torch.arange(Sk, device=q.device)
+        logits = logits.masked_fill(qpos[:, None] < kpos[None, :], float("-inf"))
+    w = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", w, vv).to(q.dtype)
 
 
 # --------------------------------------------------------------------------- #

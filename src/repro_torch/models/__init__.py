@@ -1,5 +1,5 @@
 """Model descriptions the simulator reads (configs and memory programs) and
-the model zoo's serving forward (the ssm family so far)."""
+the model zoo's serving forward (the dense and ssm families so far)."""
 
 from .config import ModelConfig
 from .model import Model

@@ -38,6 +38,10 @@ class ModelConfig:
     rope_variant: str = "rope"  # 'rope' | 'rope2d' | 'mrope' | 'none'
     rope_theta: float = 10_000.0
     qk_norm: bool = False
+    causal: bool = True
+    window: Optional[int] = None  # sliding-window span (attention layers)
+    attn_block_q: int = 1024  # chunked_attention's query block
+    attn_block_k: int = 1024  # chunked_attention's key block
     # --- SSM (Mamba2) ---
     ssm_state: int = 0
     ssm_heads: int = 0

@@ -1,5 +1,6 @@
-"""Shared building blocks: the RMS norm and the fan-in initializer (port of
-``repro/models/layers.py``).
+"""Shared building blocks: the RMS norm, the fan-in initializer and the
+gated (SwiGLU) MLP (port of ``repro/models/layers.py``; ``layer_norm`` and
+the plain GELU MLP come with the audio family).
 
 Initializers take an explicit ``torch.Generator`` and return f32 tensors on
 its device; the compute dtype (bf16) is handled by callers casting
@@ -8,11 +9,11 @@ activations and weights at use, as the reference does.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 
-__all__ = ["init_linear", "rms_norm", "truncated_normal"]
+__all__ = ["gated_mlp", "init_gated_mlp", "init_linear", "rms_norm", "truncated_normal"]
 
 
 def truncated_normal(gen: torch.Generator, shape: Sequence[int]) -> torch.Tensor:
@@ -36,3 +37,19 @@ def rms_norm(x: torch.Tensor, gain: torch.Tensor, eps: float = 1e-6) -> torch.Te
     xf = x.float()
     var = xf.square().mean(dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * gain).to(x.dtype)
+
+
+def init_gated_mlp(gen: torch.Generator, d_model: int, d_ff: int) -> Dict[str, torch.Tensor]:
+    """The SwiGLU MLP's ``wi`` (gate), ``wu`` (up) and ``wo`` (down)."""
+    return {
+        "wi": init_linear(gen, d_model, d_ff),
+        "wu": init_linear(gen, d_model, d_ff),
+        "wo": init_linear(gen, d_ff, d_model, scale=d_ff ** -0.5),
+    }
+
+
+def gated_mlp(p, x: torch.Tensor) -> torch.Tensor:
+    """SwiGLU: ``(silu(x·wi) * x·wu)·wo`` in x's dtype, the LLaMA-family MLP."""
+    dt = x.dtype
+    h = torch.nn.functional.silu(x @ p["wi"].to(dt)) * (x @ p["wu"].to(dt))
+    return h @ p["wo"].to(dt)

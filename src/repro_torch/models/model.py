@@ -1,13 +1,13 @@
 """The model: init, forward, prefill and decode (port of
-``repro/models/model.py:Model`` for the ssm family; ``loss`` waits for the
-training slice).
+``repro/models/model.py:Model`` for the dense and ssm families; ``loss``
+waits for the training slice).
 
 :class:`Model` is an ``nn.Module`` whose parameters carry the reference's
-names and layouts (``embed [V, D]``, ``blocks.{g}.sub0.mamba.in_proj [D,
-out]``, ``final_norm [D]``), f32, on the device it was built on; compute
-runs in ``cfg.dtype`` (bf16) with weights cast at use, as in the
-reference.  Built with ``device="cuda"`` (the default) it raises without a
-card; the tests pass ``device="cpu"``.
+names and layouts (``embed [V, D]``, ``blocks.{g}.sub0.attn.wq [D, H·Dh]``
+or ``blocks.{g}.sub0.mamba.in_proj [D, out]``, ``final_norm [D]``), f32, on
+the device it was built on; compute runs in ``cfg.dtype`` (bf16) with
+weights cast at use, as in the reference.  Built with ``device="cuda"``
+(the default) it raises without a card; the tests pass ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -97,13 +97,17 @@ class Model(nn.Module):
         return logits, caches, S
 
     def init_caches(self, batch: int, s_max: int) -> Dict[str, Any]:
-        """Zero caches for decode from scratch (``s_max`` sizes attention
-        caches only)."""
+        """Zero caches for decode from scratch (``s_max`` sizes the KV
+        caches)."""
         cfg = self.cfg
         cache: Dict[str, Any] = {}
-        if cfg.attn_layers_per_group:
-            raise tf._unported("the attention KV cache")
-        nm, G = cfg.mamba_layers_per_group, cfg.n_groups
+        na, nm, G = cfg.attn_layers_per_group, cfg.mamba_layers_per_group, cfg.n_groups
+        if na:
+            shape = (G, na, batch, cfg.n_kv_heads, s_max, cfg.d_head)
+            cache["kv"] = {
+                "k": torch.zeros(shape, dtype=cfg.cache_dtype, device=self.device),
+                "v": torch.zeros(shape, dtype=cfg.cache_dtype, device=self.device),
+            }
         if nm:
             di = cfg.ssm_heads * cfg.ssm_d_head
             f32 = torch.float32
@@ -116,7 +120,9 @@ class Model(nn.Module):
         return cache
 
     def decode_step(self, caches, token_or_embed, cache_len: int):
-        """One token for every sequence; returns (logits [B, V], new_caches)."""
+        """One token for every sequence; returns (logits [B, V], new_caches).
+        The token's K/V go into ``caches['kv']`` in place (slot
+        ``cache_len``), and ``new_caches['kv']`` is that same pair."""
         x = self._embed(token_or_embed)  # [B, 1, D]
         positions = self._positions(x.shape[0], 1, offset=cache_len)
         x, new_caches = tf.decode_stack(self.blocks, x, positions, caches, cache_len, self.cfg)

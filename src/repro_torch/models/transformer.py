@@ -1,15 +1,19 @@
 """Block assembly: per-family layer groups and the stack over them (port of
-``repro/models/transformer.py`` for the ssm family).
+``repro/models/transformer.py`` for the dense and ssm families).
 
 A model is a stack of identical **groups** (``cfg.group_spec()``); the
 reference scans over stacked group parameters, the port loops over an
 ``nn.ModuleList`` of groups (scan and remat are XLA devices with no role in
-serving).  Caches keep the reference's stacked decode format:
+serving).  A sublayer is a mixer (GQA attention or Mamba2) and an optional
+gated MLP.  Caches keep the reference's stacked decode format:
 
-  {'ssm_conv': [G, n_mamba, B, K-1, di], 'ssm_state': [G, n_mamba, B, H, N, P]}
+  {'kv': {'k': [G, n_attn, B, Hk, Smax, D], 'v': ...},
+   'ssm_conv': [G, n_mamba, B, K-1, di], 'ssm_state': [G, n_mamba, B, H, N, P]}
 
-Attention mixers arrive with the attention families' cut of slice 7, MoE
-and MLP feed-forwards with theirs; they raise here.
+Decode writes each token's K/V into ``kv`` in place and returns the same
+tensors; the Mamba2 caches are restacked, as in the reference.  MoE
+feed-forwards and the LayerNorm / GELU-MLP families arrive with their cuts
+of slice 7 and raise here.
 """
 
 from __future__ import annotations
@@ -19,68 +23,110 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 from torch import nn
 
+from . import attention as attn
 from . import mamba2 as m2
-from .layers import rms_norm
+from .layers import gated_mlp, init_gated_mlp, rms_norm
 
 __all__ = ["Group", "apply_group", "apply_stack", "decode_group", "decode_stack"]
 
 
 def _unported(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} comes with a later cut of the model zoo (slice 7 of the port: the "
-        "attention families, then MoE); the ssm family's Mamba2 groups are ported"
+        f"{what} comes with a later cut of the model zoo (slice 7 of the port: MoE, "
+        "then hybrid, then VLM and audio); the dense and ssm families are ported"
     )
 
 
 class Group(nn.Module):
     """Parameters of ONE group, named as the reference's tree:
-    ``sub{i}.norm1`` and ``sub{i}.mamba.{in_proj, conv_w, ...}``."""
+    ``sub{i}.norm1``, ``sub{i}.attn.{wq, wk, wv, wo, q_norm, k_norm}`` or
+    ``sub{i}.mamba.{in_proj, conv_w, ...}``, and ``sub{i}.norm2``,
+    ``sub{i}.mlp.{wi, wu, wo}``."""
 
     def __init__(self, cfg, gen: torch.Generator):
         super().__init__()
         if cfg.norm != "rms":
             raise _unported(f"norm {cfg.norm!r}")
         for i, (mixer, ffn) in enumerate(cfg.group_spec()):
-            if mixer != "mamba":
-                raise _unported(f"the {mixer!r} mixer")
-            if ffn is not None:
-                raise _unported(f"the {ffn!r} feed-forward")
             sub = nn.Module()
             sub.norm1 = nn.Parameter(torch.ones(cfg.d_model, device=gen.device))
-            sub.mamba = nn.ParameterDict(
-                m2.init_mamba2(gen, cfg.d_model, cfg.ssm_heads, cfg.ssm_d_head, cfg.ssm_state)
-            )
+            if mixer == "attn":
+                sub.attn = nn.ParameterDict(attn.init_attention(
+                    gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head, cfg.qk_norm))
+            elif mixer == "mamba":
+                sub.mamba = nn.ParameterDict(
+                    m2.init_mamba2(gen, cfg.d_model, cfg.ssm_heads, cfg.ssm_d_head, cfg.ssm_state)
+                )
+            else:
+                raise _unported(f"the {mixer!r} mixer")
+            if ffn is not None:
+                if ffn != "mlp" or not cfg.mlp_gated:
+                    raise _unported(f"the {ffn!r} feed-forward" if ffn != "mlp" else "the GELU MLP")
+                sub.norm2 = nn.Parameter(torch.ones(cfg.d_model, device=gen.device))
+                sub.mlp = nn.ParameterDict(init_gated_mlp(gen, cfg.d_model, cfg.d_ff))
             self.add_module(f"sub{i}", sub)
 
 
 def apply_group(
     p: Group,
     x: torch.Tensor,  # [B, S, D]
-    positions: torch.Tensor,
+    positions: torch.Tensor,  # [B, S]
     cfg,
     collect_cache: bool = False,
     cache_pad_to: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, Optional[Dict[str, Any]]]:
     """Returns (x, aux_loss, group_cache) for one group; ``group_cache``
-    (prefill only) is already in decode format.  ``positions`` and
-    ``cache_pad_to`` only matter to attention sublayers."""
+    (prefill only) is already in decode format, with K/V padded on the
+    sequence axis to ``cache_pad_to`` (the decode budget) and cast to
+    ``cfg.cache_dtype``."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    kv_k: List[torch.Tensor] = []
+    kv_v: List[torch.Tensor] = []
     ssm_conv: List[torch.Tensor] = []
     ssm_state: List[torch.Tensor] = []
-    for i, _ in enumerate(cfg.group_spec()):
+    for i, (mixer, ffn) in enumerate(cfg.group_spec()):
         sub = getattr(p, f"sub{i}")
         h = rms_norm(x, sub.norm1)
-        args = (sub.mamba, h, cfg.ssm_heads, cfg.ssm_d_head, cfg.ssm_state)
-        if collect_cache:
-            mix, mcache = m2.mamba2_prefill(*args, chunk=cfg.ssm_chunk)
-            ssm_conv.append(mcache["conv"])
-            ssm_state.append(mcache["ssm"])
+        if mixer == "attn" and collect_cache:
+            # prefill: also keep this sublayer's K/V for the cache
+            B, S, _ = h.shape
+            q, k, v = attn._project_qkv(sub.attn, h, cfg.n_heads, cfg.n_kv_heads, cfg.d_head,
+                                        positions, cfg.rope_variant, cfg.qk_norm, cfg.rope_theta)
+            o = attn.chunked_attention(q, k, v, causal=cfg.causal, block_q=cfg.attn_block_q,
+                                       block_k=cfg.attn_block_k, window=cfg.window)
+            mix = o.transpose(1, 2).reshape(B, S, -1) @ sub.attn["wo"].to(h.dtype)
+            pad = (cache_pad_to or S) - S
+            if pad > 0:
+                k = torch.nn.functional.pad(k, (0, 0, 0, pad))
+                v = torch.nn.functional.pad(v, (0, 0, 0, pad))
+            kv_k.append(k.to(cfg.cache_dtype))
+            kv_v.append(v.to(cfg.cache_dtype))
+        elif mixer == "attn":
+            mix = attn.attention_block(
+                sub.attn, h, positions, cfg.n_heads, cfg.n_kv_heads, cfg.d_head,
+                causal=cfg.causal, rope_variant=cfg.rope_variant, qk_norm=cfg.qk_norm,
+                theta=cfg.rope_theta, window=cfg.window, block_q=cfg.attn_block_q,
+                block_k=cfg.attn_block_k,
+            )
         else:
-            mix = m2.mamba2_block(*args, chunk=cfg.ssm_chunk)
+            args = (sub.mamba, h, cfg.ssm_heads, cfg.ssm_d_head, cfg.ssm_state)
+            if collect_cache:
+                mix, mcache = m2.mamba2_prefill(*args, chunk=cfg.ssm_chunk)
+                ssm_conv.append(mcache["conv"])
+                ssm_state.append(mcache["ssm"])
+            else:
+                mix = m2.mamba2_block(*args, chunk=cfg.ssm_chunk)
         x = x + mix
+        if ffn is not None:
+            x = x + gated_mlp(sub.mlp, rms_norm(x, sub.norm2))
     cache = None
     if collect_cache:
-        cache = {"ssm_conv": torch.stack(ssm_conv), "ssm_state": torch.stack(ssm_state)}
+        cache = {}
+        if kv_k:
+            cache["kv"] = {"k": torch.stack(kv_k), "v": torch.stack(kv_v)}
+        if ssm_conv:
+            cache["ssm_conv"] = torch.stack(ssm_conv)
+            cache["ssm_state"] = torch.stack(ssm_state)
     return x, aux, cache
 
 
@@ -89,22 +135,49 @@ def decode_group(
     x: torch.Tensor,  # [B, 1, D]
     positions: torch.Tensor,
     cache: Dict[str, Any],  # this group's cache slice
-    cache_len,
+    cache_len: int,
     cfg,
 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """One token through one group.  Returns (x, the group's new Mamba2
+    caches); its KV slices are updated in place."""
     conv: List[torch.Tensor] = []
     state: List[torch.Tensor] = []
-    for i, _ in enumerate(cfg.group_spec()):
+    ai = mi = 0
+    for i, (mixer, ffn) in enumerate(cfg.group_spec()):
         sub = getattr(p, f"sub{i}")
         h = rms_norm(x, sub.norm1)
-        mc = {"conv": cache["ssm_conv"][i], "ssm": cache["ssm_state"][i]}
-        mix, mc_new = m2.mamba2_decode(
-            sub.mamba, h, mc, cfg.ssm_heads, cfg.ssm_d_head, cfg.ssm_state
-        )
-        conv.append(mc_new["conv"])
-        state.append(mc_new["ssm"])
+        if mixer == "attn":
+            kv = (cache["kv"]["k"][ai], cache["kv"]["v"][ai])
+            mix, _ = attn.decode_attention_block(
+                sub.attn, h, positions, kv, cache_len, cfg.n_heads, cfg.n_kv_heads,
+                cfg.d_head, rope_variant=cfg.rope_variant, qk_norm=cfg.qk_norm,
+                theta=cfg.rope_theta, window=cfg.window,
+            )
+            ai += 1
+        else:
+            mc = {"conv": cache["ssm_conv"][mi], "ssm": cache["ssm_state"][mi]}
+            mix, mc_new = m2.mamba2_decode(
+                sub.mamba, h, mc, cfg.ssm_heads, cfg.ssm_d_head, cfg.ssm_state
+            )
+            conv.append(mc_new["conv"])
+            state.append(mc_new["ssm"])
+            mi += 1
         x = x + mix
-    return x, {"ssm_conv": torch.stack(conv), "ssm_state": torch.stack(state)}
+        if ffn is not None:
+            x = x + gated_mlp(sub.mlp, rms_norm(x, sub.norm2))
+    new = {"ssm_conv": torch.stack(conv), "ssm_state": torch.stack(state)} if conv else {}
+    return x, new
+
+
+def _stack(caches: List[Dict[str, Any]]) -> Dict[str, Any]:
+    """Per-group caches stacked on a leading group axis."""
+    out: Dict[str, Any] = {}
+    for k, v in caches[0].items():
+        if isinstance(v, dict):
+            out[k] = {kk: torch.stack([c[k][kk] for c in caches]) for kk in v}
+        else:
+            out[k] = torch.stack([c[k] for c in caches])
+    return out
 
 
 def apply_stack(
@@ -124,18 +197,19 @@ def apply_stack(
         )
         aux = aux + a
         caches.append(cache)
-    stacked = None
-    if collect_cache:
-        stacked = {k: torch.stack([c[k] for c in caches]) for k in caches[0]}
-    return x, aux, stacked
+    return x, aux, _stack(caches) if collect_cache else None
 
 
-def decode_stack(stack: nn.ModuleList, x, positions, caches, cache_len, cfg):
+def decode_stack(stack: nn.ModuleList, x, positions, caches, cache_len: int, cfg):
     """Decode over the groups with per-group cache slices; returns (x, new
-    stacked caches)."""
+    stacked caches): the KV caches are the given tensors, updated in place."""
     new = []
     for g, gp in enumerate(stack):
-        x, nc = decode_group(gp, x, positions, {k: v[g] for k, v in caches.items()},
-                             cache_len, cfg)
+        group_cache = {k: ({kk: vv[g] for kk, vv in v.items()} if isinstance(v, dict) else v[g])
+                       for k, v in caches.items()}
+        x, nc = decode_group(gp, x, positions, group_cache, cache_len, cfg)
         new.append(nc)
-    return x, {k: torch.stack([c[k] for c in new]) for k in new[0]}
+    out = _stack(new) if new[0] else {}
+    if "kv" in caches:
+        out["kv"] = caches["kv"]
+    return x, out

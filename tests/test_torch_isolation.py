@@ -13,7 +13,9 @@ import pytest
 import torch
 
 from repro_torch.configs import mamba2_2_7b as t_m2cfg
+from repro_torch.configs import qwen3_0_6b as t_q3cfg
 from repro_torch.kernels import congestion as t_kernel
+from repro_torch.kernels import flash_attention as t_flash
 from repro_torch.kernels import ops as t_ops
 from repro_torch.kernels import ssd_scan as t_ssd
 
@@ -44,8 +46,9 @@ def _imported_roots(path):
 
 # the model zoo's modules, checked by name so a move cannot drop them
 ZOO_FILES = (
-    "configs/mamba2_2_7b.py", "interop.py", "kernels/build.py", "kernels/ssd_scan.py",
-    "launch/steps.py", "models/config.py", "models/layers.py", "models/mamba2.py",
+    "configs/mamba2_2_7b.py", "configs/qwen3_0_6b.py", "interop.py", "kernels/build.py",
+    "kernels/flash_attention.py", "kernels/ssd_scan.py", "launch/steps.py",
+    "models/attention.py", "models/config.py", "models/layers.py", "models/mamba2.py",
     "models/model.py", "models/phases.py", "models/transformer.py",
 )
 
@@ -84,6 +87,16 @@ def test_cpu_tensors_take_the_plain_ssd_path():
     assert y.shape == x.shape and y.dtype == x.dtype
 
 
+def test_cpu_tensors_take_the_plain_attention_path():
+    q = torch.randn(1, 4, 8, 32)
+    kv = torch.randn(1, 2, 8, 32)
+    plain0, kernel0 = t_ops.plain_launches, t_flash.flash_launches
+    o = t_ops.attention(q, kv, kv, q_offset=0, causal=True)
+    assert t_ops.plain_launches == plain0 + 1
+    assert t_flash.flash_launches == kernel0
+    assert o.shape == q.shape and o.dtype == q.dtype
+
+
 def test_model_entry_points_default_to_the_card():
     import inspect
 
@@ -97,6 +110,8 @@ def test_model_entry_points_default_to_the_card():
         pytest.skip("a card is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Model(t_m2cfg.SMOKE)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Model(t_q3cfg.SMOKE)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         model_params_from_arrays(t_m2cfg.SMOKE, {})
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -116,6 +131,9 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensors"):
         t_ssd.ssd_scan(x, torch.zeros(1, 8, 1), torch.ones(1), torch.zeros(1, 8, 2),
                        torch.zeros(1, 8, 2))
+    q = torch.zeros(1, 2, 8, 32)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        t_flash.flash_attention(q, q, q)
     assert not t_kernel._libs  # nothing was built or loaded
 
 

@@ -320,11 +320,11 @@ def test_random_init_follows_reference_distributions():
 
 
 def test_unported_families_and_mixers_name_their_slice():
-    dense = dataclasses.replace(t_m2cfg.SMOKE, family="dense", n_heads=4, n_kv_heads=2)
+    moe = dataclasses.replace(t_m2cfg.SMOKE, family="moe", n_heads=4, n_kv_heads=2)
     with pytest.raises(NotImplementedError, match="slice 7"):
-        Model(dense, device="cpu")
+        Model(moe, device="cpu")
     with pytest.raises(NotImplementedError, match="slice 7"):
-        Model(dataclasses.replace(t_m2cfg.SMOKE, d_ff=64), device="cpu")
+        Model(dataclasses.replace(t_m2cfg.SMOKE, d_ff=64, mlp_gated=False), device="cpu")
 
 
 def test_steps_refuse_a_model_of_another_config():

@@ -121,11 +121,26 @@ def test_kernel_wrapper_refuses_cpu_tensors_and_builds_nothing():
 @pytest.mark.parametrize("case", SSD_CASES, ids=IDS)
 def test_plain_chunked_bf16_matches_reference_chunked(case):
     """x in bf16, as on the model path: both packages compute in f32 and
-    round y to bf16 once, so they agree to one bf16 rounding."""
+    round y to bf16 once.  So each package's bf16 output is its own f32
+    result on the bf16-rounded input, rounded once to bf16, bit for bit;
+    and the two f32 results agree at the f32 test's bar."""
     chunk, r_in, t_in = _both(case)
-    want = np.asarray(r_ref.ssd_chunked(r_in[0].astype(jnp.bfloat16), *r_in[1:], chunk=chunk)
-                      .astype(jnp.float32))
-    got = t_ref.ssd_chunked(t_in[0].to(torch.bfloat16), *t_in[1:], chunk=chunk)
-    assert got.dtype == torch.bfloat16
-    np.testing.assert_allclose(got.float().numpy(), want, rtol=2 ** -7,
-                               atol=1e-5 * float(np.abs(want).max()))
+    r_x16 = r_in[0].astype(jnp.bfloat16)
+    t_x16 = t_in[0].to(torch.bfloat16)
+    r16 = r_ref.ssd_chunked(r_x16, *r_in[1:], chunk=chunk)
+    r32 = np.asarray(r_ref.ssd_chunked(r_x16.astype(jnp.float32), *r_in[1:], chunk=chunk))
+    t16 = t_ref.ssd_chunked(t_x16, *t_in[1:], chunk=chunk)
+    t32 = t_ref.ssd_chunked(t_x16.float(), *t_in[1:], chunk=chunk)
+    assert r16.dtype == jnp.bfloat16 and t16.dtype == torch.bfloat16
+    r16 = np.asarray(r16.astype(jnp.float32))
+    t16, t32 = t16.float().numpy(), t32.numpy()
+    worst = np.unravel_index(np.argmax(np.abs(t16 - r16)), r16.shape)
+    at = (f"worst element {tuple(int(i) for i in worst)}: bf16 port {t16[worst]!r}, "
+          f"reference {r16[worst]!r}; f32 port {t32[worst]!r}, reference {r32[worst]!r}")
+    np.testing.assert_array_equal(
+        t16, torch.from_numpy(t32).to(torch.bfloat16).float().numpy(),
+        err_msg=f"the port's bf16 y is not its f32 y rounded once; {at}")
+    np.testing.assert_array_equal(
+        r16, np.asarray(jnp.asarray(r32).astype(jnp.bfloat16).astype(jnp.float32)),
+        err_msg=f"the reference's bf16 y is not its f32 y rounded once; {at}")
+    np.testing.assert_allclose(t32, r32, rtol=1e-5, atol=1e-5, err_msg=at)
