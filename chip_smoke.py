@@ -93,8 +93,11 @@ Phases (any failure exits non-zero and prints no result):
    from flash_attention.cu) against the plain full-matrix version
    ``ref.mha_attention`` at the reference's five test cases (f32 within
    2e-5, bf16 within 2e-2) and at the prefill shape q[8, 16, 4096, 128] x
-   k, v[8, 8, 4096, 128], causal, in bf16 (within 2e-2) and f32, timed
-   beside its bound, the plain version and scaled_dot_product_attention;
+   k, v[8, 8, 4096, 128], causal, in bf16 (rtol 2**-7, one bf16 rounding,
+   atol 2e-5 of the output's largest magnitude) and f32 (within 2e-5),
+   with the plain version minus the last visible KV tile failing that bar,
+   timed beside its bound, the plain version and
+   scaled_dot_product_attention;
    then prefill S-1 tokens plus one decode step against the last logits of a
    prefill of S, at full width, in f32 (all 28 layers) and bf16 (2 layers),
    every sequence's rel < 5e-4 and < 3e-2; then 8 requests of 4096 tokens served (one prefill padded to
@@ -102,7 +105,8 @@ Phases (any failure exits non-zero and prints no result):
    the kernel's entry point, on layer 0's own q/k/v from that prefill
    (against the model's chunked attention) and at the decode shape (Sq = 1,
    q_offset = the cache length, over the padded cache, against the decode
-   block's attention): exactly 2 flash launches; then the prefill step
+   block's attention), at the same bf16 bar and with the same planted fault
+   failing it: exactly 2 flash launches; then the prefill step
    attached to CXLMemSim on Figure 1 with the KV cache in cxl_pool1 (one
    warm-up step, 3 measured: one cascade per step, totals against
    ``analyze_ref``) and the decode step from the prefill's caches (one
@@ -222,6 +226,34 @@ ATTN_CASES = [  # tests/test_kernels.py's cases: B, H, Hk, Sq, Sk, D, causal, q_
     (2, 4, 4, 256, 256, 128, True, 0),
 ]
 ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # tests/test_kernels.py's bars
+
+
+def attn_bar(want, dtype, at_cases):
+    """The flash kernel's bar against its plain version.  On ATTN_CASES,
+    tests/test_kernels.py's (rtol = atol = ATTN_TOL).  At the main path's
+    bf16 shapes, where 2e-2 is about the size of a typical output, one bf16
+    rounding of the f32 result (rtol 2**-7: both sum in f32 and round once)
+    plus 2e-5 of the output's largest magnitude for f32 sums in another
+    order, as compare_ssd; f32 stays at 2e-5."""
+    if at_cases or dtype == torch.float32:
+        tol = ATTN_TOL[dtype]
+        return dict(rtol=tol, atol=tol)
+    return dict(rtol=2 ** -7, atol=2e-5 * float(want.float().abs().max()))
+
+
+def check_bar_rejects_a_skipped_tile(name, q, k, v, causal, q_offset, want, bar):
+    """A planted fault must fail the bar: the plain version with the keys of
+    the kernel's last visible KV tile dropped (the tile at or below the last
+    query's position, BLOCK_K keys wide).  Returns that fault's max error."""
+    last = q_offset + q.shape[2] - 1 if causal else k.shape[2] - 1
+    cut = last // kflash.BLOCK_K * kflash.BLOCK_K
+    bad = kref.mha_attention(q, k[:, :, :cut].contiguous(), v[:, :, :cut].contiguous(),
+                             causal=causal, q_offset=q_offset).float()
+    err = float((bad - want.float()).abs().max())
+    passed = bool(torch.isclose(bad, want.float(), **bar).all())
+    check(not passed, f"{name}: the bar {bar} does not reject keys {cut}..{last} "
+          f"dropped (max abs error {err})")
+    return err
 Q3_PAD_TO = SERVE_SEQ + SERVE_DECODES  # the decode budget of the prefill's KV cache
 Q3_POLICY = {"kvcache": "cxl_pool1"}  # the KV cache in the CXL pool behind switch0
 # prefill S-1 + decode 1 against prefill S, as for mamba2.  f32: all 28
@@ -1194,31 +1226,36 @@ def flash_bound(q, k, causal, q_offset):
     return bound, flops, flops / F32_OPS_PER_S * MS_PER_S
 
 
-def compare_flash(name, q, k, v, causal, q_offset, reps=10, library=False):
+def compare_flash(name, q, k, v, causal, q_offset, reps=10, library=False, at_cases=True):
     """Flash kernel vs the plain full-matrix version on the same CUDA
-    inputs, at tests/test_kernels.py's bars (f32 2e-5; bf16 2e-2: both round
-    nearly equal f32 values once)."""
+    inputs, at ``attn_bar``'s bar; away from ATTN_CASES a planted fault (the
+    last visible KV tile skipped) must fail that bar."""
     o = kflash.flash_attention(q, k, v, q_offset=q_offset, causal=causal)
     want = kref.mha_attention(q, k, v, causal=causal, q_offset=q_offset)
     torch.cuda.synchronize()
     check(o.dtype == q.dtype and o.shape == q.shape, f"{name}: o {o.dtype} {tuple(o.shape)}")
     check(bool(torch.isfinite(o).all()), f"{name}: non-finite outputs")
-    tol = ATTN_TOL[q.dtype]
-    torch.testing.assert_close(o.float(), want.float(), rtol=tol, atol=tol)
+    bar = attn_bar(want, q.dtype, at_cases)
+    torch.testing.assert_close(o.float(), want.float(), **bar)
+    fault_err = None if at_cases else check_bar_rejects_a_skipped_tile(
+        name, q, k, v, causal, q_offset, want, bar)
     err = float((o.float() - want.float()).abs().max())
     del want
     (bms, by), flops, f32_ms = flash_bound(q, k, causal, q_offset)
     row = dict(shape=[list(q.shape), list(k.shape)], causal=causal, q_offset=q_offset,
-               dtype=str(q.dtype), max_abs_err=err, flops=flops, bound_ms=bms, bound_by=by,
-               f32_cuda_core_ms=f32_ms)
+               dtype=str(q.dtype), max_abs_err=err, bar=bar, fault_max_abs_err=fault_err,
+               flops=flops, bound_ms=bms, bound_by=by, f32_cuda_core_ms=f32_ms)
     row["ms"] = median_ms(lambda: kflash.flash_attention(q, k, v, q_offset=q_offset,
                                                          causal=causal), reps)
     row["plain_ms"] = median_ms(
         lambda: kref.mha_attention(q, k, v, causal=causal, q_offset=q_offset), max(3, reps // 4))
     if library:
-        # the yardstick only: one PyTorch call computing the same function
+        # the yardstick only: one PyTorch call computing the same function,
+        # checked at tests/test_kernels.py's bar (its bf16 backends round the
+        # softmax weights to bf16 before the product with v)
         sdpa = torch.nn.functional.scaled_dot_product_attention
         lib = sdpa(q, k, v, is_causal=causal, enable_gqa=True)
+        tol = ATTN_TOL[q.dtype]
         torch.testing.assert_close(lib.float(), o.float(), rtol=tol, atol=tol)
         row["library_ms"] = median_ms(lambda: sdpa(q, k, v, is_causal=causal, enable_gqa=True),
                                       4 * reps)
@@ -1239,7 +1276,7 @@ def flash_kernel_phase(dev):
     for dtype in (torch.bfloat16, torch.float32):
         q, k, v = attn_inputs(SERVE_BATCH, H, Hk, SERVE_SEQ, SERVE_SEQ, D, 0, dtype, dev)
         full[dtype] = compare_flash(f"flash_prefill_{str(dtype)[6:]}", q, k, v, True, 0,
-                                    library=dtype == torch.bfloat16)
+                                    library=dtype == torch.bfloat16, at_cases=False)
         del q, k, v
         torch.cuda.empty_cache()
     return rows + list(full.values()), full[torch.bfloat16]
@@ -1256,7 +1293,6 @@ def qwen3_kernel_on_model(model, tokens, caches, clen):
     sub = model.blocks[0].sub0
     B, S = tokens.shape
     dims = (cfg.n_heads, cfg.n_kv_heads, cfg.d_head)
-    tol = ATTN_TOL[cfg.dtype]
     with torch.inference_mode():
         pos = model._positions(B, S)
         h = rms_norm(model._embed(tokens), sub.norm1)
@@ -1284,13 +1320,17 @@ def qwen3_kernel_on_model(model, tokens, caches, clen):
         c = counts()
     check_launches("qwen3-attention", c, "flash", 2)
     rows = []
-    for name, o, w in (("flash_model_prefill", got, want), ("flash_model_decode", got1, want1)):
+    for name, o, w, (qq, kk, vv, qoff) in (("flash_model_prefill", got, want, (q, k, v, 0)),
+                                           ("flash_model_decode", got1, want1,
+                                            (q1, ck, cv, clen))):
         check(o.dtype == cfg.dtype and bool(torch.isfinite(o).all()), f"{name}: outputs")
-        torch.testing.assert_close(o.float(), w.float(), rtol=tol, atol=tol)
-        rows.append(dict(max_abs_err=float((o.float() - w.float()).abs().max()),
-                         shape=[list(o.shape), list(ck.shape if o is got1 else k.shape)]))
-        print(f"[qwen3] ops.attention {name[6:]} on layer 0's tensors: "
-              f"{json.dumps(rows[-1])} (bar {tol})")
+        bar = attn_bar(w, o.dtype, at_cases=False)
+        torch.testing.assert_close(o.float(), w.float(), **bar)
+        rows.append(dict(max_abs_err=float((o.float() - w.float()).abs().max()), bar=bar,
+                         fault_max_abs_err=check_bar_rejects_a_skipped_tile(
+                             name, qq, kk, vv, True, qoff, w, bar),
+                         shape=[list(o.shape), list(kk.shape)]))
+        print(f"[qwen3] ops.attention {name[6:]} on layer 0's tensors: {json.dumps(rows[-1])}")
     decode_row = dict(rows[1], ms=median_ms(
         lambda: kflash.flash_attention(q1, ck, cv, q_offset=clen), 20))
     (decode_row["bound_ms"], decode_row["bound_by"]), _, _ = flash_bound(q1, ck, True, clen)

@@ -8,12 +8,15 @@ versions of the kernels.  See ``ROADMAP.md`` for what is ported so far.
 
 import torch as _torch
 
-# PyTorch's CPU build sets up its vectorized elementwise kernels lazily, and
-# not safely across its intra-op threads: when the first such op of a
-# process (exp, cos, ...) runs on a tensor large enough to be split over
-# several threads, a thread can take a path that is off by about 1e-4
-# relative (seen for exp with torch 2.13 on an AMX-capable Xeon, in about 1
-# of 10 fresh processes, and never after one small single-threaded call).
-# The port's plain versions are the CPU reference of its kernels, so that
-# call is made here, once, before any of them runs.
+# A workaround, its cause not confirmed.  Under parallel test workers the
+# port's plain chunked SSD scan, run as a process's first vectorized op over
+# 2 intra-op threads, now and then came out off by about 1e-4 relative
+# (torch 2.13 on an AMX-capable Xeon, about 1 of 10 fresh processes, the
+# same values in every failing worker), and never after one small
+# single-threaded exp first.  Lazy, thread-unsafe setup of the elementwise
+# kernels fits that, as would thread-local math-library state; the fault did
+# not recur outside the test workers, so neither is shown.  The port's plain
+# versions are the CPU reference of its kernels, so that call is made here,
+# once, before any of them runs; tests/test_torch_ssd.py runs the scan first
+# in fresh 2-thread processes to guard it.
 _torch.exp(_torch.zeros(1))

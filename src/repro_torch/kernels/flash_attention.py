@@ -21,9 +21,10 @@ import torch
 
 from .build import check_tensor, load, raise_on
 
-__all__ = ["HEAD_DIMS", "flash_attention", "flash_launches"]
+__all__ = ["BLOCK_K", "HEAD_DIMS", "flash_attention", "flash_launches"]
 
 HEAD_DIMS = (32, 64, 128)  # head dims the kernel is instantiated for
+BLOCK_K = 64  # keys of a KV tile (flash_attention.cu's kBK)
 
 flash_launches = 0  # kernel launches made by flash_attention
 

@@ -5,6 +5,11 @@ reference's own test cases, with inputs made from a seed with numpy; the
 device dispatch of ``ops.ssd``; and the CUDA wrapper's refusals on the
 CPU."""
 
+import os
+import subprocess
+import sys
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -25,6 +30,7 @@ SSD_CASES = [  # tests/test_kernels.py's cases: B, L, H, P, N, chunk
     (2, 64, 1, 8, 8, 32),
 ]
 IDS = [str(c) for c in SSD_CASES]
+SRC = Path(__file__).resolve().parents[1] / "src"
 
 
 def _inputs(B, L, H, P, N, seed):
@@ -144,3 +150,39 @@ def test_plain_chunked_bf16_matches_reference_chunked(case):
         r16, np.asarray(jnp.asarray(r32).astype(jnp.bfloat16).astype(jnp.float32)),
         err_msg=f"the reference's bf16 y is not its f32 y rounded once; {at}")
     np.testing.assert_allclose(t32, r32, rtol=1e-5, atol=1e-5, err_msg=at)
+
+
+# The first op of a fresh process: import the port, then run the plain
+# chunked scan over 2 intra-op threads before any other torch op.
+FIRST_OP = """
+import sys
+import numpy as np
+import torch
+torch.set_num_threads(2)
+from repro_torch.kernels import ref
+a = np.load(sys.argv[1])
+y = ref.ssd_chunked(*(torch.from_numpy(a[k]) for k in ("x", "dt", "A", "Bm", "Cm")),
+                    chunk=int(a["chunk"]))
+np.save(sys.argv[2], y.numpy())
+"""
+
+
+@pytest.mark.parametrize("case", SSD_CASES, ids=IDS)
+def test_plain_chunked_is_exact_as_the_first_op_of_a_fresh_process(case, tmp_path):
+    """The guard of ``repro_torch/__init__.py``'s warm-up: in fresh
+    2-thread processes the plain chunked scan, run first, matches the
+    reference at the f32 test's bar (a process whose first exp went wrong
+    was off by about 1e-4 relative)."""
+    B, L, H, P, N, chunk = case
+    x, dt, A, Bm, Cm = _inputs(B, L, H, P, N, seed=L + H)
+    np.savez(tmp_path / "in.npz", x=x, dt=dt, A=A, Bm=Bm, Cm=Cm, chunk=chunk)
+    env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="2")
+    procs = [subprocess.Popen([sys.executable, "-c", FIRST_OP, str(tmp_path / "in.npz"),
+                               str(tmp_path / f"y{i}.npy")], env=env,
+                              stderr=subprocess.PIPE, text=True) for i in range(3)]
+    errs = [p.communicate(timeout=120)[1] for p in procs]
+    assert [p.returncode for p in procs] == [0, 0, 0], errs
+    want = np.asarray(r_ref.ssd_chunked(*map(jnp.asarray, (x, dt, A, Bm, Cm)), chunk=chunk))
+    for i in range(3):
+        np.testing.assert_allclose(np.load(tmp_path / f"y{i}.npy"), want, rtol=1e-5,
+                                   atol=1e-5, err_msg=f"fresh process {i}")
