@@ -9,9 +9,12 @@ Phases (any failure exits non-zero and prints no result):
 2. build: the kernel libraries (congestion_cascade.cu: the single-host and
    host-segmented cascades; congestion_scan.cu: the single-switch scan;
    qos_cascade.cu: the single-host and host-segmented QoS cascades;
-   ssd_scan.cu: Mamba2's SSD chunked scan), one nvcc per source, all
-   started together, from the repository's sources into
-   build/repro_torch_kernels/;
+   ssd_scan.cu: Mamba2's SSD chunked scan, a Gram pre-pass C·Bᵀ per chunk
+   and the heads' scan, every product on the tensor cores in 3xTF32;
+   flash_attention.cu: the bf16 prefill kernel (TMA-fed K/V ring, wgmma,
+   P·V as P_hi·V + P_lo·V), the split-KV decode kernel and its merge, and
+   the f32 CUDA-core kernel), one nvcc per source, all started together,
+   from the repository's sources into build/repro_torch_kernels/;
 3. kernels vs plain, each on the same CUDA inputs as its plain PyTorch
    version, with median times over CUDA events:
    - the cascade at [4, 3000] S=3, [32, 131072] with figure1's stages,
@@ -74,11 +77,13 @@ Phases (any failure exits non-zero and prints no result):
    checks with discipline="wfq", class_weights=(4, 1) (the class-0 wait
    against FIFO only printed): one warm-up round, 2 measured;
 9. Mamba2 serving at mamba2-2.7b's published widths (random weights from
-   seed 0, bf16 compute): the SSD kernel (built with the others from
-   ssd_scan.cu) against the plain chunked version at the reference's four
-   test cases (f32; the first also against the sequential recurrence) and
-   at the prefill shape x[8, 4096, 80, 64], N=128, chunk=128, in bf16 and
-   f32; then prefill S-1 tokens plus one decode step against the last
+   seed 0, bf16 compute): the SSD kernels (two launches a call, built with
+   the others from ssd_scan.cu) against the plain chunked version at the
+   reference's four test cases (f32; the first also against the sequential
+   recurrence) and at the prefill shape x[8, 4096, 80, 64], N=128,
+   chunk=128, in bf16 and f32, timed beside the bound on the CUDA cores and
+   on the tensor cores in 3xTF32, and a layout over one block's shared
+   memory (P=128, N=512) refused without a launch; then prefill S-1 tokens plus one decode step against the last
    logits of a prefill of S, at full width, in f32 (8 layers, every
    sequence's rel < 5e-4) and bf16 (2 layers, the median sequence's rel <
    3e-2, every one < 0.15); then 8 requests of 4096 tokens served
@@ -89,14 +94,19 @@ Phases (any failure exits non-zero and prints no result):
    from the prefill's caches (one warm-up, 8 measured: one cascade per step,
    no SSD launch); then a torch.profiler table of one prefill;
 10. dense serving at qwen3-0.6b's published widths (random weights from
-   seed 0, bf16 compute): the flash attention kernel (built with the others
-   from flash_attention.cu) against the plain full-matrix version
+   seed 0, bf16 compute): the flash attention kernels (built with the
+   others from flash_attention.cu; the wrapper picks the bf16 wgmma kernel,
+   the f32 CUDA-core kernel or, for at most 16 query rows a KV head, the
+   split-KV decode kernel) against the plain full-matrix version
    ``ref.mha_attention`` at the reference's five test cases (f32 within
-   2e-5, bf16 within 2e-2) and at the prefill shape q[8, 16, 4096, 128] x
+   2e-5, bf16 within 2e-2), at the prefill shape q[8, 16, 4096, 128] x
    k, v[8, 8, 4096, 128], causal, in bf16 (rtol 2**-7, one bf16 rounding,
-   atol 2e-5 of the output's largest magnitude) and f32 (within 2e-5),
-   with the plain version minus the last visible KV tile failing that bar,
-   timed beside its bound, the plain version and
+   atol 2e-5 of the output's largest magnitude) and f32 (within 2e-5), and
+   at the decode shape q[8, 16, 1, 128] x k, v[8, 8, 4112, 128] at
+   q_offset 4096 in f32 (within 2e-5), each with the plain version minus
+   the last visible BLOCK_K keys failing that bar, and four queries of a
+   4:1 GQA decode (16 rows a KV head) at the reference's bars, timed
+   beside its bound, the plain version and (bf16 prefill)
    scaled_dot_product_attention;
    then prefill S-1 tokens plus one decode step against the last logits of a
    prefill of S, at full width, in f32 (all 28 layers) and bf16 (2 layers),
@@ -105,8 +115,10 @@ Phases (any failure exits non-zero and prints no result):
    the kernel's entry point, on layer 0's own q/k/v from that prefill
    (against the model's chunked attention) and at the decode shape (Sq = 1,
    q_offset = the cache length, over the padded cache, against the decode
-   block's attention), at the same bf16 bar and with the same planted fault
-   failing it: exactly 2 flash launches; then the prefill step
+   block's attention; the decode kernel), at the same bf16 bar and with the
+   same planted fault failing it: exactly 2 flash launches; the decode
+   call timed beside scaled_dot_product_attention over the visible keys
+   (checked against it at 2e-2); then the prefill step
    attached to CXLMemSim on Figure 1 with the KV cache in cxl_pool1 (one
    warm-up step, 3 measured: one cascade per step, totals against
    ``analyze_ref``) and the decode step from the prefill's caches (one
@@ -171,6 +183,7 @@ from repro_torch.models.layers import rms_norm  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
 BF16_OPS_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
+TF32X3_OPS_PER_S = 495e12 / 3  # H100 SXM TF32 tensor cores, dense, three products per f32 one
 MS_PER_S = 1e3
 BYTES_PER_EVENT = 16  # cascade: read t + route bits, write t_final + slot_idx
 HOSTS_BYTES_PER_EVENT = 20  # hosts cascade: + read the host id
@@ -990,13 +1003,14 @@ def ssd_bound(x, Bm, chunk):
     against the chunked algorithm's f32 FLOPs over the f32 peak: C·Bᵀ on and
     below the diagonal once per (batch row, chunk), as B and C are one group
     shared by every head; W·x on and below the diagonal, C·h and the state
-    update per head."""
+    update per head.  Also returns the same FLOPs' time on the tensor cores
+    in 3xTF32, the kernel's route (three TF32 products at 495 TFLOP/s)."""
     B, L, H, P = x.shape
     N = Bm.shape[-1]
     nbytes = 2 * x.numel() * x.element_size() + 4 * (B * L * H + H + 2 * B * L * N)
     c = min(chunk, L)
     flops = B * (L // c) * c * (c + 1) * N + B * H * (L // c) * (c * (c + 1) * P + 4 * c * N * P)
-    return bound_ms(nbytes, flops)
+    return bound_ms(nbytes, flops), flops / TF32X3_OPS_PER_S * MS_PER_S
 
 
 def compare_ssd(name, x, dt, A, Bm, Cm, chunk, reps=10, naive=False):
@@ -1028,7 +1042,7 @@ def compare_ssd(name, x, dt, A, Bm, Cm, chunk, reps=10, naive=False):
     row["plain_ms"] = median_ms(
         lambda: kref.ssd_chunked(x, dt, A, Bm, Cm, chunk=min(chunk, x.shape[1])),
         max(3, reps // 4))
-    row["bound_ms"], row["bound_by"] = ssd_bound(x, Bm, chunk)
+    (row["bound_ms"], row["bound_by"]), row["tf32x3_ms"] = ssd_bound(x, Bm, chunk)
     print(f"[kernel] {name}: {json.dumps(row)}")
     return row
 
@@ -1051,13 +1065,13 @@ def ssd_kernel_phase(dev):
         del args
     # a layout that does not fit one block's shared memory is refused, not launched
     launches0 = kssd.ssd_launches
-    wide = ssd_inputs(1, 128, 1, 128, 256, 0, torch.float32, dev)
+    wide = ssd_inputs(1, 128, 1, 128, 512, 0, torch.float32, dev)
     try:
         kssd.ssd_scan(*wide, 128)
     except ValueError as e:
-        print(f"[kernel] ssd_scan refuses P=128, N=256, chunk=128: {e}")
+        print(f"[kernel] ssd_scan refuses P=128, N=512, chunk=128: {e}")
     else:
-        check(False, "ssd_scan launched P=128, N=256, chunk=128")
+        check(False, "ssd_scan launched P=128, N=512, chunk=128")
     check(kssd.ssd_launches == launches0, "ssd_scan counted a refused launch")
     return rows + list(full.values()), full[torch.bfloat16]
 
@@ -1240,7 +1254,6 @@ def compare_flash(name, q, k, v, causal, q_offset, reps=10, library=False, at_ca
     fault_err = None if at_cases else check_bar_rejects_a_skipped_tile(
         name, q, k, v, causal, q_offset, want, bar)
     err = float((o.float() - want.float()).abs().max())
-    del want
     (bms, by), flops, f32_ms = flash_bound(q, k, causal, q_offset)
     row = dict(shape=[list(q.shape), list(k.shape)], causal=causal, q_offset=q_offset,
                dtype=str(q.dtype), max_abs_err=err, bar=bar, fault_max_abs_err=fault_err,
@@ -1252,20 +1265,25 @@ def compare_flash(name, q, k, v, causal, q_offset, reps=10, library=False, at_ca
     if library:
         # the yardstick only: one PyTorch call computing the same function,
         # checked at tests/test_kernels.py's bar (its bf16 backends round the
-        # softmax weights to bf16 before the product with v)
+        # softmax weights to bf16 before the product with v); how many of
+        # its outputs the kernel's bar would reject is printed, not checked
         sdpa = torch.nn.functional.scaled_dot_product_attention
         lib = sdpa(q, k, v, is_causal=causal, enable_gqa=True)
         tol = ATTN_TOL[q.dtype]
         torch.testing.assert_close(lib.float(), o.float(), rtol=tol, atol=tol)
+        row["library_over_bar"] = int((~torch.isclose(lib.float(), want.float(), **bar)).sum())
+        del lib
         row["library_ms"] = median_ms(lambda: sdpa(q, k, v, is_causal=causal, enable_gqa=True),
                                       4 * reps)
+    del want
     print(f"[kernel] {name}: {json.dumps(row)}")
     return row
 
 
 def flash_kernel_phase(dev):
-    """Phase 10a: the flash kernel at the reference's test cases (f32 and
-    bf16) and at qwen3-0.6b's prefill shape (bf16, and f32)."""
+    """Phase 10a: the flash kernels at the reference's test cases (f32 and
+    bf16), at qwen3-0.6b's prefill shape (bf16, and f32) and at its decode
+    shape in f32 (the bf16 decode runs on the model's own tensors, 10c)."""
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
         for i, (B, H, Hk, Sq, Sk, D, causal, qoff) in enumerate(ATTN_CASES):
@@ -1279,6 +1297,16 @@ def flash_kernel_phase(dev):
                                     library=dtype == torch.bfloat16, at_cases=False)
         del q, k, v
         torch.cuda.empty_cache()
+    q, k, v = attn_inputs(SERVE_BATCH, H, Hk, 1, Q3_PAD_TO, D, 1, torch.float32, dev)
+    check(kflash.variant(q.dtype, 1, H, Hk) == "decode", "the decode shape takes another kernel")
+    rows.append(compare_flash("flash_decode_float32", q, k, v, True, SERVE_SEQ, reps=20,
+                              at_cases=False))
+    # the decode kernel's instantiation for up to 16 query rows a KV head
+    # (4 queries of 4 heads), at the reference's bars
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = attn_inputs(2, 8, 2, 4, 700, 64, 3, dtype, dev)
+        check(kflash.variant(dtype, 4, 8, 2) == "decode", "16 rows take another kernel")
+        rows.append(compare_flash(f"flash_decode16_{str(dtype)[6:]}", q, k, v, True, 500))
     return rows + list(full.values()), full[torch.bfloat16]
 
 
@@ -1331,9 +1359,21 @@ def qwen3_kernel_on_model(model, tokens, caches, clen):
                              name, qq, kk, vv, True, qoff, w, bar),
                          shape=[list(o.shape), list(kk.shape)]))
         print(f"[qwen3] ops.attention {name[6:]} on layer 0's tensors: {json.dumps(rows[-1])}")
+    check(kflash.variant(q1.dtype, 1, *dims[:2]) == "decode", "decode took another kernel")
     decode_row = dict(rows[1], ms=median_ms(
         lambda: kflash.flash_attention(q1, ck, cv, q_offset=clen), 20))
+    decode_row["plain_ms"] = median_ms(
+        lambda: kref.mha_attention(q1, ck, cv, causal=True, q_offset=clen), 5)
     (decode_row["bound_ms"], decode_row["bound_by"]), _, _ = flash_bound(q1, ck, True, clen)
+    # the yardstick: one PyTorch call over the visible keys (the token sees them all)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    kv = (ck[:, :, :clen + 1], cv[:, :, :clen + 1])
+    lib = sdpa(q1, *kv, enable_gqa=True)
+    tol = ATTN_TOL[q1.dtype]
+    torch.testing.assert_close(lib.float(), got1.float(), rtol=tol, atol=tol)
+    decode_row["library_over_bar"] = int(
+        (~torch.isclose(lib.float(), want1.float(), **rows[1]["bar"])).sum())
+    decode_row["library_ms"] = median_ms(lambda: sdpa(q1, *kv, enable_gqa=True), 20)
     print(f"[kernel] flash_decode: {json.dumps(decode_row)}")
     return rows, c["flash"]
 

@@ -3,7 +3,7 @@ the fused cascade, single-host and host-segmented, the single-switch scan,
 the QoS-arbitrated cascade (priority / WFQ / FIFO per switch; a
 static-discipline spec and the data-driven form the kernel computes),
 Mamba2's SSD scan (the sequential recurrence and the chunked algorithm), and
-full-matrix GQA attention.
+full-matrix GQA attention with the split-KV form of the decode kernel.
 
 They define what the CUDA kernels (:mod:`repro_torch.kernels.congestion`,
 :mod:`repro_torch.kernels.ssd_scan`, :mod:`repro_torch.kernels.flash_attention`)
@@ -35,6 +35,7 @@ __all__ = [
     "qos_service_table",
     "serial_queue",
     "serial_queue_cascade",
+    "split_kv_attention",
     "ssd_chunked",
     "ssd_naive",
 ]
@@ -570,6 +571,59 @@ def mha_attention(
         logits = logits.masked_fill(qpos[:, None] < kpos[None, :], float("-inf"))
     w = torch.softmax(logits, dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", w, vv).to(q.dtype)
+
+
+def split_kv_attention(
+    q: torch.Tensor,  # [B, H, Sq, D]
+    k: torch.Tensor,  # [B, Hk, Sk, D]
+    v: torch.Tensor,  # [B, Hk, Sk, D]
+    split_len: int,
+    causal: bool = True,
+    scale: Optional[float] = None,
+    q_offset: int = 0,
+) -> torch.Tensor:
+    """The decode kernel's arithmetic in plain PyTorch, f32: the keys cut into
+    splits of ``split_len``, each split's online-softmax partial (m, l, acc)
+    with masked logits at -1e30 and masked keys adding exactly 0, then the
+    splits merged by rescaling with ``exp(m_split - m)``.  Equals
+    :func:`mha_attention` where a row sees a key; a row that sees none (or
+    a split past its visible keys) contributes 0, as in the kernel.
+    Returned in q's dtype."""
+    B, H, Sq, D = q.shape
+    Hk, Sk = k.shape[1], k.shape[2]
+    if H % Hk:
+        raise ValueError(f"GQA needs H % Hk == 0, got H={H}, Hk={Hk}")
+    if split_len <= 0:
+        raise ValueError(f"split_len must be positive, got {split_len}")
+    g = H // Hk
+    if scale is None:
+        scale = 1.0 / (D ** 0.5)
+    f32 = torch.float32
+    qf = q.to(f32)
+    qpos = torch.arange(Sq, device=q.device) + q_offset
+    ms, ls, accs = [], [], []
+    for j0 in range(0, Sk, split_len):
+        kk = k[:, :, j0:j0 + split_len].to(f32).repeat_interleave(g, dim=1)
+        vv = v[:, :, j0:j0 + split_len].to(f32).repeat_interleave(g, dim=1)
+        kpos = torch.arange(j0, j0 + kk.shape[2], device=q.device)
+        visible = torch.ones((Sq, kk.shape[2]), dtype=torch.bool, device=q.device)
+        if causal:
+            visible = kpos[None, :] <= qpos[:, None]
+        s = torch.einsum("bhqd,bhkd->bhqk", qf, kk) * scale
+        s = s.masked_fill(~visible, -1e30)
+        m = s.amax(dim=-1, keepdim=True).clamp_min(-1e30)  # [B, H, Sq, 1]
+        p = torch.exp(s - m).masked_fill(~visible, 0.0)
+        ms.append(m)
+        ls.append(p.sum(dim=-1, keepdim=True))
+        accs.append(torch.einsum("bhqk,bhkd->bhqd", p, vv))
+    if not ms:  # no key at all
+        return torch.zeros_like(q)
+    m_all = torch.stack(ms)  # [splits, B, H, Sq, 1]
+    w = torch.exp(m_all - m_all.amax(dim=0))
+    l_tot = (w * torch.stack(ls)).sum(dim=0)
+    acc = (w * torch.stack(accs)).sum(dim=0)
+    inv = torch.where(l_tot > 0, 1.0 / l_tot.clamp_min(1e-30), torch.zeros_like(l_tot))
+    return (acc * inv).to(q.dtype)
 
 
 # --------------------------------------------------------------------------- #

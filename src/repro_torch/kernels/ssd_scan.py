@@ -7,8 +7,9 @@ built or loaded when this module is imported.
 
 The wrapper takes CUDA tensors only; :func:`repro_torch.kernels.ops.ssd`
 dispatches CPU tensors to the plain version
-(:func:`repro_torch.kernels.ref.ssd_chunked`).  ``ssd_launches`` counts the
-launches it made.
+(:func:`repro_torch.kernels.ref.ssd_chunked`).  ``ssd_launches`` counts its
+calls; each launches two kernels (the chunks' Gram matrices C·Bᵀ into
+scratch the wrapper allocates, then the heads).
 """
 
 from __future__ import annotations
@@ -23,14 +24,14 @@ __all__ = ["MAX_SMEM_BYTES", "ssd_launches", "ssd_scan"]
 
 MAX_SMEM_BYTES = 232_448  # shared memory one block of an H100 can use (227 KB)
 
-ssd_launches = 0  # kernel launches made by ssd_scan
+ssd_launches = 0  # calls of ssd_scan that launched the kernels
 
 
 def _bind(lib: ctypes.CDLL) -> None:
     ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    lib.ssd_scan_launch.argtypes = [ptr] * 6 + [i64, i64, i32, i32, i32, i32, i32, ptr]
+    lib.ssd_scan_launch.argtypes = [ptr] * 7 + [i64, i64, i32, i32, i32, i32, i32, ptr]
     lib.ssd_scan_launch.restype = i32
-    lib.ssd_scan_smem_bytes.argtypes = [i32, i32, i32]
+    lib.ssd_scan_smem_bytes.argtypes = [i32, i32, i32, i32]
     lib.ssd_scan_smem_bytes.restype = i64
 
 
@@ -70,17 +71,19 @@ def ssd_scan(
     if chunk <= 0 or L % chunk:
         raise ValueError(f"L={L} must be a multiple of chunk={chunk}: pad the sequence")
     lib = load("ssd_scan", _bind)
-    smem = lib.ssd_scan_smem_bytes(P, N, chunk)
+    smem = lib.ssd_scan_smem_bytes(P, N, chunk, x.element_size())
     if smem > MAX_SMEM_BYTES:
         raise ValueError(
-            f"P={P}, N={N}, chunk={chunk} need {smem} B of shared memory per block, "
+            f"P={P}, N={N}, chunk={chunk}, {x.dtype} x need {smem} B of shared memory per block, "
             f"over the {MAX_SMEM_BYTES} B a block can use"
         )
+    gram = torch.empty(B * L * chunk, dtype=torch.float32, device=x.device)  # [B, L/c, c, c]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.ssd_scan_launch(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
-            y.data_ptr(), B, L, H, P, N, chunk, int(x.dtype == torch.bfloat16), stream,
+            y.data_ptr(), gram.data_ptr(), B, L, H, P, N, chunk,
+            int(x.dtype == torch.bfloat16), stream,
         )
     raise_on(rc, "ssd_scan", lib, "ssd_scan")
     ssd_launches += 1

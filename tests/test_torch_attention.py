@@ -1,10 +1,13 @@
 """Port parity: attention.  The port's plain flash-kernel version
 (``repro_torch.kernels.ref.mha_attention``) against the reference's plain
 version and its Pallas kernel in interpret mode on the reference's own test
-cases; the model's chunked attention, RoPE and qk-norm against
-``repro.models.attention``; the device dispatch of ``ops.attention``; and
-the CUDA wrapper's refusals on the CPU.  Inputs are made from a seed with
-numpy and handed to both packages."""
+cases; the decode kernel's split-KV arithmetic
+(``ref.split_kv_attention``) against the reference's plain version on
+decode shapes; the model's chunked attention, RoPE and qk-norm against
+``repro.models.attention``; the device dispatch of ``ops.attention``, the
+wrapper's choice of kernel and of KV splits, and the CUDA wrapper's
+refusals on the CPU.  Inputs are made from a seed with numpy and handed to
+both packages."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -102,6 +105,63 @@ def test_plain_mha_scale_and_gqa_head_map():
         torch.testing.assert_close(got[:, h:h + 1], one, rtol=0.0, atol=1e-6)
     with pytest.raises(ValueError, match="H % Hk"):
         t_ref.mha_attention(q[:, :5], k, v)
+
+
+# --------------------------------------------------------------------------- #
+# the decode kernel's split-KV arithmetic
+# --------------------------------------------------------------------------- #
+
+DECODE = [  # B, H, Hk, Sk, D, split_len: GQA 2:1 and 1:1, ragged and whole splits
+    (2, 4, 2, 300, 32, 64),
+    (1, 2, 2, 256, 64, 128),
+    (2, 8, 4, 129, 32, 32),
+]
+
+
+@pytest.mark.parametrize("case", DECODE, ids=[str(c) for c in DECODE])
+def test_split_kv_attention_matches_reference_mha_at_every_cache_length(case):
+    """Sq = 1 at q_offset 0 .. Sk - 1 over a padded cache: the splits past
+    the visible keys (all but the first at q_offset 0) add nothing, and the
+    merged splits equal the reference's softmax at its f32 bar."""
+    B, H, Hk, Sk, D, split_len = case
+    r_in, t_in = _both(_qkv(B, H, Hk, 1, Sk, D, seed=Sk + D))
+    for qoff in sorted({0, 1, split_len - 1, split_len, split_len + 1, Sk // 2, Sk - 2, Sk - 1}):
+        want = r_ref.mha_attention(*r_in, causal=True, q_offset=qoff)
+        got = t_ref.split_kv_attention(*t_in, split_len, causal=True, q_offset=qoff)
+        assert got.dtype == torch.float32 and got.shape == (B, H, 1, D)
+        np.testing.assert_allclose(_f32(got), _f32(want), rtol=F32_TOL, atol=F32_TOL,
+                                   err_msg=f"q_offset={qoff}")
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_split_kv_attention_matches_reference_mha_for_a_few_queries(causal):
+    """Sq = 4 (rows at different causal horizons) and without causality."""
+    r_in, t_in = _both(_qkv(2, 4, 2, 4, 200, 64, seed=21))
+    want = r_ref.mha_attention(*r_in, causal=causal, q_offset=130)
+    got = t_ref.split_kv_attention(*t_in, 64, causal=causal, q_offset=130)
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=F32_TOL, atol=F32_TOL)
+
+
+def test_split_kv_attention_gives_zero_where_a_row_sees_no_key():
+    """q_offset = -2: rows 0 and 1 see no key (the reference's plain version
+    is NaN there, the kernels return 0); rows 2 and 3 see keys 0 and 0..1."""
+    _, t_in = _both(_qkv(1, 2, 1, 4, 100, 32, seed=4))
+    got = t_ref.split_kv_attention(*t_in, 32, causal=True, q_offset=-2)
+    assert torch.equal(got[:, :, :2], torch.zeros_like(got[:, :, :2]))
+    want = t_ref.mha_attention(*t_in, causal=True, q_offset=-2)
+    assert bool(torch.isnan(want[:, :, :2]).all())
+    torch.testing.assert_close(got[:, :, 2:], want[:, :, 2:], rtol=F32_TOL, atol=F32_TOL)
+
+
+def test_split_kv_attention_at_the_wrappers_splits_on_the_served_decode_shape():
+    """qwen3-0.6b's decode (H = 16, Hk = 8, D = 128, a 4112-slot cache,
+    q_offset = 4096), batch cut to 1: the splits the wrapper picks."""
+    split_len, n_splits = t_flash.decode_splits(8, 8, 1, 4112, 4096, True)
+    assert (split_len, n_splits) == (896, 5)
+    r_in, t_in = _both(_qkv(1, 16, 8, 1, 4112, 128, seed=9))
+    want = r_ref.mha_attention(*r_in, causal=True, q_offset=4096)
+    got = t_ref.split_kv_attention(*t_in, split_len, causal=True, q_offset=4096)
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=F32_TOL, atol=F32_TOL)
 
 
 # --------------------------------------------------------------------------- #
@@ -209,6 +269,39 @@ def test_ops_attention_refuses_other_devices():
     t_in = [torch.from_numpy(a).to("meta") for a in _qkv(1, 2, 2, 8, 8, 32, seed=0)]
     with pytest.raises(ValueError, match="no attention for tensors on meta"):
         t_ops.attention(*t_in)
+
+
+@pytest.mark.parametrize("dtype,Sq,H,Hk,want", [
+    (torch.bfloat16, 1, 16, 8, "decode"),  # qwen3-0.6b's decode step
+    (torch.float32, 1, 16, 8, "decode"),
+    (torch.bfloat16, 8, 16, 8, "decode"),  # 16 query rows a KV head: the most it takes
+    (torch.bfloat16, 9, 16, 8, "wgmma"),
+    (torch.bfloat16, 2, 64, 8, "decode"),
+    (torch.bfloat16, 3, 64, 8, "wgmma"),
+    (torch.bfloat16, 16, 4, 4, "decode"),
+    (torch.bfloat16, 4096, 16, 8, "wgmma"),  # qwen3-0.6b's prefill
+    (torch.float32, 4096, 16, 8, "f32"),
+    (torch.float32, 17, 4, 4, "f32"),
+])
+def test_wrapper_picks_its_kernel_from_the_shapes(dtype, Sq, H, Hk, want):
+    assert t_flash.variant(dtype, Sq, H, Hk) == want
+
+
+@pytest.mark.parametrize("B,Hk,Sq,Sk,qoff,causal,want", [
+    (8, 8, 1, 4112, 4096, True, (896, 5)),  # the served decode: 320 CTAs
+    (1, 1, 1, 4112, 4096, True, (128, 33)),  # one KV head: a split per tile
+    (64, 8, 1, 4112, 4096, True, (4224, 1)),  # enough CTAs without splitting
+    (2, 4, 4, 700, 500, True, (128, 4)),
+    (2, 4, 3, 300, 0, False, (128, 3)),
+    (1, 2, 1, 100, -5, True, (128, 1)),  # no visible key
+    (1, 2, 1, 0, 0, True, (128, 1)),  # no key at all
+])
+def test_decode_splits_cover_the_visible_keys_in_whole_tiles(B, Hk, Sq, Sk, qoff, causal, want):
+    split_len, n_splits = t_flash.decode_splits(B, Hk, Sq, Sk, qoff, causal)
+    assert (split_len, n_splits) == want
+    kend = Sk if not causal else max(0, min(Sk, qoff + Sq))
+    assert split_len % t_flash.BLOCK_K == 0
+    assert (n_splits - 1) * split_len < max(kend, 1) <= n_splits * split_len  # none wholly past
 
 
 def test_kernel_wrapper_refuses_cpu_tensors_and_builds_nothing():

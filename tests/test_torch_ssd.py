@@ -2,8 +2,9 @@
 (``repro_torch.kernels.ref.ssd_chunked`` / ``ssd_naive``) against the
 reference's plain versions and its Pallas kernel in interpret mode, on the
 reference's own test cases, with inputs made from a seed with numpy; the
-device dispatch of ``ops.ssd``; and the CUDA wrapper's refusals on the
-CPU."""
+kernel's 3xTF32 products, emulated through its own passes, against the
+reference at the kernel's f32 bar; the device dispatch of ``ops.ssd``; and
+the CUDA wrapper's refusals on the CPU."""
 
 import os
 import subprocess
@@ -80,6 +81,87 @@ def test_plain_naive_matches_reference_naive(case):
     want = np.asarray(r_ref.ssd_naive(*r_in))
     got = t_ref.ssd_naive(*t_in).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+# --------------------------------------------------------------------------- #
+# the kernel's arithmetic: 3xTF32 tensor-core products
+# --------------------------------------------------------------------------- #
+
+KERNEL_F32_BAR = 2e-5  # chip_smoke.py's bar for the f32 kernel: max abs error / max |y|
+
+
+def _tf32(a):
+    """Round f32 to TF32 (10 mantissa bits), to nearest with ties away from
+    zero, as ``cvt.rna.tf32.f32`` does."""
+    bits = a.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _mm_3xtf32(a, b):
+    """a @ b as the kernel's mma.sync products: a_lo·b_hi + a_hi·b_lo +
+    a_hi·b_hi, each part TF32 (their products are exact in f32)."""
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    return _tf32(a - a_hi) @ b_hi + a_hi @ _tf32(b - b_hi) + a_hi @ b_hi
+
+
+def _mm_tf32(a, b):
+    """a @ b in one TF32 pass."""
+    return _tf32(a) @ _tf32(b)
+
+
+def _ssd_kernel_passes(x, dt, A, Bm, Cm, chunk, mm):
+    """ssd_scan.cu's passes in f32 with its four products through ``mm``:
+    G = C·Bᵀ per chunk, W = G·exp(acum_t - acum_s)·dt_s (s <= t), y = W·x +
+    (exp(acum_t)·C)·h, h = exp(acum_last)·h + (B·f)ᵀ·x."""
+    Bsz, L, H, P = x.shape
+    N, nc = Bm.shape[-1], L // chunk
+    x_ = x.reshape(Bsz, nc, chunk, H, P).permute(0, 1, 3, 2, 4)  # [B, nc, H, c, P]
+    dt_ = dt.reshape(Bsz, nc, chunk, H).permute(0, 1, 3, 2)  # [B, nc, H, c]
+    B_, C_ = Bm.reshape(Bsz, nc, chunk, N), Cm.reshape(Bsz, nc, chunk, N)
+    acum = torch.cumsum(A[None, None, :, None] * dt_, dim=-1)
+    G = mm(C_, B_.transpose(-1, -2))  # [B, nc, c, c]
+    tri = torch.ones((chunk, chunk), dtype=torch.bool).tril()
+    seg = (acum[..., :, None] - acum[..., None, :]).masked_fill(~tri, float("-inf"))
+    y = mm(G[:, :, None] * torch.exp(seg) * dt_[..., None, :], x_)
+    f = dt_ * torch.exp(acum[..., -1:] - acum)
+    h = torch.zeros((Bsz, H, N, P))
+    for ci in range(nc):
+        y[:, ci] = y[:, ci] + mm(C_[:, ci, None] * torch.exp(acum[:, ci, :, :, None]), h)
+        h = (torch.exp(acum[:, ci, :, -1])[..., None, None] * h
+             + mm((B_[:, ci, None] * f[:, ci, :, :, None]).transpose(-1, -2), x_[:, ci]))
+    return y.permute(0, 1, 3, 2, 4).reshape(Bsz, L, H, P)
+
+
+def _kernel_passes_error(case, mm):
+    """Max abs error of the emulated kernel against the reference's chunked
+    scan, over the kernel's f32 bar (2e-5 of max |y|)."""
+    chunk, r_in, t_in = _both(case)
+    want = np.asarray(r_ref.ssd_chunked(*r_in, chunk=chunk))
+    got = _ssd_kernel_passes(*t_in, chunk, mm).numpy()
+    return float(np.abs(got - want).max()) / (KERNEL_F32_BAR * float(np.abs(want).max()))
+
+
+@pytest.mark.parametrize("case", SSD_CASES, ids=IDS)
+def test_kernel_passes_in_3xtf32_meet_the_kernels_f32_bar(case):
+    """The kernel's passes with every product in 3xTF32 stay well inside the
+    f32 bar on the reference's cases (about 1-2 % of it)."""
+    assert _kernel_passes_error(case, _mm_3xtf32) < 0.1
+
+
+def test_one_tf32_pass_would_fail_the_kernels_f32_bar():
+    """The same passes in one TF32 pass miss the bar (by 18-35x on these
+    cases): why the kernel splits each operand."""
+    over = [_kernel_passes_error(case, _mm_tf32) for case in SSD_CASES]
+    assert max(over) > 1.0 and min(over) > 1.0, over
+
+
+def test_tf32_rounding_keeps_ten_mantissa_bits():
+    a = torch.tensor([1.0, 1.0 + 2 ** -10, 1.0 + 2 ** -11, 1.0 + 3 * 2 ** -11, -1.0 - 2 ** -11,
+                      3.0e-3], dtype=torch.float32)
+    got = _tf32(a)
+    assert got[:3].tolist() == [1.0, 1.0 + 2 ** -10, 1.0 + 2 ** -10]  # ties away from zero
+    assert got[3].item() == 1.0 + 2 * 2 ** -10 and got[4].item() == -1.0 - 2 ** -10
+    assert abs(got[5].item() - 3.0e-3) <= 3.0e-3 * 2 ** -11
 
 
 def test_plain_chunked_keeps_bf16_and_matches_f32_at_bf16_rounding():
