@@ -83,8 +83,9 @@ Phases (any failure exits non-zero and prints no result):
    recurrence) and at the prefill shape x[8, 4096, 80, 64], N=128,
    chunk=128, in bf16 and f32, timed beside the bound on the CUDA cores and
    on the tensor cores in 3xTF32, and a layout over one block's shared
-   memory (P=128, N=512) refused without a launch; then prefill S-1 tokens plus one decode step against the last
-   logits of a prefill of S, at full width, in f32 (8 layers, every
+   memory (P=128, N=256, f32) refused without a launch; then prefill S-1
+   tokens plus one decode step against the last logits of a prefill of S,
+   at full width, in f32 (8 layers, every
    sequence's rel < 5e-4) and bf16 (2 layers, the median sequence's rel <
    3e-2, every one < 0.15); then 8 requests of 4096 tokens served
    (one prefill, 16 greedy decode steps) on the 64-layer model; then the
@@ -1065,13 +1066,13 @@ def ssd_kernel_phase(dev):
         del args
     # a layout that does not fit one block's shared memory is refused, not launched
     launches0 = kssd.ssd_launches
-    wide = ssd_inputs(1, 128, 1, 128, 512, 0, torch.float32, dev)
+    wide = ssd_inputs(1, 128, 1, 128, 256, 0, torch.float32, dev)
     try:
         kssd.ssd_scan(*wide, 128)
     except ValueError as e:
-        print(f"[kernel] ssd_scan refuses P=128, N=512, chunk=128: {e}")
+        print(f"[kernel] ssd_scan refuses P=128, N=256, chunk=128: {e}")
     else:
-        check(False, "ssd_scan launched P=128, N=512, chunk=128")
+        check(False, "ssd_scan launched P=128, N=256, chunk=128")
     check(kssd.ssd_launches == launches0, "ssd_scan counted a refused launch")
     return rows + list(full.values()), full[torch.bfloat16]
 
