@@ -81,9 +81,10 @@ Phases (any failure exits non-zero and prints no result):
    the others from ssd_scan.cu) against the plain chunked version at the
    reference's four test cases (f32; the first also against the sequential
    recurrence) and at the prefill shape x[8, 4096, 80, 64], N=128,
-   chunk=128, in bf16 and f32, timed beside the bound on the CUDA cores and
-   on the tensor cores in 3xTF32, and a layout over one block's shared
-   memory (P=128, N=256, f32) refused without a launch; then prefill S-1
+   chunk=128, in bf16 and f32, timed beside the bound on the tensor cores
+   in 3xTF32 (and the same FLOPs' time on the f32 CUDA cores), and a
+   layout over one block's shared memory (P=128, N=256, f32) refused
+   without a launch; then prefill S-1
    tokens plus one decode step against the last logits of a prefill of S,
    at full width, in f32 (8 layers, every
    sequence's rel < 5e-4) and bf16 (2 layers, the median sequence's rel <
@@ -97,7 +98,7 @@ Phases (any failure exits non-zero and prints no result):
 10. dense serving at qwen3-0.6b's published widths (random weights from
    seed 0, bf16 compute): the flash attention kernels (built with the
    others from flash_attention.cu; the wrapper picks the bf16 wgmma kernel,
-   the f32 CUDA-core kernel or, for at most 16 query rows a KV head, the
+   the f32 CUDA-core kernel or, for at most 4 query rows a KV head, the
    split-KV decode kernel) against the plain full-matrix version
    ``ref.mha_attention`` at the reference's five test cases (f32 within
    2e-5, bf16 within 2e-2), at the prefill shape q[8, 16, 4096, 128] x
@@ -105,10 +106,9 @@ Phases (any failure exits non-zero and prints no result):
    atol 2e-5 of the output's largest magnitude) and f32 (within 2e-5), and
    at the decode shape q[8, 16, 1, 128] x k, v[8, 8, 4112, 128] at
    q_offset 4096 in f32 (within 2e-5), each with the plain version minus
-   the last visible BLOCK_K keys failing that bar, and four queries of a
-   4:1 GQA decode (16 rows a KV head) at the reference's bars, timed
-   beside its bound, the plain version and (bf16 prefill)
-   scaled_dot_product_attention;
+   the last visible BLOCK_K keys failing that bar, timed on the card
+   (calls back to back) beside its bound, the plain version and (bf16
+   prefill) scaled_dot_product_attention;
    then prefill S-1 tokens plus one decode step against the last logits of a
    prefill of S, at full width, in f32 (all 28 layers) and bf16 (2 layers),
    every sequence's rel < 5e-4 and < 3e-2; then 8 requests of 4096 tokens served (one prefill padded to
@@ -117,9 +117,11 @@ Phases (any failure exits non-zero and prints no result):
    (against the model's chunked attention) and at the decode shape (Sq = 1,
    q_offset = the cache length, over the padded cache, against the decode
    block's attention; the decode kernel), at the same bf16 bar and with the
-   same planted fault failing it: exactly 2 flash launches; the decode
-   call timed beside scaled_dot_product_attention over the visible keys
-   (checked against it at 2e-2); then the prefill step
+   same planted fault failing it: exactly 2 flash calls (3 kernel
+   launches: the prefill kernel, the decode kernel and its merge); the
+   decode call's kernels timed on the card (back to back) beside
+   scaled_dot_product_attention's over the visible keys (checked against
+   it at 2e-2); then the prefill step
    attached to CXLMemSim on Figure 1 with the KV cache in cxl_pool1 (one
    warm-up step, 3 measured: one cascade per step, totals against
    ``analyze_ref``) and the decode step from the prefill's caches (one
@@ -256,9 +258,11 @@ def attn_bar(want, dtype, at_cases):
 
 
 def check_bar_rejects_a_skipped_tile(name, q, k, v, causal, q_offset, want, bar):
-    """A planted fault must fail the bar: the plain version with the keys of
-    the kernel's last visible KV tile dropped (the tile at or below the last
-    query's position, BLOCK_K keys wide).  Returns that fault's max error."""
+    """A planted fault must fail the bar: the plain version with the last
+    visible BLOCK_K keys dropped (the bf16 wgmma kernel's KV tile at or below
+    the last query's position; the same cut whichever kernel the wrapper
+    picks, though the f32 kernel's tiles are 64 keys and the decode kernel's
+    splits whole multiples of BLOCK_K).  Returns that fault's max error."""
     last = q_offset + q.shape[2] - 1 if causal else k.shape[2] - 1
     cut = last // kflash.BLOCK_K * kflash.BLOCK_K
     bad = kref.mha_attention(q, k[:, :, :cut].contiguous(), v[:, :, :cut].contiguous(),
@@ -278,6 +282,9 @@ Q3_POLICY = {"kvcache": "cxl_pool1"}  # the KV cache in the CXL pool behind swit
 # test_full_width_bf16_roundtrip_in_the_reference).
 Q3_ROUNDTRIP_F32 = (28, 5e-4)  # layers, bar on every sequence
 Q3_ROUNDTRIP_BF16 = (2, 3e-2)  # layers, bar on every sequence
+
+
+SLEEP_CYCLES = 200_000_000  # device_ms's sleep: about 0.1 s at an H100's 1.98 GHz
 
 
 def check(cond: bool, msg: str) -> None:
@@ -301,11 +308,35 @@ def median_ms(fn, reps: int, warmup: int = 2) -> float:
     return float(np.median(times))
 
 
-def bound_ms(nbytes: float, ops: float) -> tuple:
+def device_ms(fn, reps: int) -> float:
+    """Time on the card of one call of ``fn``, the host's work left out: a
+    sleep kernel holds the stream while the host enqueues ``reps`` calls,
+    so that the card runs them back to back between two events.  Checks
+    that the host finished enqueueing before the sleep ended.  (A
+    torch.profiler trace lost kernel records of short calls on the card.)"""
+    fn()
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    t0 = time.perf_counter()
+    ev[0].record()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    ev[1].record()
+    for _ in range(reps):
+        fn()
+    ev[2].record()
+    host_ms = (time.perf_counter() - t0) * MS_PER_S
+    ev[2].synchronize()
+    sleep_ms = ev[0].elapsed_time(ev[1])
+    check(host_ms < sleep_ms, f"enqueueing {reps} calls took {host_ms} ms, the sleep {sleep_ms}")
+    return ev[1].elapsed_time(ev[2]) / reps
+
+
+def bound_ms(nbytes: float, ops: float, ops_per_s: float = F32_OPS_PER_S) -> tuple:
     """The least time for one call: bytes moved once over the HBM rate, or
-    the f32 operations over the f32 rate, whichever is larger."""
+    the operations over ``ops_per_s`` (default the f32 CUDA-core rate),
+    whichever is larger."""
     t_bytes = nbytes / HBM_BYTES_PER_S * MS_PER_S
-    t_ops = ops / F32_OPS_PER_S * MS_PER_S
+    t_ops = ops / ops_per_s * MS_PER_S
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1001,17 +1032,19 @@ def ssd_inputs(B, L, H, P, N, seed, dtype, dev):
 
 def ssd_bound(x, Bm, chunk):
     """Bound of one SSD call: x, dt, A, B, C read once and y written once,
-    against the chunked algorithm's f32 FLOPs over the f32 peak: C·Bᵀ on and
-    below the diagonal once per (batch row, chunk), as B and C are one group
-    shared by every head; W·x on and below the diagonal, C·h and the state
-    update per head.  Also returns the same FLOPs' time on the tensor cores
-    in 3xTF32, the kernel's route (three TF32 products at 495 TFLOP/s)."""
+    against the chunked algorithm's f32 FLOPs: C·Bᵀ on and below the
+    diagonal once per (batch row, chunk), as B and C are one group shared
+    by every head; W·x on and below the diagonal, C·h and the state update
+    per head.  The FLOPs are timed at the tensor cores' 3xTF32 rate (three
+    TF32 products at 495 TFLOP/s for each f32 one): the kernel's route,
+    which meets the f32 bar, and faster than the f32 CUDA cores, whose
+    time for the same FLOPs is returned beside it."""
     B, L, H, P = x.shape
     N = Bm.shape[-1]
     nbytes = 2 * x.numel() * x.element_size() + 4 * (B * L * H + H + 2 * B * L * N)
     c = min(chunk, L)
     flops = B * (L // c) * c * (c + 1) * N + B * H * (L // c) * (c * (c + 1) * P + 4 * c * N * P)
-    return bound_ms(nbytes, flops), flops / TF32X3_OPS_PER_S * MS_PER_S
+    return bound_ms(nbytes, flops, TF32X3_OPS_PER_S), flops / F32_OPS_PER_S * MS_PER_S
 
 
 def compare_ssd(name, x, dt, A, Bm, Cm, chunk, reps=10, naive=False):
@@ -1043,7 +1076,7 @@ def compare_ssd(name, x, dt, A, Bm, Cm, chunk, reps=10, naive=False):
     row["plain_ms"] = median_ms(
         lambda: kref.ssd_chunked(x, dt, A, Bm, Cm, chunk=min(chunk, x.shape[1])),
         max(3, reps // 4))
-    (row["bound_ms"], row["bound_by"]), row["tf32x3_ms"] = ssd_bound(x, Bm, chunk)
+    (row["bound_ms"], row["bound_by"]), row["f32_cuda_core_ms"] = ssd_bound(x, Bm, chunk)
     print(f"[kernel] {name}: {json.dumps(row)}")
     return row
 
@@ -1259,9 +1292,11 @@ def compare_flash(name, q, k, v, causal, q_offset, reps=10, library=False, at_ca
     row = dict(shape=[list(q.shape), list(k.shape)], causal=causal, q_offset=q_offset,
                dtype=str(q.dtype), max_abs_err=err, bar=bar, fault_max_abs_err=fault_err,
                flops=flops, bound_ms=bms, bound_by=by, f32_cuda_core_ms=f32_ms)
-    row["ms"] = median_ms(lambda: kflash.flash_attention(q, k, v, q_offset=q_offset,
-                                                         causal=causal), reps)
-    row["plain_ms"] = median_ms(
+    # device times (calls back to back on the card); call_ms is the
+    # latency of one call on the host's clock, wrapper and launches included
+    kern = lambda: kflash.flash_attention(q, k, v, q_offset=q_offset, causal=causal)  # noqa: E731
+    row["ms"], row["call_ms"] = device_ms(kern, reps), median_ms(kern, reps)
+    row["plain_ms"] = device_ms(
         lambda: kref.mha_attention(q, k, v, causal=causal, q_offset=q_offset), max(3, reps // 4))
     if library:
         # the yardstick only: one PyTorch call computing the same function,
@@ -1274,7 +1309,7 @@ def compare_flash(name, q, k, v, causal, q_offset, reps=10, library=False, at_ca
         torch.testing.assert_close(lib.float(), o.float(), rtol=tol, atol=tol)
         row["library_over_bar"] = int((~torch.isclose(lib.float(), want.float(), **bar)).sum())
         del lib
-        row["library_ms"] = median_ms(lambda: sdpa(q, k, v, is_causal=causal, enable_gqa=True),
+        row["library_ms"] = device_ms(lambda: sdpa(q, k, v, is_causal=causal, enable_gqa=True),
                                       4 * reps)
     del want
     print(f"[kernel] {name}: {json.dumps(row)}")
@@ -1302,12 +1337,6 @@ def flash_kernel_phase(dev):
     check(kflash.variant(q.dtype, 1, H, Hk) == "decode", "the decode shape takes another kernel")
     rows.append(compare_flash("flash_decode_float32", q, k, v, True, SERVE_SEQ, reps=20,
                               at_cases=False))
-    # the decode kernel's instantiation for up to 16 query rows a KV head
-    # (4 queries of 4 heads), at the reference's bars
-    for dtype in (torch.float32, torch.bfloat16):
-        q, k, v = attn_inputs(2, 8, 2, 4, 700, 64, 3, dtype, dev)
-        check(kflash.variant(dtype, 4, 8, 2) == "decode", "16 rows take another kernel")
-        rows.append(compare_flash(f"flash_decode16_{str(dtype)[6:]}", q, k, v, True, 500))
     return rows + list(full.values()), full[torch.bfloat16]
 
 
@@ -1361,10 +1390,12 @@ def qwen3_kernel_on_model(model, tokens, caches, clen):
                          shape=[list(o.shape), list(kk.shape)]))
         print(f"[qwen3] ops.attention {name[6:]} on layer 0's tensors: {json.dumps(rows[-1])}")
     check(kflash.variant(q1.dtype, 1, *dims[:2]) == "decode", "decode took another kernel")
-    decode_row = dict(rows[1], ms=median_ms(
-        lambda: kflash.flash_attention(q1, ck, cv, q_offset=clen), 20))
-    decode_row["plain_ms"] = median_ms(
-        lambda: kref.mha_attention(q1, ck, cv, causal=True, q_offset=clen), 5)
+    # device times (calls back to back on the card); call_ms is the
+    # latency of one call on the host's clock, wrapper and launches included
+    kern = lambda: kflash.flash_attention(q1, ck, cv, q_offset=clen)  # noqa: E731
+    plain = lambda: kref.mha_attention(q1, ck, cv, causal=True, q_offset=clen)  # noqa: E731
+    decode_row = dict(rows[1], ms=device_ms(kern, 50), call_ms=median_ms(kern, 20),
+                      plain_ms=device_ms(plain, 10), plain_call_ms=median_ms(plain, 5))
     (decode_row["bound_ms"], decode_row["bound_by"]), _, _ = flash_bound(q1, ck, True, clen)
     # the yardstick: one PyTorch call over the visible keys (the token sees them all)
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -1374,7 +1405,9 @@ def qwen3_kernel_on_model(model, tokens, caches, clen):
     torch.testing.assert_close(lib.float(), got1.float(), rtol=tol, atol=tol)
     decode_row["library_over_bar"] = int(
         (~torch.isclose(lib.float(), want1.float(), **rows[1]["bar"])).sum())
-    decode_row["library_ms"] = median_ms(lambda: sdpa(q1, *kv, enable_gqa=True), 20)
+    lib_call = lambda: sdpa(q1, *kv, enable_gqa=True)  # noqa: E731
+    decode_row["library_ms"] = device_ms(lib_call, 50)
+    decode_row["library_call_ms"] = median_ms(lib_call, 20)
     print(f"[kernel] flash_decode: {json.dumps(decode_row)}")
     return rows, c["flash"]
 

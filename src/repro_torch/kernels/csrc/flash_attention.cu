@@ -63,7 +63,7 @@
 //    softmax runs per warp, and the CTA merges its warps in shared memory
 //    and writes the split's partial (m, l, acc) to scratch the wrapper
 //    allocates.  A second kernel merges the splits of each row, rescaling
-//    by exp(m_split - m).  CUDA cores, not mma.sync: with at most 16 query
+//    by exp(m_split - m).  CUDA cores, not mma.sync: with at most 4 query
 //    rows a tile is mostly padding for a tensor-core fragment, and the
 //    kernel waits on memory either way.  A split past a row's visible keys
 //    keeps m = -1e30 and l = 0 and adds nothing; a row with none returns 0.
@@ -731,8 +731,7 @@ namespace dec {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxRows = 16;  // query rows of a KV head (the wrapper's DECODE_MAX_ROWS)
-constexpr int kFewRows = 4;  // a second instantiation for up to 4 rows, at fewer registers
+constexpr int kMaxRows = 4;  // query rows of a KV head (the wrapper's DECODE_MAX_ROWS)
 constexpr int kStep = 8;  // keys a warp takes at once
 
 // EPL elements of a row starting at p, as f32 (one vector load)
@@ -928,8 +927,7 @@ int launch(const void* q, const void* k, const void* v, void* o, void* part_ml, 
           visible_end(Sq, Sk, q_offset, causal))
     return static_cast<int>(cudaErrorInvalidValue);
   const int smem = kWarps * R * (D + 2) * static_cast<int>(sizeof(float));
-  auto kernel = R <= kFewRows ? flash_decode_kernel<T, D, kFewRows>
-                              : flash_decode_kernel<T, D, kMaxRows>;
+  auto kernel = flash_decode_kernel<T, D, kMaxRows>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);

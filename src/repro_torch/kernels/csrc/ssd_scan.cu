@@ -24,7 +24,9 @@
 // 4096, H = 80, P = 64, N = 128, c = 128) that is 108 GFLOP a call: 1.6 ms
 // at the f32 rate outside the tensor cores (67 TFLOP/s), 0.66 ms as 3xTF32
 // on the tensor cores (three TF32 products at 495 TFLOP/s), against 0.72
-// GB of x (bf16), y, dt, B and C moved once (0.21 ms at 3.35 TB/s).
+// GB of x (bf16), y, dt, B and C moved once (0.21 ms at 3.35 TB/s).  The
+// bound is the 3xTF32 time: that route meets the f32 bar, as this kernel
+// shows, so the card can do the work at that rate.
 //
 // What this design does about it:
 // - Two kernels.  ssd_gram_kernel computes G once per (b, chunk) into

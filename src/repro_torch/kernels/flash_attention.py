@@ -33,7 +33,7 @@ __all__ = [
 
 HEAD_DIMS = (32, 64, 128)  # head dims the kernels are instantiated for
 BLOCK_K = 128  # keys of a KV tile of the bf16 kernel (flash_attention.cu's wg::kBN)
-DECODE_MAX_ROWS = 16  # query rows (Sq x H/Hk) a KV head may serve in the decode kernel
+DECODE_MAX_ROWS = 4  # query rows (Sq x H/Hk) a KV head may serve in the decode kernel
 DECODE_CTAS = 264  # decode CTAs to aim for: two for each of an H100's 132 SMs
 
 flash_launches = 0  # calls of flash_attention that launched a kernel

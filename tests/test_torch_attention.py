@@ -274,14 +274,14 @@ def test_ops_attention_refuses_other_devices():
 @pytest.mark.parametrize("dtype,Sq,H,Hk,want", [
     (torch.bfloat16, 1, 16, 8, "decode"),  # qwen3-0.6b's decode step
     (torch.float32, 1, 16, 8, "decode"),
-    (torch.bfloat16, 8, 16, 8, "decode"),  # 16 query rows a KV head: the most it takes
-    (torch.bfloat16, 9, 16, 8, "wgmma"),
-    (torch.bfloat16, 2, 64, 8, "decode"),
-    (torch.bfloat16, 3, 64, 8, "wgmma"),
-    (torch.bfloat16, 16, 4, 4, "decode"),
+    (torch.bfloat16, 2, 16, 8, "decode"),  # 4 query rows a KV head: the most it takes
+    (torch.bfloat16, 3, 16, 8, "wgmma"),
+    (torch.bfloat16, 1, 32, 8, "decode"),
+    (torch.bfloat16, 2, 32, 8, "wgmma"),
+    (torch.bfloat16, 4, 4, 4, "decode"),
     (torch.bfloat16, 4096, 16, 8, "wgmma"),  # qwen3-0.6b's prefill
     (torch.float32, 4096, 16, 8, "f32"),
-    (torch.float32, 17, 4, 4, "f32"),
+    (torch.float32, 5, 4, 4, "f32"),
 ])
 def test_wrapper_picks_its_kernel_from_the_shapes(dtype, Sq, H, Hk, want):
     assert t_flash.variant(dtype, Sq, H, Hk) == want
