@@ -2,13 +2,17 @@
 """Drive the PyTorch port's main paths on one NVIDIA card and check them.
 
 Run from the repository root:  python3 chip_smoke.py
+(``python3 chip_smoke.py --cascades`` runs phases 1-3 and the two fabric
+round batches' cascade comparisons only, and prints no result line.)
 
 Phases (any failure exits non-zero and prints no result):
 
 1. environment: torch / CUDA versions, the card's name and power limit;
 2. build: the kernel libraries (congestion_cascade.cu: the single-host and
    host-segmented cascades; congestion_scan.cu: the single-switch scan;
-   qos_cascade.cu: the single-host and host-segmented QoS cascades;
+   qos_cascade.cu: the single-host and host-segmented QoS cascades; the
+   two cascades a thread-block cluster of CTAs per epoch row, and the
+   count of atomic and f64-add instructions in their SASS printed;
    ssd_scan.cu: Mamba2's SSD chunked scan, a Gram pre-pass C·Bᵀ per chunk
    and the heads' scan, every product on the tensor cores in 3xTF32;
    flash_attention.cu: the bf16 prefill kernel (TMA-fed K/V ring, wgmma,
@@ -16,15 +20,23 @@ Phases (any failure exits non-zero and prints no result):
    the f32 CUDA-core kernel), one nvcc per source, all started together,
    from the repository's sources into build/repro_torch_kernels/;
 3. kernels vs plain, each on the same CUDA inputs as its plain PyTorch
-   version, with median times over CUDA events:
+   version, with median times over CUDA events; for the four cascades also
+   the partitioned mirror (ref.serial_queue_cascade_partitioned /
+   ref.qos_cascade_partitioned at the kernel's CTAs per row) against the
+   plain version bitwise, and the kernel's merge flags against the
+   mirror's, exactly (the merges run and skipped, the CTAs per row and the
+   share of pads printed with each row):
    - the cascade at [4, 3000] S=3, [32, 131072] with figure1's stages,
      [8, 65536] with chained_topology(8)'s nine stages and the slice-1 main
      path's own batch: slot indices exactly equal, final times to rtol
      1e-6, per-stage delays to rtol 1e-5;
    - the host-segmented cascade at [4, 3000] on figure1 re-declared for 3
-     hosts, [32, 131072] on pooled_topology(n_hosts=8) and the fabric
-     round's own batch: as above, per-host delays to rtol 1e-5, and their
-     sum over hosts equal to the single-host kernel's delays to rtol 1e-6;
+     hosts; on pooled_topology(n_hosts=8) at [32, 131072], tie-heavy at
+     [32, 131072] (integers from a span of n/4), in one row of 2**20
+     events (the most CTAs a row) and in [256, 4096] (one CTA a row); and
+     the fabric round's own batch: as above, per-host delays to rtol 1e-5,
+     their sum over hosts equal to the single-host kernel's delays to rtol
+     1e-6, and the same merge flags as the single-host kernel's;
    - the scan at [32, 131072] with a random mask and on one stage of the
      wide fabric's batch: start and delay to rtol 1e-6;
    - the QoS cascade at [4, 3000] on a 3-switch QoS chain (3 classes,
@@ -34,9 +46,13 @@ Phases (any failure exits non-zero and prints no result):
      (unique integers below 2**22) and tie-heavy rows (integers from a small
      span); at [32, 131072] on figure1 declared with 3 classes and every
      switch FIFO, whose final times must equal the FIFO cascade kernel's
-     bitwise and its per-stage totals to rtol 1e-6; on the qos-main path's
-     batch; and the host-segmented QoS cascade on the priority fabric's own
-     batch: slot indices exactly equal, final times to rtol 1e-6,
+     bitwise and its per-stage totals to rtol 1e-6; at [8, 16384] on the
+     chain with stages (wfq, wfq at zero service, priority, fifo), whose
+     fold runs at the unscanned stage; on the qos-main path's batch; and
+     the host-segmented QoS cascade on pooled_topology(n_hosts=8) under
+     priority with 2 classes (tie-heavy [32, 131072], one row of 2**20,
+     [256, 4096]) and on the priority fabric's own batch: slot indices
+     exactly equal, final times to rtol 1e-6,
      per-(host, class) delays to rtol 1e-5, their sum over hosts equal to the
      single-host QoS kernel's to rtol 1e-6;
 4. slice-1 main path: CXLMemSim attached to a bf16 stand-in step on the
@@ -138,6 +154,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -371,10 +388,15 @@ def synthetic_inputs(rows: int, n: int, n_stages: int, seed: int, dev):
     return t, torch.from_numpy(bits).to(dev)
 
 
-def fabric_inputs(flat, rows: int, n: int, seed: int, dev):
-    """Synthetic times on a multi-host fabric: each event a random virtual
-    (host, pool) pair, with that pair's route word and host id."""
+def fabric_inputs(flat, rows: int, n: int, seed: int, dev, ties: bool = False):
+    """Synthetic times on a multi-host fabric (with ``ties``, integers from
+    a span of n/4, as ``qos_inputs(ties=True)``): each event a random
+    virtual (host, pool) pair, with that pair's route word and host id."""
     t, rng = synthetic_times(rows, n, seed, dev)
+    if ties:
+        t = torch.from_numpy(
+            np.sort(rng.integers(0, max(2, n // 4), (rows, n)), axis=1).astype(np.float32)
+        ).to(dev)
     bits_pool, _, order = plan_cascade(flat)
     vp = rng.integers(0, flat.route.shape[0], (rows, n))
     bits = torch.from_numpy(bits_pool[vp].astype(np.int32)).to(dev)
@@ -383,9 +405,39 @@ def fabric_inputs(flat, rows: int, n: int, seed: int, dev):
     return t, bits, hosts, stts
 
 
+def cascade_ctas(t) -> int:
+    """The cascade kernels' CTAs per row for this batch on this card."""
+    sms = torch.cuda.get_device_properties(t.device).multi_processor_count
+    return kcong.ctas_per_row(t.shape[0], t.shape[1], sms)
+
+
+def pad_share(t) -> float:
+    """The share of a batch's events that are pads (time finfo.max/4)."""
+    return float((t >= torch.finfo(torch.float32).max / 4).float().mean())
+
+
+def check_mirror(name, flags, plain, mirror):
+    """The partitioned mirror against the plain version (slot indices and
+    final times bitwise, delays at the kernels' bar), and the kernel's merge
+    flags against the mirror's, exactly.  Returns the merges the mirror ran
+    and skipped per call (all rows)."""
+    tm, im, pm, fm = mirror
+    check(torch.equal(im, plain[1]), f"{name}: the mirror's slot_idx differs from the plain version")
+    check(torch.equal(tm, plain[0]), f"{name}: the mirror's final times differ from the plain version")
+    torch.testing.assert_close(pm, plain[2], rtol=1e-5, atol=0.0)
+    got = flags.cpu()
+    check(torch.equal(got, fm),
+          f"{name}: merge flags differ from the mirror's in {int((got != fm).sum())} of "
+          f"{fm.numel()} (row, stage) entries")
+    return dict(merges_run=int((fm == kref.MERGE_RAN).sum()),
+                merges_skipped=int((fm == kref.MERGE_SKIPPED).sum()))
+
+
 def compare(name, t, bits, stts, reps=20):
-    """Cascade kernel vs plain on the same CUDA inputs."""
+    """Cascade kernel vs plain on the same CUDA inputs, and its merge flags
+    vs the partitioned mirror's."""
     tk, ik, pk = kcong.congestion_cascade(t, bits, stts)
+    fk = kcong.last_merge_flags
     tp, ip, pp = kref.serial_queue_cascade(t, bits, stts)
     torch.cuda.synchronize()
     check(torch.equal(ik, ip), f"{name}: slot_idx differs from the plain version")
@@ -396,9 +448,12 @@ def compare(name, t, bits, stts, reps=20):
     ms = median_ms(lambda: kcong.congestion_cascade(t, bits, stts), reps)
     plain_ms = median_ms(lambda: kref.serial_queue_cascade(t, bits, stts), max(3, reps // 4))
     n_stages = int(stts.shape[0])
+    k = cascade_ctas(t)
+    merges = check_mirror(name, fk, (tp, ip, pp),
+                          kref.serial_queue_cascade_partitioned(t, bits, stts, k))
     bms, by = cascade_bound(t, bits, n_stages, BYTES_PER_EVENT, n_stages)
-    row = dict(shape=list(t.shape), stages=n_stages, ms=ms,
-               plain_ms=plain_ms, bound_ms=bms, bound_by=by, max_abs_err=err,
+    row = dict(shape=list(t.shape), stages=n_stages, ctas=k, pad_share=pad_share(t), **merges,
+               ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, max_abs_err=err,
                delay_ns=[float(x) for x in pk.sum(0)])
     print(f"[kernel] {name}: {json.dumps(row)}")
     return row
@@ -408,11 +463,14 @@ def compare_hosts(name, t, bits, hosts, stts, n_hosts, reps=20):
     """Host-segmented cascade kernel vs plain, and vs the single-host
     kernel's per-stage totals, on the same CUDA inputs."""
     tk, ik, pk = kcong.congestion_cascade_hosts(t, bits, hosts, stts, n_hosts)
+    fk = kcong.last_merge_flags
     tp, ip, pp = kref.serial_queue_cascade(t, bits, stts, hosts=hosts, n_hosts=n_hosts)
     _, i1, p1 = kcong.congestion_cascade(t, bits, stts)
+    f1 = kcong.last_merge_flags
     torch.cuda.synchronize()
     check(torch.equal(ik, ip), f"{name}: slot_idx differs from the plain version")
     check(torch.equal(ik, i1), f"{name}: slot_idx differs from the single-host kernel")
+    check(torch.equal(fk, f1), f"{name}: merge flags differ from the single-host kernel's")
     torch.testing.assert_close(tk, tp, rtol=1e-6, atol=0.0)
     # per-host sums: double atomics in a run-dependent order (kernel) and an
     # f64 scatter-add (plain), both rounded to f32
@@ -421,13 +479,18 @@ def compare_hosts(name, t, bits, hosts, stts, n_hosts, reps=20):
     check(bool(torch.isfinite(pk).all()), f"{name}: non-finite delays")
     err = float((tk - tp).abs().max())
     ms = median_ms(lambda: kcong.congestion_cascade_hosts(t, bits, hosts, stts, n_hosts), reps)
+    single_ms = median_ms(lambda: kcong.congestion_cascade(t, bits, stts), reps)
     plain_ms = median_ms(
         lambda: kref.serial_queue_cascade(t, bits, stts, hosts=hosts, n_hosts=n_hosts),
         max(3, reps // 4),
     )
     n_stages = int(stts.shape[0])
+    k = cascade_ctas(t)
+    merges = check_mirror(name, fk, (tp, ip, pp), kref.serial_queue_cascade_partitioned(
+        t, bits, stts, k, hosts=hosts, n_hosts=n_hosts))
     bms, by = cascade_bound(t, bits, n_stages, HOSTS_BYTES_PER_EVENT, n_stages * n_hosts)
-    row = dict(shape=list(t.shape), stages=n_stages, hosts=n_hosts, ms=ms,
+    row = dict(shape=list(t.shape), stages=n_stages, hosts=n_hosts, ctas=k,
+               pad_share=pad_share(t), **merges, ms=ms, single_host_ms=single_ms,
                plain_ms=plain_ms, bound_ms=bms, bound_by=by, max_abs_err=err,
                psd_max_rel_err=float(((pk - pp).abs() / pp.abs().clamp(min=1e-30)).max()),
                delay_ns_per_host=[float(x) for x in pk.sum((0, 1))])
@@ -513,6 +576,7 @@ def qos_bound(t, bits, disc, n_classes, bytes_per_event, out_per_row):
 def compare_qos(name, t, bits, qos, stts, disc, w, reps=20):
     """QoS cascade kernel vs plain on the same CUDA inputs."""
     tk, ik, pk = kcong.qos_congestion_cascade(t, bits, qos, stts, disc, w)
+    fk = kcong.last_merge_flags
     tp, ip, pp = kref.qos_cascade_dyn(t, bits, stts, qos, disc, w)
     torch.cuda.synchronize()
     check(torch.equal(ik, ip), f"{name}: slot_idx differs from the plain version")
@@ -526,9 +590,13 @@ def compare_qos(name, t, bits, qos, stts, disc, w, reps=20):
     plain_ms = median_ms(lambda: kref.qos_cascade_dyn(t, bits, stts, qos, disc, w),
                          max(3, reps // 4))
     n_stages, n_classes = int(stts.shape[0]), int(w.shape[1])
+    k = cascade_ctas(t)
+    merges = check_mirror(name, fk, (tp, ip, pp),
+                          kref.qos_cascade_partitioned(t, bits, stts, qos, disc, w, k))
     bms, by = qos_bound(t, bits, disc, n_classes, QOS_BYTES_PER_EVENT, n_stages * n_classes)
     row = dict(shape=list(t.shape), stages=n_stages, classes=n_classes,
-               disciplines=disc.tolist(), ms=ms, plain_ms=plain_ms, bound_ms=bms,
+               disciplines=disc.tolist(), stts=stts.tolist(), ctas=k, pad_share=pad_share(t),
+               **merges, ms=ms, plain_ms=plain_ms, bound_ms=bms,
                bound_by=by, max_abs_err=err,
                delay_ns_per_class=[float(x) for x in pk.sum((0, 1, 2))])
     print(f"[kernel] {name}: {json.dumps(row)}")
@@ -552,28 +620,36 @@ def compare_qos_hosts(name, t, bits, qos, hosts, stts, disc, w, n_hosts, reps=20
     kernel's per-class totals, on the same CUDA inputs."""
     args = (t, bits, qos, hosts, stts, disc, w, n_hosts)
     tk, ik, pk = kcong.qos_congestion_cascade_hosts(*args)
+    fk = kcong.last_merge_flags
     tp, ip, pp = kref.qos_cascade_dyn(t, bits, stts, qos, disc, w, hosts=hosts,
                                       n_hosts=n_hosts)
     _, i1, p1 = kcong.qos_congestion_cascade(t, bits, qos, stts, disc, w)
+    f1 = kcong.last_merge_flags
     torch.cuda.synchronize()
     check(torch.equal(ik, ip), f"{name}: slot_idx differs from the plain version")
     check(torch.equal(ik, i1), f"{name}: slot_idx differs from the single-host QoS kernel")
+    check(torch.equal(fk, f1), f"{name}: merge flags differ from the single-host QoS kernel's")
     torch.testing.assert_close(tk, tp, rtol=1e-6, atol=0.0)
     torch.testing.assert_close(pk, pp, rtol=1e-5, atol=0.0)
     torch.testing.assert_close(pk.sum(2, keepdim=True), p1, rtol=1e-6, atol=0.0)
     check(bool(torch.isfinite(pk).all()), f"{name}: non-finite delays")
     err = float((tk - tp).abs().max())
     ms = median_ms(lambda: kcong.qos_congestion_cascade_hosts(*args), reps)
+    single_ms = median_ms(lambda: kcong.qos_congestion_cascade(t, bits, qos, stts, disc, w), reps)
     plain_ms = median_ms(
         lambda: kref.qos_cascade_dyn(t, bits, stts, qos, disc, w, hosts=hosts,
                                      n_hosts=n_hosts),
         max(3, reps // 4),
     )
     n_stages, n_classes = int(stts.shape[0]), int(w.shape[1])
+    k = cascade_ctas(t)
+    merges = check_mirror(name, fk, (tp, ip, pp), kref.qos_cascade_partitioned(
+        t, bits, stts, qos, disc, w, k, hosts=hosts, n_hosts=n_hosts))
     bms, by = qos_bound(t, bits, disc, n_classes, QOS_HOSTS_BYTES_PER_EVENT,
                         n_stages * n_hosts * n_classes)
     row = dict(shape=list(t.shape), stages=n_stages, hosts=n_hosts, classes=n_classes,
-               disciplines=disc.tolist(), ms=ms, plain_ms=plain_ms, bound_ms=bms,
+               disciplines=disc.tolist(), ctas=k, pad_share=pad_share(t), **merges, ms=ms,
+               single_host_ms=single_ms, plain_ms=plain_ms, bound_ms=bms,
                bound_by=by, max_abs_err=err,
                psd_max_rel_err=float(((pk - pp).abs() / pp.abs().clamp(min=1e-30)).max()),
                delay_ns_per_host_class=pk.sum((0, 1)).tolist())
@@ -609,6 +685,35 @@ def qos_kernel_phase(dev, shape=(32, 131072)):
         bits_pool[rng.integers(0, fig3.n_pools, shape)].astype(np.int32)).to(dev)
     qos = torch.from_numpy(rng.integers(0, 3, shape).astype(np.int32)).to(dev)
     rows.append(compare_qos_fifo("qos_figure1_all_fifo", t, bits, qos, stts, disc, w))
+    # stages (wfq, wfq with zero service, priority, fifo): the fold after
+    # stage 0 is elided, so the row is out of order at the unscanned stage 1
+    # and the kernel's own pass for the fold's runs must run there (4 CTAs a
+    # row)
+    flat = qos_chain(("priority", "wfq", "wfq")).flatten()
+    stts, disc, w = qos_tables(flat, dev)
+    stts[1] = 0.0
+    t, bits, qos = qos_inputs(flat, 8, 16384, 10, True, dev)
+    rows.append(compare_qos("qos_zero_service_ties", t, bits, qos, stts, disc, w)[0])
+    return rows
+
+
+def qos_hosts_kernel_phase(dev):
+    """Phase 3, host-segmented QoS part: pooled_topology(n_hosts=8) under
+    priority with 2 classes, tie-heavy, in one row of 2**20 events (the most
+    CTAs a row) and in 256 rows of 4096 (one CTA a row)."""
+    flat = pooled_topology(n_hosts=8, discipline="priority", class_weights=(1.0, 1.0)).flatten()
+    stts, disc, w = qos_tables(flat, dev)
+    rows = []
+    for name, (b, n), ties, seed in (
+        ("qos_hosts_pooled8_ties", (32, 131072), True, 11),
+        ("qos_hosts_pooled8_one_row", (1, 1048576), False, 12),
+        ("qos_hosts_pooled8_many_rows", (256, 4096), False, 13),
+    ):
+        t, bits, hosts, _ = fabric_inputs(flat, b, n, seed, dev, ties=ties)
+        qos = torch.from_numpy(
+            np.random.default_rng(seed).integers(0, 2, (b, n)).astype(np.int32)).to(dev)
+        rows.append(compare_qos_hosts(name, t, bits, qos, hosts, stts, disc, w, flat.n_hosts,
+                                      reps=10))
     return rows
 
 
@@ -1523,7 +1628,40 @@ def qwen3_serving_path(dev):
     return rows, flash_launches
 
 
-def main() -> int:
+def sass_counts(path) -> str:
+    """How many atomic, double-add and match instructions a built library's
+    SASS holds (cuobjdump), or why it could not be read."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    try:
+        out = subprocess.run([tool, "-sass", str(path)], capture_output=True, text=True,
+                             timeout=300).stdout
+    except (OSError, subprocess.SubprocessError) as e:
+        return f"not read ({e})"
+    ops = ("ATOMS", "ATOMG", "ATOM.", "RED.", "DADD", "MATCH")
+    return json.dumps({op: sum(op in line for line in out.splitlines()) for op in ops})
+
+
+def cascade_batches(dev):
+    """The fabric8 and qos-fabric round batches (one warm-up round each)
+    against the plain versions and the partitioned mirror: the cascades
+    alone, for ``--cascades``."""
+    sess = fabric_session(FABRIC_HOSTS, FABRIC_LOAD, FABRIC_EVENTS_PER_ACCESS, "cuda")
+    sess.round()
+    b = staged_batch(sess._round_cache[0], sess.flat, dev)
+    compare_hosts("fabric_batch", b["t"], b["bits"], b["hosts"], b["stts"], sess.flat.n_hosts)
+    del sess, b
+    sess = fabric_session(FABRIC_HOSTS, FABRIC_LOAD, FABRIC_EVENTS_PER_ACCESS, "cuda",
+                          classes=FABRIC_CLASSES, discipline="priority",
+                          class_weights=(1.0, 1.0))
+    sess.round()
+    b = staged_batch(sess._round_cache[0], sess.flat, dev)
+    stts, disc, w = qos_tables(sess.flat, dev)
+    compare_qos_hosts("qos_fabric_batch", b["t"], b["bits"], b["qos"], b["hosts"], stts, disc,
+                      w, sess.flat.n_hosts)
+
+
+def main(argv) -> int:
+    cascades_only = "--cascades" in argv
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script needs a card",
               file=sys.stderr)
@@ -1550,6 +1688,8 @@ def main() -> int:
         for line in res.log.splitlines():
             if "registers" in line or "spill" in line or "smem" in line or "Compiling" in line:
                 print(f"[build] {line.strip()}")
+        if name in ("congestion_cascade", "qos_cascade"):
+            print(f"[build] {name} SASS: {sass_counts(res.path)}")
 
     # -- 3. kernels vs plain at synthetic shapes ---------------------------- #
     fig = figure1_topology().flatten()
@@ -1567,16 +1707,25 @@ def main() -> int:
     fig3 = Topology(topo.pools, topo.switches, topo.rc_latency_ns, topo.rc_bandwidth_gbps,
                     topo.rc_stt_ns, topo.local_dram_latency_ns, n_hosts=3).flatten()
     host_rows = []
-    for name, flat, (b, n), seed in (
-        ("hosts_ragged_figure1x3", fig3, (4, 3000), 4),
-        ("hosts_pooled8", pooled_topology(n_hosts=8).flatten(), (32, 131072), 5),
+    pooled8 = pooled_topology(n_hosts=8).flatten()
+    for name, flat, (b, n), seed, ties in (
+        ("hosts_ragged_figure1x3", fig3, (4, 3000), 4, False),
+        ("hosts_pooled8", pooled8, (32, 131072), 5, False),
+        ("hosts_pooled8_ties", pooled8, (32, 131072), 10, True),
+        ("hosts_pooled8_one_row", pooled8, (1, 1048576), 11, False),
+        ("hosts_pooled8_many_rows", pooled8, (256, 4096), 12, False),
     ):
-        t, bits, hosts, stts = fabric_inputs(flat, b, n, seed, dev)
+        t, bits, hosts, stts = fabric_inputs(flat, b, n, seed, dev, ties=ties)
         host_rows.append(compare_hosts(name, t, bits, hosts, stts, flat.n_hosts))
     t, rng = synthetic_times(32, 131072, 6, dev)
     mask = torch.from_numpy(rng.random((32, 131072)) < 0.5).to(dev)
     scan_rows = [compare_scan("scan_random_mask", t, mask, 2.0)]
     qos_rows = qos_kernel_phase(dev)
+    qos_host_rows = qos_hosts_kernel_phase(dev)
+    if cascades_only:
+        cascade_batches(dev)
+        print(f"[done] chip_smoke --cascades ran {time.perf_counter() - t_start:.1f} s")
+        return 0
 
     # -- 4-10. the main paths ----------------------------------------------- #
     step, x = main_step(dev)
@@ -1606,7 +1755,7 @@ def main() -> int:
         ("qos_congestion_cascade", "qos_cascade.cu", "congestion.py:542",
          qos_launches, qos_rows + [qos_main_row], qos_main_row),
         ("qos_congestion_cascade_hosts", "qos_cascade.cu", "congestion.py:542",
-         qos_hosts_launches, [qos_fabric_row], qos_fabric_row),
+         qos_hosts_launches, qos_host_rows + [qos_fabric_row], qos_fabric_row),
         ("ssd_scan", "ssd_scan.cu", "ssd_scan.py:82", ssd_launches, ssd_rows, ssd_row),
         ("flash_attention", "flash_attention.cu", "flash_attention.py:94", flash_launches,
          flash_rows + model_rows, flash_row),
@@ -1636,4 +1785,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

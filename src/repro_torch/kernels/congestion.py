@@ -13,14 +13,17 @@ bounds it and what the design does about that):
   stage), single-host (:func:`qos_congestion_cascade`) and host-segmented
   (:func:`qos_congestion_cascade_hosts`), one template body.
 
-All include ``csrc/block_scan.cuh``.  :mod:`.build` compiles each library at
-first use (``build`` and ``build_all`` are re-exported here); nothing is
-built or loaded when this module is imported.
+The two cascades share ``csrc/cluster_cascade.cuh`` (a thread-block cluster
+of :func:`ctas_per_row` CTAs per epoch row), the scan includes
+``csrc/block_scan.cuh``.  :mod:`.build` compiles each library at first use
+(``build`` and ``build_all`` are re-exported here); nothing is built or
+loaded when this module is imported.
 
 The wrappers take CUDA tensors only; :mod:`.ops` dispatches CPU tensors to
 the plain versions (:mod:`.ref`).  ``launches``, ``hosts_launches``,
 ``scan_launches``, ``qos_launches`` and ``qos_hosts_launches`` count the
-launches each wrapper made.
+launches each wrapper made; ``last_merge_flags`` holds the ``[B, S]`` int8
+merge flags (``ref.MERGE_*``) of the last cascade launch.
 """
 
 from __future__ import annotations
@@ -42,7 +45,9 @@ __all__ = [
     "congestion_cascade",
     "congestion_cascade_hosts",
     "congestion_scan",
+    "ctas_per_row",
     "hosts_launches",
+    "last_merge_flags",
     "launches",
     "qos_congestion_cascade",
     "qos_congestion_cascade_hosts",
@@ -54,22 +59,24 @@ __all__ = [
 MAX_STAGES = 31  # stage s is bit s of an int32 route word
 MAX_HOSTS = 32  # per-host delay slots of the hosts kernels
 MAX_CLASSES = 8  # QoS classes of the QoS kernel (kMaxClasses)
+MAX_CTAS = 8  # CTAs per row: the portable cluster size (kMaxCtas)
 
 launches = 0  # kernel launches made by congestion_cascade
 hosts_launches = 0  # kernel launches made by congestion_cascade_hosts
 scan_launches = 0  # kernel launches made by congestion_scan
 qos_launches = 0  # kernel launches made by qos_congestion_cascade
 qos_hosts_launches = 0  # kernel launches made by qos_congestion_cascade_hosts
+last_merge_flags = None  # [B, S] int8 merge flags of the last cascade launch
 
 
 _PTR, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 
 
 def _bind_cascade(lib: ctypes.CDLL) -> None:
-    lib.congestion_cascade_launch.argtypes = [_PTR] * 10 + [_I64, _I64, _I32, _PTR]
+    lib.congestion_cascade_launch.argtypes = [_PTR] * 8 + [_I64, _I64, _I32, _I32, _PTR]
     lib.congestion_cascade_launch.restype = _I32
-    lib.congestion_cascade_hosts_launch.argtypes = [_PTR] * 11 + [
-        _I64, _I64, _I32, _I32, _PTR,
+    lib.congestion_cascade_hosts_launch.argtypes = [_PTR] * 9 + [
+        _I64, _I64, _I32, _I32, _I32, _PTR,
     ]
     lib.congestion_cascade_hosts_launch.restype = _I32
 
@@ -82,12 +89,28 @@ def _bind_scan(lib: ctypes.CDLL) -> None:
 
 
 def _bind_qos(lib: ctypes.CDLL) -> None:
-    lib.qos_cascade_launch.argtypes = [_PTR] * 14 + [_I64, _I64, _I32, _I32, _PTR]
+    lib.qos_cascade_launch.argtypes = [_PTR] * 11 + [_I64, _I64, _I32, _I32, _I32, _PTR]
     lib.qos_cascade_launch.restype = _I32
-    lib.qos_cascade_hosts_launch.argtypes = [_PTR] * 15 + [
-        _I64, _I64, _I32, _I32, _I32, _PTR,
+    lib.qos_cascade_hosts_launch.argtypes = [_PTR] * 12 + [
+        _I64, _I64, _I32, _I32, _I32, _I32, _PTR,
     ]
     lib.qos_cascade_hosts_launch.restype = _I32
+
+
+def ctas_per_row(n_rows: int, n: int, n_sms: int, tile: int = ref.KERNEL_TILE) -> int:
+    """The CTAs a cascade kernel gives each epoch row (the cluster size):
+    enough that ``n_rows`` clusters fill the card's ``n_sms`` SMs, at most
+    ``MAX_CTAS`` (a portable cluster) and at most one per ``tile`` events
+    of the row, and at least 1.  ``[32, 1048576]`` on 132 SMs takes 4 (128
+    CTAs), a single ``[1, 1048576]`` row 8, and 132 rows or more 1."""
+    k = min(n_sms // max(int(n_rows), 1), MAX_CTAS, -(-int(n) // tile))
+    return max(1, k)
+
+
+def _ctas(t: torch.Tensor) -> int:
+    n_rows, n = t.shape
+    sms = torch.cuda.get_device_properties(t.device).multi_processor_count
+    return ctas_per_row(n_rows, n, sms)
 
 
 def _cascade_inputs(t, bits, stts) -> Tuple[int, int, int]:
@@ -107,10 +130,15 @@ def _cascade_inputs(t, bits, stts) -> Tuple[int, int, int]:
     return n_rows, n, n_stages
 
 
-def _cascade_scratch(t, bits):
-    """The working route bits and the merge's compacted runs."""
-    return (torch.empty_like(bits), torch.empty_like(t), torch.empty_like(bits),
-            torch.empty_like(bits))
+def _scratch(t, planes: int):
+    """The kernels' working state: ``planes`` 32-bit words per event."""
+    return torch.empty((planes,) + tuple(t.shape), dtype=torch.int32, device=t.device)
+
+
+def _flags(t, n_stages: int):
+    global last_merge_flags
+    last_merge_flags = torch.zeros((t.shape[0], n_stages), dtype=torch.int8, device=t.device)
+    return last_merge_flags
 
 
 def congestion_cascade(
@@ -127,15 +155,15 @@ def congestion_cascade(
     t_out = torch.empty_like(t)
     idx = torch.empty_like(bits)
     psd = torch.empty((n_rows, n_stages), dtype=torch.float32, device=t.device)
-    bits_work, comp_t, comp_bits, comp_idx = _cascade_scratch(t, bits)
+    scratch = _scratch(t, 4)
+    flags = _flags(t, n_stages)
     lib = load("congestion_cascade", _bind_cascade)
     with torch.cuda.device(t.device):
         stream = torch.cuda.current_stream(t.device).cuda_stream
         rc = lib.congestion_cascade_launch(
             t.data_ptr(), bits.data_ptr(), stts.data_ptr(), t_out.data_ptr(),
-            idx.data_ptr(), bits_work.data_ptr(), comp_t.data_ptr(),
-            comp_bits.data_ptr(), comp_idx.data_ptr(), psd.data_ptr(),
-            n_rows, n, n_stages, stream,
+            idx.data_ptr(), scratch.data_ptr(), psd.data_ptr(), flags.data_ptr(),
+            n_rows, n, n_stages, _ctas(t), stream,
         )
     raise_on(rc, "congestion_cascade", lib, "congestion_cascade")
     launches += 1
@@ -169,15 +197,15 @@ def congestion_cascade_hosts(
     t_out = torch.empty_like(t)
     idx = torch.empty_like(bits)
     psd = torch.empty((n_rows, n_stages, n_hosts), dtype=torch.float32, device=t.device)
-    bits_work, comp_t, comp_bits, comp_idx = _cascade_scratch(t, bits)
+    scratch = _scratch(t, 4)
+    flags = _flags(t, n_stages)
     lib = load("congestion_cascade", _bind_cascade)
     with torch.cuda.device(t.device):
         stream = torch.cuda.current_stream(t.device).cuda_stream
         rc = lib.congestion_cascade_hosts_launch(
             t.data_ptr(), bits.data_ptr(), hosts.data_ptr(), stts.data_ptr(),
-            t_out.data_ptr(), idx.data_ptr(), bits_work.data_ptr(),
-            comp_t.data_ptr(), comp_bits.data_ptr(), comp_idx.data_ptr(),
-            psd.data_ptr(), n_rows, n, n_stages, n_hosts, stream,
+            t_out.data_ptr(), idx.data_ptr(), scratch.data_ptr(), psd.data_ptr(),
+            flags.data_ptr(), n_rows, n, n_stages, n_hosts, _ctas(t), stream,
         )
     raise_on(rc, "congestion_cascade", lib, "congestion_cascade_hosts")
     hosts_launches += 1
@@ -258,25 +286,24 @@ def _qos_launch(t, bits, qos, hosts, stts, disc_code, class_weights, n_hosts):
     psd = torch.empty(
         (n_rows, n_stages, n_hosts, n_classes), dtype=torch.float32, device=t.device
     )
-    bits_work, comp_t, comp_bits, comp_idx = _cascade_scratch(t, bits)
-    run_id = torch.empty(t.shape, dtype=torch.uint8, device=t.device)
+    scratch = _scratch(t, 10)
+    flags = _flags(t, n_stages)
     lib = load("qos_cascade", _bind_qos)
     with torch.cuda.device(t.device):
         stream = torch.cuda.current_stream(t.device).cuda_stream
         common = (
             stts.data_ptr(), table.data_ptr(), disc_code.data_ptr(), t_out.data_ptr(),
-            idx.data_ptr(), bits_work.data_ptr(), comp_t.data_ptr(), comp_bits.data_ptr(),
-            comp_idx.data_ptr(), run_id.data_ptr(), psd.data_ptr(), n_rows, n, n_stages,
-            n_classes,
+            idx.data_ptr(), scratch.data_ptr(), psd.data_ptr(), flags.data_ptr(), n_rows, n,
+            n_stages, n_classes,
         )
         if hosts is None:
             rc = lib.qos_cascade_launch(
-                t.data_ptr(), bits.data_ptr(), qos.data_ptr(), *common, stream
+                t.data_ptr(), bits.data_ptr(), qos.data_ptr(), *common, _ctas(t), stream
             )
         else:
             rc = lib.qos_cascade_hosts_launch(
                 t.data_ptr(), bits.data_ptr(), qos.data_ptr(), hosts.data_ptr(), *common,
-                n_hosts, stream,
+                n_hosts, _ctas(t), stream,
             )
     raise_on(rc, "qos_cascade", lib,
               "qos_congestion_cascade" + ("" if hosts is None else "_hosts"))

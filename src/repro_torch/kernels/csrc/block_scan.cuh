@@ -1,7 +1,8 @@
-// Block-wide scans shared by the congestion kernels (congestion_cascade.cu,
-// congestion_scan.cu, qos_cascade.cu): one block of kThreads threads walks an epoch row in
-// tiles of kTile events, kItems consecutive events per thread, and carries
-// the running count and max between tiles in registers.
+// Block-wide scans of the single-switch scan kernel (congestion_scan.cu): one
+// block of kThreads threads walks an epoch row in tiles of kTile events,
+// kItems consecutive events per thread, and carries the running count and max
+// between tiles in registers.  (The cascades' cluster machinery is
+// cluster_cascade.cuh.)
 
 #pragma once
 
@@ -20,7 +21,6 @@ static_assert(kWarps == 32, "the second scan level is one warp wide");
 struct Smem {
   int c[kWarps];
   float g[kWarps];
-  double d[kWarps];
   int tot_c;
   float tot_g;
 };
@@ -91,28 +91,7 @@ __device__ __forceinline__ float block_exclusive_max(float v, float* total, Smem
   return excl;
 }
 
-// Block-wide sum of one double per thread, returned to every thread.
-__device__ __forceinline__ double block_sum(double v, Smem& sm) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(kFull, v, o);
-  if (lane == 0) sm.d[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    double w = sm.d[lane];
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) w += __shfl_down_sync(kFull, w, o);
-    if (lane == 0) sm.d[0] = w;
-  }
-  __syncthreads();
-  const double total = sm.d[0];
-  __syncthreads();
-  return total;
-}
-
-// One tile of the masked FIFO scan, shared by the cascade's stages and the
-// single-switch kernel.  On entry m[k] and tv[k] hold the thread's kItems
+// One tile of the masked FIFO scan.  On entry m[k] and tv[k] hold the thread's kItems
 // events (mask, current time); carry_c / carry_f are the masked-event count
 // and the running max of t - stt*rank over earlier tiles.  On return m[k]
 // events have start[k] = max(carry, cummax(t - stt*rank)) + stt*rank, every

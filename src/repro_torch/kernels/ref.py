@@ -4,6 +4,10 @@ the QoS-arbitrated cascade (priority / WFQ / FIFO per switch; a
 static-discipline spec and the data-driven form the kernel computes),
 Mamba2's SSD scan (the sequential recurrence and the chunked algorithm), and
 full-matrix GQA attention with the split-KV form of the decode kernel.
+Beside the two cascades stand their partitioned mirrors
+(:func:`serial_queue_cascade_partitioned`, :func:`qos_cascade_partitioned`):
+the same results, computed the way the cascade kernels split a row between
+the CTAs of a cluster, for the tests and ``chip_smoke.py``.
 
 They define what the CUDA kernels (:mod:`repro_torch.kernels.congestion`,
 :mod:`repro_torch.kernels.ssd_scan`, :mod:`repro_torch.kernels.flash_attention`)
@@ -27,14 +31,20 @@ __all__ = [
     "DISC_FIFO",
     "DISC_PRIORITY",
     "DISC_WFQ",
+    "KERNEL_TILE",
+    "MERGE_NONE",
+    "MERGE_RAN",
+    "MERGE_SKIPPED",
     "congestion_scan",
     "merge_sorted_runs",
     "mha_attention",
     "qos_cascade_dyn",
+    "qos_cascade_partitioned",
     "qos_serial_queue_cascade",
     "qos_service_table",
     "serial_queue",
     "serial_queue_cascade",
+    "serial_queue_cascade_partitioned",
     "split_kv_attention",
     "ssd_chunked",
     "ssd_naive",
@@ -531,6 +541,334 @@ def qos_cascade_dyn(
             ts.shape[:-1] + (0, n_hosts, n_classes), dtype=dtype, device=ts.device
         )
     return ts, idx.contiguous(), psd
+
+
+# --------------------------------------------------------------------------- #
+# partitioned mirrors of the cascade kernels
+# --------------------------------------------------------------------------- #
+
+KERNEL_TILE = 4096  # events a CTA of the cascade kernels takes at a time (kTile)
+KERNEL_ITEMS = 8  # consecutive events a thread takes (kItems): segments are whole groups
+# merge flags, one per (row, stage): what became of the merge (FIFO) or fold
+# (QoS) before the stage's scan
+MERGE_NONE = 0  # not run: stage 0, the cumulative-delay guard, or a fold elision
+MERGE_RAN = 1
+MERGE_SKIPPED = 2  # the guard asked for it, but it would have been the identity
+
+
+def _lower_bound(x: torch.Tensor, value: float) -> int:
+    """First index of the sorted 1-D ``x`` whose value is ``>= value``, by
+    the kernels' bisection."""
+    lo, hi = 0, int(x.shape[0])
+    while lo < hi:
+        mid = (lo + hi) // 2
+        if float(x[mid]) < value:
+            lo = mid + 1
+        else:
+            hi = mid
+    return lo
+
+
+def _live_length(t: torch.Tensor, bits: torch.Tensor) -> int:
+    """How many events of a row the kernels process: those before the first
+    time ``>= finfo.max/4`` (one bisection), provided every event from there
+    on is a pad (such a time, no route bit); otherwise the whole row.  Pads
+    never queue and sort last through every merge, so they stay in place."""
+    big = _big(t.dtype)
+    cut = _lower_bound(t, big)
+    if bool((bits[cut:] != 0).any()) or bool((t[cut:] < big).any()):
+        return int(t.shape[0])
+    return cut
+
+
+def _segments(n: int, k: int):
+    """CTA ``r`` of ``k`` takes events ``[lo_r, hi_r)`` of ``n``: slices of
+    ``ceil(n / k)`` rounded up to whole groups of ``KERNEL_ITEMS``, the last
+    ones short or empty."""
+    step = -(-(-(-n // k)) // KERNEL_ITEMS) * KERNEL_ITEMS
+    return [(min(r * step, n), min(r * step + step, n)) for r in range(k)]
+
+
+def _partitioned_scan(ts, mask, stt, segs):
+    """One masked FIFO scan over a row split into segments, as the kernels
+    run it.  Each segment first counts its masked events: the counts of the
+    earlier segments (an exact int32 prefix) are its rank base.  Then it
+    takes the max of ``t - stt*rank`` over its events at those global ranks
+    (a max is exact in any order).  Then it writes its starts from its own
+    running max and the max over the earlier segments.  So any split gives
+    the serial scan bitwise: nothing is rebased after rounding."""
+    neg = torch.tensor(float("-inf"), dtype=ts.dtype, device=ts.device)
+    counts = [int(mask[lo:hi].sum()) for lo, hi in segs]
+    out, carry, base = ts.clone(), neg, 0
+    for (lo, hi), count in zip(segs, counts):
+        if hi == lo:
+            continue
+        m = mask[lo:hi]
+        mi = m.to(torch.int32)
+        rank = base + torch.cumsum(mi, 0, dtype=torch.int32) - mi
+        p = stt * rank.to(ts.dtype)
+        g = torch.where(m, ts[lo:hi] - p, neg)
+        f = torch.maximum(torch.cummax(g, 0).values, carry)
+        out[lo:hi] = torch.where(m, f + p, ts[lo:hi])
+        carry = torch.maximum(carry, g.max())
+        base += count
+    return out
+
+
+def _fold_sum(d: torch.Tensor, segs) -> float:
+    """A stage's delay: each segment's f64 sum, folded in segment order (the
+    kernels' deterministic cross-CTA fold)."""
+    total = 0.0
+    for lo, hi in segs:
+        total += float(d[lo:hi].to(torch.float64).sum())
+    return total
+
+
+def _fifo_merge_is_identity(ts, changed) -> bool:
+    """True when merging the ``changed`` run back into the rest (ties:
+    changed first) would leave the row as it is: no event is earlier than
+    the one before it (float ``<``, so -0.0 ties +0.0), and no tied pair has
+    an untouched event directly before a changed one.  The kernels check
+    every adjacent pair: inside a segment, and across each boundary from the
+    neighbours' published ends."""
+    x, y = ts[:-1], ts[1:]
+    bad = (y < x) | ((y == x) & ~changed[:-1] & changed[1:])
+    return not bool(bad.any())
+
+
+def _keys_ordered(ts) -> bool:
+    """True when the row is non-decreasing by ``_f32_sort_key`` (so -0.0
+    sorts before +0.0): the QoS fold, a stable sort by that key, would then
+    be the identity."""
+    key = _f32_sort_key(ts)
+    return not bool((key[1:] < key[:-1]).any())
+
+
+def _merge_path(a_key, b_key, segs, tile):
+    """Where each element of two sorted runs lands in their merge, ties
+    putting run a first, found as the kernels find it.  The output is cut
+    into tiles of ``tile`` inside each CTA's range ``segs``; each tile
+    boundary ``d`` is split by one bisection into ``i`` elements of a and
+    ``d - i`` of b (the smallest ``i`` whose a element does not precede
+    b's ``d - i - 1``-th); inside a tile an element lands at its index in
+    its own slice plus the elements of the other slice before it.  Returns
+    ``(pos_a, pos_b)``."""
+    na, nb = int(a_key.shape[0]), int(b_key.shape[0])
+    dev = a_key.device
+    cuts = {0}
+    for lo, hi in segs:
+        cuts.update(range(lo, hi, tile))
+        cuts.add(hi)
+    d = torch.tensor(sorted(cuts), dtype=torch.int64, device=dev)
+    lo = (d - nb).clamp(min=0)
+    hi = torch.clamp(d, max=na)
+    while True:
+        act = lo < hi
+        if not bool(act.any()):
+            break
+        mid = (lo + hi) // 2
+        ai = mid.clamp(0, max(na - 1, 0))
+        bi = (d - 1 - mid).clamp(0, max(nb - 1, 0))
+        before = a_key[ai] <= b_key[bi]
+        lo = torch.where(act & before, mid + 1, lo)
+        hi = torch.where(act & ~before, mid, hi)
+    ia, ib = lo, d - lo
+
+    def place(own, other, own_cut, other_cut, right):
+        i = torch.arange(own.shape[0], dtype=torch.int64, device=dev)
+        j = torch.searchsorted(own_cut, i, right=True) - 1
+        below = torch.searchsorted(other, own, right=right).to(torch.int64)
+        inside = torch.minimum(torch.maximum(below, other_cut[j]), other_cut[j + 1])
+        return d[j] + (i - own_cut[j]) + (inside - other_cut[j])
+
+    return place(a_key, b_key, ia, ib, False), place(b_key, a_key, ib, ia, True)
+
+
+def _merge_into(pa, pb, a_vals, b_vals):
+    out = []
+    for xa, xb in zip(a_vals, b_vals):
+        y = torch.empty(xa.shape[0] + xb.shape[0], dtype=xa.dtype, device=xa.device)
+        y[pa] = xa
+        y[pb] = xb
+        out.append(y)
+    return out
+
+
+def _fifo_row(t, bits, stts, k, hosts, n_hosts, tile):
+    n, s_stages = int(t.shape[0]), int(stts.shape[0])
+    live = _live_length(t, bits)
+    segs = _segments(live, k)
+    ts, b = t[:live], bits[:live]
+    idx = torch.arange(live, dtype=torch.int32, device=t.device)
+    flags = torch.zeros(s_stages, dtype=torch.int8)
+    psd, dirty = [], 0.0
+    for s in range(s_stages):
+        m = ((b >> s) & 1) == 1
+        start = _partitioned_scan(ts, m, stts[s], segs)
+        d = torch.where(m, start - ts, 0.0)
+        stage = _fold_sum(d, segs)
+        if hosts is None:
+            psd.append(torch.tensor([stage], dtype=t.dtype, device=t.device))
+        else:
+            h = hosts[:live][idx.to(torch.int64)].to(torch.int64)
+            acc = torch.zeros(n_hosts, dtype=torch.float64, device=t.device)
+            psd.append(acc.scatter_add_(0, h, d.to(torch.float64)).to(t.dtype))
+        dirty += stage
+        ts = start
+        if s + 1 < s_stages and dirty > 0:
+            if _fifo_merge_is_identity(ts, m):
+                flags[s + 1] = MERGE_SKIPPED
+                continue
+            a, rest = m, ~m
+            pa, pb = _merge_path(ts[a], ts[rest], segs, tile)
+            ts, b, idx = _merge_into(pa, pb, (ts[a], b[a], idx[a]), (ts[rest], b[rest], idx[rest]))
+            flags[s + 1] = MERGE_RAN
+    tail = torch.arange(live, n, dtype=torch.int32, device=t.device)
+    psd = torch.stack(psd) if psd else torch.zeros((0, n_hosts), dtype=t.dtype, device=t.device)
+    return torch.cat([ts, t[live:]]), torch.cat([idx, tail]), psd, flags
+
+
+def serial_queue_cascade_partitioned(
+    t_sorted: torch.Tensor,  # [..., N] f32, time-sorted arrivals per row
+    route_bits: torch.Tensor,  # [..., N] i32, bit s set iff event crosses stage s
+    stts: torch.Tensor,  # [S] f32, service times in stage order
+    ctas: int,  # CTAs per row
+    hosts: Optional[torch.Tensor] = None,  # [..., N] i32 host ids, input order
+    n_hosts: int = 1,
+    tile: int = KERNEL_TILE,
+):
+    """:func:`serial_queue_cascade` (``merge_plan=None``) computed the way
+    the cascade kernel splits a row between ``ctas`` CTAs: pads cut off
+    (:func:`_live_length`), each stage's scan by :func:`_partitioned_scan`,
+    each merge by merge path (:func:`_merge_path`), and a merge skipped when
+    it would be the identity.  Returns ``(t_final, slot_idx,
+    per_stage_delay, merge_flags [..., S] int8)``: the first three are the
+    plain version's (``slot_idx`` and ``t_final`` bitwise; each stage's
+    delay summed in f64 by segment), the flags are ``MERGE_*``.  For tests
+    and ``chip_smoke.py``; a Python loop over rows."""
+    n = t_sorted.shape[-1]
+    lead = t_sorted.shape[:-1]
+    t2 = t_sorted.reshape(-1, n)
+    b2 = route_bits.to(torch.int32).reshape(-1, n)
+    h2 = None if hosts is None else hosts.reshape(-1, n)
+    rows = [
+        _fifo_row(t2[r], b2[r], stts, int(ctas), None if h2 is None else h2[r], n_hosts, tile)
+        for r in range(t2.shape[0])
+    ]
+    tf, idx, psd, flags = (torch.stack([row[i] for row in rows]) for i in range(4))
+    psd_shape = lead + ((stts.shape[0],) if hosts is None else (stts.shape[0], n_hosts))
+    return (tf.reshape(t_sorted.shape), idx.reshape(t_sorted.shape), psd.reshape(psd_shape),
+            flags.reshape(lead + (stts.shape[0],)))
+
+
+def _qos_fold_partitioned(ts, bits, idx, run_id, n_runs, k, tile):
+    """The stable multi-run fold of :func:`_qos_rank_fold` as the QoS kernel
+    runs it: each run compacted in array order, then the non-empty runs
+    merged one after the other by merge path, smallest first, keyed by
+    (``_f32_sort_key``, array position): a total order in which every run is
+    sorted, so the chain of two-way merges is the stable fold."""
+    pos = torch.arange(ts.shape[0], dtype=torch.int64, device=ts.device)
+    key = (_f32_sort_key(ts).to(torch.int64) << 32) | pos
+    runs = [sel for sel in (run_id == j for j in range(n_runs)) if bool(sel.any())]
+    runs.sort(key=lambda sel: int(sel.sum()))  # stable: ties keep run order
+    cur = [x[runs[0]] for x in (key, ts, bits, idx)]
+    for sel in runs[1:]:
+        nxt = [x[sel] for x in (key, ts, bits, idx)]
+        segs = _segments(int(cur[0].shape[0] + nxt[0].shape[0]), k)
+        pa, pb = _merge_path(cur[0], nxt[0], segs, tile)
+        cur = _merge_into(pa, pb, cur, nxt)
+    return cur[1], cur[2], cur[3]
+
+
+def _qos_row(t, bits, qos, stts, codes, served, table, k, hosts, n_hosts, n_classes, tile):
+    n, s_stages = int(t.shape[0]), int(stts.shape[0])
+    live = _live_length(t, bits)
+    segs = _segments(live, k)
+    ts, b = t[:live], bits[:live]
+    q_in = qos[:live]
+    h_in = None if hosts is None else hosts[:live]
+    idx = torch.arange(live, dtype=torch.int32, device=t.device)
+    flags = torch.zeros(s_stages, dtype=torch.int8)
+    psd, dirty, ordered = [], 0.0, True
+    for s in range(s_stages):
+        m = ((b >> s) & 1) == 1
+        q_cur = q_in[idx.to(torch.int64)]
+        q_eff = torch.zeros_like(q_cur) if codes[s] == DISC_FIFO else q_cur
+        if served[s]:
+            start = ts
+            for c in range(1 if codes[s] == DISC_FIFO else n_classes):
+                sel = (q_eff <= c) if codes[s] == DISC_PRIORITY else (q_eff == c)
+                sc = _partitioned_scan(ts, m & sel, table[s, c], segs)
+                start = torch.where(m & (q_eff == c), sc, start)
+            d = torch.where(m, start - ts, 0.0)
+            ts = start
+            ordered = _keys_ordered(ts)
+        else:
+            d = torch.zeros_like(ts)
+        psd.append(_class_delays(d, q_cur, idx, h_in, n_hosts, n_classes))
+        dirty += _fold_sum(d, segs)
+        if s == s_stages - 1 or not dirty > 0:
+            continue
+        nxt = ((b >> (s + 1)) & 1) == 1
+        if (s + 1 == s_stages - 1 and not served[s + 1]) or (
+            codes[s + 1] == DISC_WFQ and bool((nxt == m).all())
+        ):
+            continue
+        if ordered:
+            flags[s + 1] = MERGE_SKIPPED
+            continue
+        run_id = torch.where(m, q_eff, n_classes)
+        ts, b, idx = _qos_fold_partitioned(ts, b, idx, run_id, n_classes + 1, k, tile)
+        ordered = True
+        flags[s + 1] = MERGE_RAN
+    tail = torch.arange(live, n, dtype=torch.int32, device=t.device)
+    psd = torch.stack(psd) if psd else torch.zeros(
+        (0, n_hosts, n_classes), dtype=t.dtype, device=t.device)
+    return torch.cat([ts, t[live:]]), torch.cat([idx, tail]), psd, flags
+
+
+def qos_cascade_partitioned(
+    t_sorted: torch.Tensor,  # [..., N] f32, time-sorted arrivals per row
+    route_bits: torch.Tensor,  # [..., N] i32, bit s set iff event crosses stage s
+    stts: torch.Tensor,  # [S] f32, service times in stage order
+    qos: torch.Tensor,  # [..., N] i32 QoS class per event, input order
+    disc_code: torch.Tensor,  # [S] i32 DISC_* code per stage
+    class_weights: torch.Tensor,  # [S, C] per-stage class weights
+    ctas: int,  # CTAs per row
+    hosts: Optional[torch.Tensor] = None,  # [..., N] i32 host ids, input order
+    n_hosts: int = 1,
+    tile: int = KERNEL_TILE,
+):
+    """:func:`qos_cascade_dyn` computed the way the QoS cascade kernel
+    splits a row between ``ctas`` CTAs: pads cut off, each class's scan by
+    :func:`_partitioned_scan`, each fold by :func:`_qos_fold_partitioned`,
+    and a fold skipped when the row is already in key order.  Returns
+    ``(t_final, slot_idx, per_stage_delay [..., S, H, C], merge_flags [...,
+    S] int8)``, the first three the plain version's (``slot_idx`` and
+    ``t_final`` bitwise).  For tests and ``chip_smoke.py``; a Python loop
+    over rows."""
+    n = t_sorted.shape[-1]
+    lead = t_sorted.shape[:-1]
+    n_classes = int(class_weights.shape[-1])
+    if hosts is None:
+        n_hosts = 1
+    codes = [int(x) for x in disc_code.tolist()]
+    served = [float(x) > 0 for x in stts.tolist()]
+    table = qos_service_table(stts, disc_code, class_weights)
+    t2 = t_sorted.reshape(-1, n)
+    b2 = route_bits.to(torch.int32).reshape(-1, n)
+    q2 = qos.to(torch.int32).clamp(0, n_classes - 1).reshape(-1, n)
+    h2 = None if hosts is None else hosts.reshape(-1, n)
+    rows = [
+        _qos_row(t2[r], b2[r], q2[r], stts, codes, served, table, int(ctas),
+                 None if h2 is None else h2[r], n_hosts, n_classes, tile)
+        for r in range(t2.shape[0])
+    ]
+    tf, idx, psd, flags = (torch.stack([row[i] for row in rows]) for i in range(4))
+    s_stages = int(stts.shape[0])
+    return (tf.reshape(t_sorted.shape), idx.reshape(t_sorted.shape),
+            psd.reshape(lead + (s_stages, n_hosts, n_classes)),
+            flags.reshape(lead + (s_stages,)))
 
 
 # --------------------------------------------------------------------------- #
