@@ -33,7 +33,8 @@ Phases (any failure exits non-zero and prints no result):
    - the host-segmented cascade at [4, 3000] on figure1 re-declared for 3
      hosts; on pooled_topology(n_hosts=8) at [32, 131072], tie-heavy at
      [32, 131072] (integers from a span of n/4), in one row of 2**20
-     events (the most CTAs a row) and in [256, 4096] (one CTA a row); and
+     events (the most CTAs a row) and in [256, 4096] (one CTA a row); on
+     pooled_topology(n_hosts=20), tie-heavy [8, 16384]; and
      the fabric round's own batch: as above, per-host delays to rtol 1e-5,
      their sum over hosts equal to the single-host kernel's delays to rtol
      1e-6, and the same merge flags as the single-host kernel's;
@@ -51,7 +52,8 @@ Phases (any failure exits non-zero and prints no result):
      fold runs at the unscanned stage; on the qos-main path's batch; and
      the host-segmented QoS cascade on pooled_topology(n_hosts=8) under
      priority with 2 classes (tie-heavy [32, 131072], one row of 2**20,
-     [256, 4096]) and on the priority fabric's own batch: slot indices
+     [256, 4096]), on 16 hosts (32 slots, tie-heavy [8, 16384]) and on
+     the priority fabric's own batch: slot indices
      exactly equal, final times to rtol 1e-6,
      per-(host, class) delays to rtol 1e-5, their sum over hosts equal to the
      single-host QoS kernel's to rtol 1e-6;
@@ -700,15 +702,18 @@ def qos_kernel_phase(dev, shape=(32, 131072)):
 def qos_hosts_kernel_phase(dev):
     """Phase 3, host-segmented QoS part: pooled_topology(n_hosts=8) under
     priority with 2 classes, tie-heavy, in one row of 2**20 events (the most
-    CTAs a row) and in 256 rows of 4096 (one CTA a row)."""
-    flat = pooled_topology(n_hosts=8, discipline="priority", class_weights=(1.0, 1.0)).flatten()
-    stts, disc, w = qos_tables(flat, dev)
+    CTAs a row) and in 256 rows of 4096 (one CTA a row); and 16 hosts, 32
+    (host, class) slots, more than the kernel's per-thread columns."""
     rows = []
-    for name, (b, n), ties, seed in (
-        ("qos_hosts_pooled8_ties", (32, 131072), True, 11),
-        ("qos_hosts_pooled8_one_row", (1, 1048576), False, 12),
-        ("qos_hosts_pooled8_many_rows", (256, 4096), False, 13),
+    for name, hosts_n, (b, n), ties, seed in (
+        ("qos_hosts_pooled8_ties", 8, (32, 131072), True, 11),
+        ("qos_hosts_pooled8_one_row", 8, (1, 1048576), False, 12),
+        ("qos_hosts_pooled8_many_rows", 8, (256, 4096), False, 13),
+        ("qos_hosts_pooled16_ties", 16, (8, 16384), True, 14),
     ):
+        flat = pooled_topology(n_hosts=hosts_n, discipline="priority",
+                               class_weights=(1.0, 1.0)).flatten()
+        stts, disc, w = qos_tables(flat, dev)
         t, bits, hosts, _ = fabric_inputs(flat, b, n, seed, dev, ties=ties)
         qos = torch.from_numpy(
             np.random.default_rng(seed).integers(0, 2, (b, n)).astype(np.int32)).to(dev)
@@ -1714,6 +1719,8 @@ def main(argv) -> int:
         ("hosts_pooled8_ties", pooled8, (32, 131072), 10, True),
         ("hosts_pooled8_one_row", pooled8, (1, 1048576), 11, False),
         ("hosts_pooled8_many_rows", pooled8, (256, 4096), 12, False),
+        # more hosts than the kernel's per-thread columns: per-warp rows
+        ("hosts_pooled20", pooled_topology(n_hosts=20).flatten(), (8, 16384), 13, True),
     ):
         t, bits, hosts, stts = fabric_inputs(flat, b, n, seed, dev, ties=ties)
         host_rows.append(compare_hosts(name, t, bits, hosts, stts, flat.n_hosts))

@@ -121,6 +121,36 @@ __device__ __forceinline__ double block_sum(double v, double* ws) {
   return total;
 }
 
+// Delay sums by slot (host, or host and class).  Up to kPrivSlots slots,
+// each thread owns a column of doubles in shared memory, slot-major (the
+// lanes of a warp on distinct banks): an add is a plain read-modify-write.
+// Beyond that, each warp owns a row and its lanes sum in lane order first
+// (warp_slot_add).  Either way the order of every sum is fixed.
+constexpr int kPrivSlots = 16;
+
+// Fold the threads' columns of slots [0, n_slots) (n_slots <= kPrivSlots)
+// into out (a shared array the cluster reads), in a fixed order: each warp
+// by shuffles, then the warps in order; resets the columns.  ws holds
+// kWarps * kPrivSlots doubles.  Every thread of the block calls it, after a
+// barrier that follows the last add.
+__device__ __forceinline__ void fold_columns(double* cols, int n_slots, double* out, double* ws) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  for (int j = 0; j < n_slots; ++j) {
+    double v = cols[j * kThreads + threadIdx.x];
+    cols[j * kThreads + threadIdx.x] = 0.0;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(kFull, v, o);
+    if (lane == 0) ws[warp * kPrivSlots + j] = v;
+  }
+  __syncthreads();
+  if (threadIdx.x < n_slots) {
+    double acc = 0.0;
+    for (int w = 0; w < kWarps; ++w) acc += ws[w * kPrivSlots + threadIdx.x];
+    out[threadIdx.x] = acc;
+  }
+}
+
 // Add v to slot `slot` of this warp's row of delay sums: the lanes that
 // share a slot are summed in lane order first, and the lowest of them adds
 // the sum (each warp owns its row, so no atomics and a fixed order).  Every

@@ -48,9 +48,10 @@
 //   runs only after a merge, and most stages cost one pass over the row.
 // - Merges by merge path, not a binary search per element into HBM: the run
 //   of stage s-1 and the rest are compacted (count-then-place across the
-//   cluster), each CTA merges its own output range tile by tile, with one
-//   bisection per tile boundary, both input slices staged in shared memory
-//   and coalesced reads and writes.
+//   cluster, each tile grouped by run in shared memory so that both slices
+//   go out coalesced), each CTA merges its own output range tile by tile,
+//   with one bisection per tile boundary, both input slices staged in
+//   shared memory and coalesced reads and writes.
 // - Merges that would do nothing are skipped, exactly: the write pass of
 //   stage s also checks every adjacent pair of the row (across tiles, and
 //   across CTAs from the published ends).  When no event is earlier than the
@@ -62,10 +63,12 @@
 //   never queue and sort last, so every pass stops at the row's first pad
 //   (one bisection), once a pass over the tail has checked that every event
 //   there is such a pad (else the whole row is live).
-// - Per-host sums without atomics: the lanes of a warp that share a host are
-//   summed in lane order (__match_any_sync), and the lowest adds the sum to
-//   its warp's row of doubles in shared memory; the rows are folded in warp
-//   order, then across the cluster in rank order.
+// - Per-host sums without atomics: up to 16 hosts, each thread adds into
+//   its own column of doubles in shared memory (slot-major, no bank
+//   conflicts), folded by warp shuffles and then in warp order; beyond 16,
+//   the lanes of a warp that share a host are summed in lane order
+//   (__match_any_sync) and the lowest adds the sum to its warp's row.  Then
+//   across the cluster in rank order.
 //
 // Numerics: the f32 products and sums are rounded one by one (__fmul_rn,
 // __fsub_rn, __fadd_rn) so no fused multiply-add changes a rounding against
@@ -138,6 +141,7 @@ cascade_kernel(const float* __restrict__ t_in, const int* __restrict__ bits_in,
   __shared__ int ws_i[(kWarps + 1) * 2];
   __shared__ float ws_f[(kWarps + 1)];
   __shared__ double ws_d[kWarps + 1];
+  __shared__ double ws_cols[kHosts ? kWarps * kPrivSlots : 1];
   __shared__ long long s_live;
   extern __shared__ __align__(16) unsigned char dyn[];
   MergeSmem ms{reinterpret_cast<float*>(dyn), reinterpret_cast<int*>(dyn) + kPadTile,
@@ -155,8 +159,9 @@ cascade_kernel(const float* __restrict__ t_in, const int* __restrict__ bits_in,
   const int* b0 = bits_in + off;
   const int* h0 = kHosts ? hosts_in + off : nullptr;
 
+  const bool cols = n_hosts <= kPrivSlots;  // per-thread columns of host sums, else per-warp rows
   if constexpr (kHosts) {
-    for (int j = threadIdx.x; j < kWarps * n_hosts; j += kThreads) wrows[j] = 0.0;
+    for (int j = threadIdx.x; j < (cols ? kThreads : kWarps) * n_hosts; j += kThreads) wrows[j] = 0.0;
   }
   if (threadIdx.x == 0) s_live = pad_start(t0, n);
   __syncthreads();
@@ -306,8 +311,12 @@ cascade_kernel(const float* __restrict__ t_in, const int* __restrict__ bits_in,
             dsum += d;
           }
           if constexpr (kHosts) {
-            warp_slot_add(wrow, m[j] && static_cast<unsigned>(hv[j]) < static_cast<unsigned>(n_hosts),
-                          hv[j], d);
+            const bool add = m[j] && static_cast<unsigned>(hv[j]) < static_cast<unsigned>(n_hosts);
+            if (cols) {
+              if (add) wrows[hv[j] * kThreads + threadIdx.x] += d;
+            } else {
+              warp_slot_add(wrow, add, hv[j], d);
+            }
           }
         }
         int r2 = carry_c2 + ex[1];
@@ -346,7 +355,10 @@ cascade_kernel(const float* __restrict__ t_in, const int* __restrict__ bits_in,
         pub.cnt2[par ^ 1] = cnt[0];
         pub.seg_max[par ^ 1] = max2[0];
       }
-      if constexpr (kHosts) fold_slots(wrows, n_hosts, pub.host);
+      if constexpr (kHosts) {
+        if (cols) fold_columns(wrows, n_hosts, pub.host, ws_cols);
+        else fold_slots(wrows, n_hosts, pub.host);
+      }
     }
     cluster_sync(cl);
 
@@ -400,19 +412,32 @@ cascade_kernel(const float* __restrict__ t_in, const int* __restrict__ bits_in,
         for (int j = 0; j < kItems; ++j) c[0] += (bv[j] >> s) & 1;
         int ex[1], tot[1];
         block_scan(c, 1, 0, Add(), ex, tot, ws_i);
-        long long before_a = ca + ex[0];
+        // stage the tile in shared memory, its stage-s events first, so that
+        // both runs' slices go out as contiguous, coalesced writes
+        int xa = ex[0], xb = tot[0] + static_cast<int>(threadIdx.x) * kItems - ex[0];
 #pragma unroll
         for (int j = 0; j < kItems; ++j) {
-          const long long i = i0 + j;
-          if (i < hi) {
-            const bool in_a = (bv[j] >> s) & 1;
-            const long long dst = in_a ? before_a : total + (i - before_a);
-            cmp.t[dst] = tv[j];
-            cmp.b[dst] = bv[j];
-            cmp.i[dst] = iv[j];
-            before_a += in_a;
+          if (j < n_valid) {
+            const int x = (bv[j] >> s) & 1 ? xa++ : xb++;
+            ms.t[pad(x)] = tv[j];
+            ms.b[pad(x)] = bv[j];
+            ms.i[pad(x)] = iv[j];
           }
         }
+        __syncthreads();
+        const int len = static_cast<int>(min(static_cast<long long>(kTile), hi - tb));
+        const long long b_at = total + (tb - ca);  // the tile's first untouched event's place
+#pragma unroll
+        for (int q = 0; q < kItems; ++q) {
+          const int x = threadIdx.x + q * kThreads;
+          if (x < len) {
+            const long long dst = x < tot[0] ? ca + x : b_at + (x - tot[0]);
+            cmp.t[dst] = ms.t[pad(x)];
+            cmp.b[dst] = ms.b[pad(x)];
+            cmp.i[dst] = ms.i[pad(x)];
+          }
+        }
+        __syncthreads();
         ca += tot[0];
       }
       cluster_sync(cl);
@@ -442,7 +467,9 @@ int launch(const void* t, const void* bits, const void* hosts, const void* stts,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const size_t smem = 3 * kPadTile * sizeof(int) + (kThreads + 1) * sizeof(long long) +
-                      (kHosts ? kWarps * n_hosts * sizeof(double) : 0);
+                      (kHosts ? (n_hosts <= kPrivSlots ? kThreads : kWarps) * n_hosts *
+                                    sizeof(double)
+                              : 0);
   auto kernel = cascade_kernel<kHosts>;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(smem));

@@ -45,15 +45,16 @@
 //   same two passes (one block scan of C counters and one of C maxima per
 //   tile, not two per class): exact in any split;
 // - the fold as a chain of two-way merges by merge path: the C + 1 runs
-//   are compacted (count-then-place across the cluster, the positions kept
-//   beside them), then the non-empty runs are merged one after another,
+//   are compacted (count-then-place across the cluster, each tile grouped
+//   by run in shared memory, the positions kept beside them), then the
+//   non-empty runs are merged one after another,
 //   smallest first, keyed by (the f32 sort key, array position), a total
 //   order in which every run is sorted, so the chain is the stable fold;
 // - a fold skipped exactly when the row is already in key order (checked on
 //   every adjacent pair by the pass that writes the stage's starts): the
 //   stable fold would be the identity;
-// - pads cut off as in the FIFO cascade, and per-(host, class) sums reduced
-//   within the warp before one plain add per slot to the warp's row.
+// - pads cut off as in the FIFO cascade, and per-(host, class) sums as its
+//   per-host sums: per-thread columns up to 16 slots, per-warp rows beyond.
 // The kernel is instantiated for at most 2 and at most 8 classes, so the
 // usual two-class topologies keep their per-class arrays in registers.  It
 // does not take the next stage's maxima in the write pass as the FIFO
@@ -170,6 +171,7 @@ qos_cascade_kernel(const float* __restrict__ t_in, const int* __restrict__ bits_
   __shared__ int ws_i[(kWarps + 1) * kR];
   __shared__ float ws_f[(kWarps + 1) * kC];
   __shared__ double ws_d[kWarps + 1];
+  __shared__ double ws_cols[kWarps * kPrivSlots];
   __shared__ long long s_live;
   extern __shared__ __align__(16) unsigned char dyn[];
   MergeSmem ms{reinterpret_cast<float*>(dyn), reinterpret_cast<int*>(dyn) + kPadTile,
@@ -193,7 +195,8 @@ qos_cascade_kernel(const float* __restrict__ t_in, const int* __restrict__ bits_
   const int* h0 = kHosts ? hosts_in + off : nullptr;
   float* row_psd = psd + row * n_stages * n_slots;
 
-  for (int j = threadIdx.x; j < kWarps * n_slots; j += kThreads) wrows[j] = 0.0;
+  const bool cols = n_slots <= kPrivSlots;  // per-thread columns of slot sums, else per-warp rows
+  for (int j = threadIdx.x; j < (cols ? kThreads : kWarps) * n_slots; j += kThreads) wrows[j] = 0.0;
   if (threadIdx.x == 0) s_live = pad_start(t0, n);
   __syncthreads();
   long long live = s_live;
@@ -459,7 +462,11 @@ qos_cascade_kernel(const float* __restrict__ t_in, const int* __restrict__ bits_
               d = static_cast<double>(__fsub_rn(nt[j], tv[j]));
               dsum += d;
             }
-            warp_slot_add(wrow, m[j] && slot[j] >= 0, slot[j], d);
+            if (cols) {
+              if (m[j] && slot[j] >= 0) wrows[slot[j] * kThreads + threadIdx.x] += d;
+            } else {
+              warp_slot_add(wrow, m[j] && slot[j] >= 0, slot[j], d);
+            }
           }
           store_items(cur.t + i0, n_valid, vec, nt, m);
           if (!tile_pairs(nt, m, n_valid, tb == lo, parity, ps, QosBad())) ok = false;
@@ -485,7 +492,8 @@ qos_cascade_kernel(const float* __restrict__ t_in, const int* __restrict__ bits_
 #pragma unroll
           for (int j = 0; j < kR; ++j) pub.runs[j] = runs[j];
         }
-        fold_slots(wrows, n_slots, pub.slot);
+        if (cols) fold_columns(wrows, n_slots, pub.slot, ws_cols);
+        else fold_slots(wrows, n_slots, pub.slot);
       }
       cluster_sync(cl);
 
@@ -582,20 +590,49 @@ qos_cascade_kernel(const float* __restrict__ t_in, const int* __restrict__ bits_
         }
         int ex[kR], tot[kR];
         block_scan(cnt, n_classes + 1, 0, Add(), ex, tot, ws_i);
+        // stage the tile in shared memory grouped by run, so that each run's
+        // slice goes out as contiguous, coalesced writes
+        int toff[kR];  // the runs' offsets in the tile
+        {
+          int acc = 0;
+#pragma unroll
+          for (int j = 0; j < kR; ++j) {
+            toff[j] = acc;
+            acc += tot[j];
+          }
+        }
 #pragma unroll
         for (int j = 0; j < kItems; ++j) {
           if (rid[j] < kR) {
-            const long long i = i0 + j;
             const int r = rid[j];
-            const long long dst = pick(run_base, r) + pick(ex, r);
+            const int x = pick(toff, r) + pick(ex, r);
 #pragma unroll
             for (int jr = 0; jr < kR; ++jr) ex[jr] += r == jr;
-            cmp.t[dst] = tv[j];
-            cmp.b[dst] = bv[j];
-            cmp.i[dst] = iv[j];
-            cmp.p[dst] = static_cast<int>(i);
+            ms.t[pad(x)] = tv[j];
+            ms.b[pad(x)] = bv[j];
+            ms.i[pad(x)] = iv[j];
+            ms.p[pad(x)] = static_cast<int>(i0 + j);
           }
         }
+        __syncthreads();
+        const int len = static_cast<int>(min(static_cast<long long>(kTile), hi - tb));
+#pragma unroll
+        for (int q = 0; q < kItems; ++q) {
+          const int x = threadIdx.x + q * kThreads;
+          if (x < len) {
+            int r = 0;
+#pragma unroll
+            for (int jr = 1; jr < kR; ++jr) {
+              if (x >= toff[jr] && tot[jr] > 0) r = jr;
+            }
+            const long long dst = pick(run_base, r) + (x - pick(toff, r));
+            cmp.t[dst] = ms.t[pad(x)];
+            cmp.b[dst] = ms.b[pad(x)];
+            cmp.i[dst] = ms.i[pad(x)];
+            cmp.p[dst] = ms.p[pad(x)];
+          }
+        }
+        __syncthreads();
 #pragma unroll
         for (int j = 0; j < kR; ++j) run_base[j] += tot[j];
       }
@@ -655,7 +692,7 @@ qos_cascade_kernel(const float* __restrict__ t_in, const int* __restrict__ bits_
 template <bool kHosts, int kC>
 size_t smem_bytes(int n_slots) {
   return 4 * kPadTile * sizeof(int) + (kThreads + 1) * sizeof(long long) +
-         kWarps * n_slots * sizeof(double);
+         (n_slots <= kPrivSlots ? kThreads : kWarps) * n_slots * sizeof(double);
 }
 
 template <bool kHosts, int kC>
