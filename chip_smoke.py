@@ -9,7 +9,8 @@ Phases (any failure exits non-zero and prints no result):
 
 1. environment: torch / CUDA versions, the card's name and power limit;
 2. build: the kernel libraries (congestion_cascade.cu: the single-host and
-   host-segmented cascades; congestion_scan.cu: the single-switch scan;
+   host-segmented cascades; congestion_scan.cu: the single-switch scan, a
+   single pass with decoupled look-back;
    qos_cascade.cu: the single-host and host-segmented QoS cascades; the
    two cascades a thread-block cluster of CTAs per epoch row, and the
    count of atomic and f64-add instructions in their SASS printed;
@@ -38,8 +39,14 @@ Phases (any failure exits non-zero and prints no result):
      the fabric round's own batch: as above, per-host delays to rtol 1e-5,
      their sum over hosts equal to the single-host kernel's delays to rtol
      1e-6, and the same merge flags as the single-host kernel's;
-   - the scan at [32, 131072] with a random mask and on one stage of the
-     wide fabric's batch: start and delay to rtol 1e-6;
+   - the scan at [32, 131072] with a random mask, in one row of 2**20
+     events, at [256, 4096], tie-heavy at [32, 131072] with every event
+     masked, at [32, 131072] with none masked, at a ragged [8, 131071]
+     (rows that start misaligned) and at [3, 1], and on one stage of the
+     wide fabric's batch: start and delay bitwise equal (and to rtol
+     1e-6), timed on the card (calls back to back) and around one call,
+     with GB/s and the share of the bound printed; the wide batch also 50
+     times back to back, each result equal to the first;
    - the QoS cascade at [4, 3000] on a 3-switch QoS chain (3 classes,
      weights 4:2:1) with disciplines (wfq, priority, fifo), and at
      [32, 131072] on the same chain with (wfq, wfq, wfq), which elides
@@ -76,7 +83,7 @@ Phases (any failure exits non-zero and prints no result):
    33 stages, over the 31-bit route word, so the analyzer runs the unfused
    per-stage loop: 2 rounds, the scan's launch count must rise by stages x
    rounds and the plain path's by 0, and the totals must match
-   ``analyze_ref``;
+   ``analyze_ref``; then a torch.profiler table of one round's batch;
 7. qos-main: phase 4 on Figure 1 re-declared with strict-priority switches
    and 2 classes (every traced event is class 0, and priority with one
    populated class is FIFO): one warm-up step, then 3 measured steps; the
@@ -501,7 +508,11 @@ def compare_hosts(name, t, bits, hosts, stts, n_hosts, reps=20):
 
 
 def compare_scan(name, t, mask, stt, reps=20):
-    """Scan kernel vs plain on the same CUDA inputs."""
+    """Scan kernel vs plain on the same CUDA inputs: start and delay
+    bitwise equal (and within rtol 1e-6).  ``ms`` is the kernel's time on
+    the card (``device_ms``: calls back to back), ``call_ms`` CUDA events
+    around one call (the host's enqueueing included, as earlier slices
+    timed the scan)."""
     sk, dk = kcong.congestion_scan(t, mask, stt)
     sp, dp = kref.congestion_scan(t, mask, stt)
     torch.cuda.synchronize()
@@ -509,14 +520,60 @@ def compare_scan(name, t, mask, stt, reps=20):
     torch.testing.assert_close(dk, dp, rtol=1e-6, atol=0.0)
     check(bool(torch.isfinite(dk).all()), f"{name}: non-finite delays")
     err = max(float((sk - sp).abs().max()), float((dk - dp).abs().max()))
-    ms = median_ms(lambda: kcong.congestion_scan(t, mask, stt), reps)
+    check(torch.equal(sk, sp) and torch.equal(dk, dp) and err == 0,
+          f"{name}: the scan differs from the plain version (max abs err {err})")
+    ms = device_ms(lambda: kcong.congestion_scan(t, mask, stt), 2 * reps)
+    call_ms = median_ms(lambda: kcong.congestion_scan(t, mask, stt), reps)
     plain_ms = median_ms(lambda: kref.congestion_scan(t, mask, stt), max(3, reps // 4))
     masked = int(mask.sum())
-    bms, by = bound_ms(SCAN_BYTES_PER_EVENT * t.numel(), OPS_PER_QUEUED_EVENT * masked)
-    row = dict(shape=list(t.shape), masked=masked, stt=stt, ms=ms, plain_ms=plain_ms,
-               bound_ms=bms, bound_by=by, max_abs_err=err, delay_ns=float(dk.sum()))
+    nbytes = SCAN_BYTES_PER_EVENT * t.numel()
+    bms, by = bound_ms(nbytes, OPS_PER_QUEUED_EVENT * masked)
+    row = dict(shape=list(t.shape), masked=masked, stt=stt, ms=ms, call_ms=call_ms,
+               plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+               gb_per_s=nbytes / (ms / MS_PER_S) / 1e9, bound_share=bms / ms,
+               max_abs_err=err, delay_ns=float(dk.sum()))
     print(f"[kernel] {name}: {json.dumps(row)}")
     return row
+
+
+def scan_kernel_phase(dev):
+    """The scan against its plain version, bitwise: a random mask at
+    [32, 131072]; one row of 2**20 events (the longest look-back chain);
+    [256, 4096] (one tile a row); tie-heavy rows with every event masked;
+    rows with none masked; a ragged row length whose rows start misaligned
+    (the kernel's scalar path); rows of one event."""
+    t, rng = synthetic_times(32, 131072, 6, dev)
+    mask = torch.from_numpy(rng.random((32, 131072)) < 0.5).to(dev)
+    rows = [compare_scan("scan_random_mask", t, mask, 2.0)]
+    for name, (b, n), seed, ties, share in (
+        ("scan_one_row", (1, 1 << 20), 14, False, 0.5),
+        ("scan_many_rows", (256, 4096), 15, False, 0.5),
+        ("scan_ties_all_masked", (32, 131072), 16, True, 1.0),
+        ("scan_none_masked", (32, 131072), 17, False, 0.0),
+        ("scan_ragged", (8, 131071), 18, False, 0.5),
+        ("scan_one_event", (3, 1), 19, False, 1.0),
+    ):
+        t, rng = synthetic_times(b, n, seed, dev)
+        if ties:  # integers from a span of n/4, as fabric_inputs(ties=True)
+            t = torch.from_numpy(
+                np.sort(rng.integers(0, max(2, n // 4), (b, n)), axis=1).astype(np.float32)
+            ).to(dev)
+        mask = torch.from_numpy(rng.random((b, n)) < share).to(dev)
+        rows.append(compare_scan(name, t, mask, 2.0))
+    return rows
+
+
+def check_scan_repeats(name, t, mask, stt, reps=50):
+    """``reps`` launches back to back on one batch, each bitwise equal to
+    the first: a status word not reset or a race in the look-back would
+    show here."""
+    first = kcong.congestion_scan(t, mask, stt)
+    outs = [kcong.congestion_scan(t, mask, stt) for _ in range(reps)]
+    torch.cuda.synchronize()
+    bad = [i for i, (s, d) in enumerate(outs)
+           if not (torch.equal(s, first[0]) and torch.equal(d, first[1]))]
+    check(not bad, f"{name}: launches {bad} of {reps} differ from the first")
+    print(f"[kernel] {name}: {reps} launches back to back, each equal to the first")
 
 
 def qos_chain(disciplines) -> Topology:
@@ -828,9 +885,9 @@ def check_launches(tag, c, kernel, want, **also):
     check(not others, f"{tag}: other kernels or the plain path ran: {others}")
 
 
-def profile_batch(tag, an, traces):
+def profile_batch(tag, an, traces, rows=12):
     """Host staging on the host clock, then one analyze_batch under
-    torch.profiler."""
+    torch.profiler (the ``rows`` ops with the most device time)."""
     stager = EventStager(np.float32)
     shape = (bucket_pow2(len(traces), floor=1), bucket_pow2(max(tr.n for tr in traces)))
     stager.stage(traces, *shape)  # first call allocates the planes
@@ -843,7 +900,7 @@ def profile_batch(tag, an, traces):
         torch.cuda.synchronize()
         batch_s = time.perf_counter() - t0
     print(f"[{tag}] analyze_batch {batch_s:.6f} s under the profiler")
-    print(prof.key_averages().table(sort_by="device_time_total", row_limit=12))
+    print(prof.key_averages().table(sort_by="device_time_total", row_limit=rows))
 
 
 def main_step(dev):
@@ -1007,8 +1064,12 @@ def wide_fabric_path(dev):
     s0 = int(flat.stage_order()[0])
     routed = torch.from_numpy(flat.route[:, s0] > 0).to(dev)
     mask = (routed[b["vp"]] & b["valid"]).contiguous()
-    row = compare_scan(f"wide_stage_{flat.switch_names[s0]}", b["t"], mask,
-                       float(np.float32(flat.switch_stt_ns[s0])))
+    stt = float(np.float32(flat.switch_stt_ns[s0]))
+    name = f"wide_stage_{flat.switch_names[s0]}"
+    row = compare_scan(name, b["t"], mask, stt)
+    check_scan_repeats(name, b["t"], mask, stt)
+    del b, routed, mask
+    profile_batch("wide-profile", sess._analyzer, merged, rows=20)
     return row, c["scan"]
 
 
@@ -1724,9 +1785,7 @@ def main(argv) -> int:
     ):
         t, bits, hosts, stts = fabric_inputs(flat, b, n, seed, dev, ties=ties)
         host_rows.append(compare_hosts(name, t, bits, hosts, stts, flat.n_hosts))
-    t, rng = synthetic_times(32, 131072, 6, dev)
-    mask = torch.from_numpy(rng.random((32, 131072)) < 0.5).to(dev)
-    scan_rows = [compare_scan("scan_random_mask", t, mask, 2.0)]
+    scan_rows = scan_kernel_phase(dev)
     qos_rows = qos_kernel_phase(dev)
     qos_host_rows = qos_hosts_kernel_phase(dev)
     if cascades_only:

@@ -35,7 +35,7 @@ SOURCES = {
     "ssd_scan": CSRC / "ssd_scan.cu",
     "flash_attention": CSRC / "flash_attention.cu",
 }
-HEADERS = (CSRC / "block_scan.cuh", CSRC / "cluster_cascade.cuh")
+HEADERS = (CSRC / "cluster_cascade.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

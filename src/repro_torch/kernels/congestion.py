@@ -8,16 +8,17 @@ bounds it and what the design does about that):
   (:func:`congestion_cascade`) and host-segmented
   (:func:`congestion_cascade_hosts`), one template body;
 - ``congestion_scan.cu``: one switch's masked FIFO scan
-  (:func:`congestion_scan`), the unfused per-stage loop's kernel;
+  (:func:`congestion_scan`), the unfused per-stage loop's kernel: a
+  single-pass scan over tiles of ``ref.SCAN_TILE`` events with decoupled
+  look-back;
 - ``qos_cascade.cu``: the QoS-arbitrated cascade (priority / WFQ / FIFO per
   stage), single-host (:func:`qos_congestion_cascade`) and host-segmented
   (:func:`qos_congestion_cascade_hosts`), one template body.
 
 The two cascades share ``csrc/cluster_cascade.cuh`` (a thread-block cluster
-of :func:`ctas_per_row` CTAs per epoch row), the scan includes
-``csrc/block_scan.cuh``.  :mod:`.build` compiles each library at first use
-(``build`` and ``build_all`` are re-exported here); nothing is built or
-loaded when this module is imported.
+of :func:`ctas_per_row` CTAs per epoch row).  :mod:`.build` compiles each
+library at first use (``build`` and ``build_all`` are re-exported here);
+nothing is built or loaded when this module is imported.
 
 The wrappers take CUDA tensors only; :mod:`.ops` dispatches CPU tensors to
 the plain versions (:mod:`.ref`).  ``launches``, ``hosts_launches``,
@@ -83,7 +84,7 @@ def _bind_cascade(lib: ctypes.CDLL) -> None:
 
 def _bind_scan(lib: ctypes.CDLL) -> None:
     lib.congestion_scan_launch.argtypes = [
-        _PTR, _PTR, ctypes.c_float, _PTR, _PTR, _I64, _I64, _PTR,
+        _PTR, _PTR, ctypes.c_float, _PTR, _PTR, _PTR, _I64, _I64, _I64, _PTR,
     ]
     lib.congestion_scan_launch.restype = _I32
 
@@ -230,14 +231,20 @@ def congestion_scan(
             f"{tuple(t.shape)} on {t.device}"
         )
     n_rows, n = t.shape
+    if n >= 2**31:
+        raise ValueError(f"rows of {n} events exceed the kernel's int32 counts")
     start = torch.empty_like(t)
     delay = torch.empty_like(t)
+    # the count and max status words of every tile, then the tile counter;
+    # the launch zeroes them on the stream
+    status = torch.empty(2 * n_rows * -(-n // ref.SCAN_TILE) + 1, dtype=torch.int64,
+                         device=t.device)
     lib = load("congestion_scan", _bind_scan)
     with torch.cuda.device(t.device):
         stream = torch.cuda.current_stream(t.device).cuda_stream
         rc = lib.congestion_scan_launch(
             t.data_ptr(), mask.data_ptr(), float(stt), start.data_ptr(),
-            delay.data_ptr(), n_rows, n, stream,
+            delay.data_ptr(), status.data_ptr(), status.numel(), n_rows, n, stream,
         )
     raise_on(rc, "congestion_scan", lib, "congestion_scan")
     scan_launches += 1

@@ -7,7 +7,9 @@ full-matrix GQA attention with the split-KV form of the decode kernel.
 Beside the two cascades stand their partitioned mirrors
 (:func:`serial_queue_cascade_partitioned`, :func:`qos_cascade_partitioned`):
 the same results, computed the way the cascade kernels split a row between
-the CTAs of a cluster, for the tests and ``chip_smoke.py``.
+the CTAs of a cluster, for the tests and ``chip_smoke.py``; beside the
+single-switch scan stands :func:`congestion_scan_tiled`, the scan computed
+tile by tile with the scan kernel's look-back.
 
 They define what the CUDA kernels (:mod:`repro_torch.kernels.congestion`,
 :mod:`repro_torch.kernels.ssd_scan`, :mod:`repro_torch.kernels.flash_attention`)
@@ -35,7 +37,9 @@ __all__ = [
     "MERGE_NONE",
     "MERGE_RAN",
     "MERGE_SKIPPED",
+    "SCAN_TILE",
     "congestion_scan",
+    "congestion_scan_tiled",
     "merge_sorted_runs",
     "mha_attention",
     "qos_cascade_dyn",
@@ -90,6 +94,69 @@ def congestion_scan(
     ``ops.congestion_queue``)."""
     start = serial_queue(t_sorted, mask, stt)
     return start, torch.where(mask, start - t_sorted, 0.0)
+
+
+SCAN_TILE = 8192  # events a CTA of the scan kernel takes (kTile of congestion_scan.cu)
+
+
+def _look_back(agg, op, reduce, identity, generator):
+    """Each tile's prefix over the tiles before it (``[..., nt]`` per-tile
+    aggregates in, exclusive prefixes out), found as the scan kernel's
+    look-back finds it.  Tile ``j`` walks back over its predecessors'
+    aggregates until it reaches one whose inclusive prefix is already
+    published, takes that and stops; tile 0's inclusive prefix is its
+    aggregate.  With a ``generator`` the stopping predecessor is drawn at
+    random for each tile (any order in which the tiles publish); without
+    one the walk reads aggregates back to tile 0."""
+    nt = agg.shape[-1]
+    excl = [torch.full_like(agg[..., 0], identity)]
+    incl = [agg[..., 0]]
+    for j in range(1, nt):
+        stop = 0 if generator is None else int(torch.randint(j, (1,), generator=generator))
+        acc = incl[stop]
+        if stop + 1 < j:
+            acc = op(acc, reduce(agg[..., stop + 1:j]))
+        excl.append(acc)
+        incl.append(op(acc, agg[..., j]))
+    return torch.stack(excl, -1)
+
+
+def congestion_scan_tiled(
+    t_sorted: torch.Tensor,
+    mask: torch.Tensor,
+    stt,
+    tile: int = SCAN_TILE,
+    generator: Optional[torch.Generator] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`congestion_scan` computed as the scan kernel
+    (``csrc/congestion_scan.cu``) computes it: each row cut into tiles of
+    ``tile`` events; each tile's masked count, then its count prefix by
+    look-back (:func:`_look_back`); the global ranks, ``g = t - stt*rank``,
+    each tile's max of ``g``, then its max prefix by look-back; then
+    ``start`` and ``delay``.  Integer sums and f32 maxima are exact in any
+    grouping, so the result is :func:`congestion_scan`'s bit for bit, for
+    every tile and every look-back schedule (``generator``)."""
+    n = t_sorted.shape[-1]
+    nt = -(-n // tile)
+    lead = t_sorted.shape[:-1]
+    pad = nt * tile - n
+    t = torch.cat([t_sorted, t_sorted.new_zeros(lead + (pad,))], -1).reshape(lead + (nt, tile))
+    m = torch.cat([mask, mask.new_zeros(lead + (pad,))], -1).reshape(lead + (nt, tile))
+    mi = m.to(torch.int32)
+    # 1. count: each tile's rank base
+    base_c = _look_back(mi.sum(-1, dtype=torch.int32), torch.add,
+                        lambda w: w.sum(-1, dtype=torch.int32), 0, generator)
+    rank = base_c[..., None] + torch.cumsum(mi, -1, dtype=torch.int32) - mi
+    p = torch.as_tensor(stt, dtype=t.dtype, device=t.device) * rank.to(t.dtype)
+    # 2. max: each tile's max of g over the row before it
+    g = torch.where(m, t - p, float("-inf"))
+    base_g = _look_back(g.amax(-1), torch.maximum, lambda w: w.amax(-1), float("-inf"),
+                        generator)
+    f = torch.maximum(torch.cummax(g, -1).values, base_g[..., None])
+    start = torch.where(m, f + p, t)
+    delay = torch.where(m, start - t, 0.0)
+    return (start.reshape(lead + (nt * tile,))[..., :n],
+            delay.reshape(lead + (nt * tile,))[..., :n])
 
 
 def _scatter_drop(

@@ -1,5 +1,5 @@
-"""The port stands alone: no file of ``src/repro_torch`` (nor the chip smoke
-script) imports JAX or the JAX package, CPU tensors take the plain path
+"""The port stands alone: no file of ``src/repro_torch`` (nor the chip
+scripts) imports JAX or the JAX package, CPU tensors take the plain path
 without touching the kernel, entry points default to the card and raise
 without one, and the chip smoke script refuses to report without a card."""
 
@@ -28,7 +28,7 @@ OK_LINE = '"ok": true'
 
 def _port_files():
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
-    return files + [REPO / "chip_smoke.py"]
+    return files + [REPO / "chip_smoke.py", REPO / "chip_scan_variants.py"]
 
 
 def _imported_roots(path):
