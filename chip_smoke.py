@@ -151,7 +151,39 @@ Phases (any failure exits non-zero and prints no result):
    warm-up step, 3 measured: one cascade per step, totals against
    ``analyze_ref``) and the decode step from the prefill's caches (one
    warm-up, 8 measured); then a torch.profiler table of one prefill;
-11. a JSON ``kernels`` line, then the card's nvidia-smi line, then the result
+11. migration and the device cache at qwen3-0.6b's widths: phase 4's
+   program with software migration (1 MiB pages, promote at a hotness of
+   1024 weighted events, demote below 1, an 8 GiB local budget, cold
+   local-born regions to cxl_pool2) and a 1 GiB expander cache (4 KiB
+   lines), one warm-up step and 3 measured: one cascade launch a step, at
+   least one promotion and one demotion, the analyzer's seconds and the
+   host seconds of the pre-analysis (re-synthesis, migration, the cache's
+   tag update) per step, and the totals against ``analyze_ref`` on the
+   measured steps' own epochs and scale rows; then phase 4's program
+   without either, with the cache alone, with a zero-capacity cache and
+   with migration mode "off" (1 + 3 steps each): congestion, and but for
+   the cache alone latency, bitwise equal to phase 4's report, bandwidth
+   to rel 1e-6 (f32 atomics; the largest difference printed), and every
+   cascade call's slot indices bitwise equal to the run without either;
+12. fabric8 with migration (the same daemon, cold regions to shared_pool)
+   on one local budget shared by the 8 tenants and the 1 GiB cache warmed
+   by the merged stream: one warm-up round and 2 measured, one
+   host-segmented launch a round (the round replay is off), the pre-analysis
+   split as in phase 11, and the last round's totals and per-host latency
+   and congestion against ``analyze_ref`` on its own merged epochs and
+   scale rows;
+13. the model zoo: each of the ten archs' published memory program
+   (``get_config``; decode at batch 8 and 4096 tokens, prefill for
+   hubert-xlarge; bf16 weights in cxl_pool1) on Figure 1 with every CXL
+   pool raised to 1 TiB, attached to phase 4's stand-in step in layer
+   epochs, 1 + 1 steps: one cascade launch a step, the three totals against
+   ``analyze_ref``; an arch whose layer epochs reach 2**23 ns (where the
+   f32 epoch-relative times the analyzer shares with the reference lose
+   their sub-ns resolution) holds latency and bandwidth to ``analyze_ref``,
+   congestion to the plain version on the same epochs, and then runs in
+   quantum epochs of 2**22 ns with all three totals against
+   ``analyze_ref``;
+14. a JSON ``kernels`` line, then the card's nvidia-smi line, then the result
    line ``{"ok": true, "device": {...}}``.
 
 The earlier phases (4-6) must show no QoS launch, no phase before 9 an SSD
@@ -167,6 +199,7 @@ import shutil
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -176,6 +209,7 @@ from torch.profiler import ProfilerActivity, profile
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch.configs import ARCH_IDS, get_config  # noqa: E402
 from repro_torch.configs.mamba2_2_7b import CONFIG as M2_CONFIG  # noqa: E402
 from repro_torch.configs.qwen3_0_6b import CONFIG  # noqa: E402
 from repro_torch.core import (  # noqa: E402
@@ -183,9 +217,13 @@ from repro_torch.core import (  # noqa: E402
     ClassMapPolicy,
     CoherencyConfig,
     CXLMemSim,
+    DeviceCacheConfig,
+    EpochAnalyzer,
     EpochSchedule,
     EventStager,
     FabricSession,
+    MigrationConfig,
+    MigrationSimulator,
     Pool,
     Switch,
     Tenant,
@@ -234,6 +272,31 @@ FABRIC_POLICY = {"kvcache": "shared_pool"}
 QOS_WEIGHTS = (4.0, 2.0, 1.0)
 # the QoS fabric: tenants 0-1 latency-critical (class 0), 2-7 batch (class 1)
 FABRIC_CLASSES = (0, 0, 1, 1, 1, 1, 1, 1)
+# phase 11: a software tiering daemon (1 MiB pages) and a 1 GiB expander
+# cache.  Layer epochs touch one layer's regions each, so a region is hot in
+# its epoch (an access is up to max_events_per_access events; the hotness is
+# an EWMA of the weighted counts) and cold some epochs later: promote at a
+# hotness of 1024, demote below 1, within an 8 GiB local budget, below the
+# program's 24 GiB of local-born bytes, so promotions wait for demotions
+MAIN_MIGRATION = MigrationConfig(
+    mode="software", promote_threshold=1024.0, demote_threshold=1.0,
+    local_budget_bytes=8 << 30, granularity_bytes=1 << 20, demote_pool="cxl_pool2",
+)
+# phase 12: the same daemon for every tenant, on one shared 8 GiB budget
+FABRIC_MIGRATION = dataclasses.replace(MAIN_MIGRATION, demote_pool="shared_pool")
+CACHE = DeviceCacheConfig(capacity_bytes=1 << 30, line_bytes=4096)
+DELAY_KEYS = ("latency_s", "congestion_s", "bandwidth_s", "per_pool_latency_ns",
+              "per_switch_congestion_ns", "per_switch_bandwidth_ns")
+# phase 13: every arch's bf16 weights in the CXL pool behind switch0, on
+# Figure 1 with 1 TiB CXL pools (llama4-maverick's weights are 739 GiB)
+ZOO_POLICY = {"param": "cxl_pool1"}
+ZOO_POOL_BYTES = 1 << 40
+# epoch-relative times are f32 in the analyzer: from 2**23 ns on their ulp
+# is 1 ns, and the closed-form queue scan rounds a start past its arrival
+# (both packages; ROADMAP.md queue 3).  An arch whose layer epochs reach it
+# is also run in quantum epochs of 2**22 ns, the Timer's cut
+F32_EXACT_NS = float(2**23)
+ZOO_QUANTUM_NS = float(2**22)
 # Mamba2 serving: mamba2-2.7b at its published widths, 8 requests of 4096 tokens
 SSD_CASES = [  # tests/test_kernels.py's cases: B, L, H, P, N, chunk
     (2, 256, 4, 32, 16, 64),
@@ -802,23 +865,25 @@ def staged_batch(traces, flat, dev):
     return out
 
 
-def oracle(flat, traces, n_windows=128, bw_window_ns=10_000.0):
+def oracle(flat, traces, n_windows=128, bw_window_ns=10_000.0, scales=None):
     """analyze_ref (f64) over the epochs, each with the analyzer's
-    effective span-scaled window; summed totals and per-host arrays."""
+    effective span-scaled window and its latency-scale row (``scales``,
+    None entries or None: unscaled); summed totals and per-host arrays."""
     tot = None
-    for tr in traces:
+    for i, tr in enumerate(traces):
         span = max(float(tr.t_ns.max()) + 1.0, bw_window_ns)
         bd = analyze_ref(flat, tr, bw_window_ns=max(span / n_windows, 1.0),
-                         n_windows=n_windows)
+                         n_windows=n_windows, lat_scale=None if scales is None else scales[i])
         tot = bd if tot is None else tot + bd
     return tot
 
 
-def check_totals(tag, got, want, steps):
+def check_totals(tag, got, want, steps, keys=("latency_s", "congestion_s", "bandwidth_s")):
     """Report totals (s) against the oracle's per-step totals (ns) times
     the steps, at the fused cascade's bar."""
     tol = {"latency_s": (1e-4, 1e-3), "congestion_s": (1e-3, 1e-2),
            "bandwidth_s": (1e-2, 1.0)}
+    tol = {k: tol[k] for k in keys}
     ref = {"latency_s": want.latency_ns, "congestion_s": want.congestion_ns,
            "bandwidth_s": want.bandwidth_ns}
     for k, (rel, absol) in tol.items():
@@ -830,9 +895,11 @@ def check_totals(tag, got, want, steps):
               f"rel err {abs(g - w) / max(abs(w), 1e-30):.3e}")
 
 
-def fabric_session(n_hosts, load, events_per_access, dev, classes=None, **topo_kw):
+def fabric_session(n_hosts, load, events_per_access, dev, classes=None, migration=None,
+                   cache=None, **topo_kw):
     """n_hosts trace-only qwen3-0.6b tenants pooling their KV caches, tenant
-    h in QoS class ``classes[h]`` (0 without ``classes``)."""
+    h in QoS class ``classes[h]`` (0 without ``classes``), with
+    ``migration`` and ``cache`` given to the session."""
     tenants = []
     for h in range(n_hosts):
         regions, phases = build_regions_and_phases(CONFIG, **load)
@@ -841,23 +908,28 @@ def fabric_session(n_hosts, load, events_per_access, dev, classes=None, **topo_k
     return FabricSession(
         pooled_topology(n_hosts=n_hosts, **topo_kw), tenants, epoch=EpochSchedule("layer"),
         hw=H100_SXM, coherency=CoherencyConfig(shared_classes=("kvcache",)),
-        max_events_per_access=events_per_access, device=dev,
+        max_events_per_access=events_per_access, device=dev, migration=migration, cache=cache,
     )
 
 
-def timed_merges(sess):
-    """Record the host seconds of each of the session's merged rounds."""
-    inner = sess._merged_round
-    seconds = []
+class Timed:
+    """Wrap ``fn`` and record the host seconds of each call; with ``keep``
+    also keep each call's result."""
 
-    def merged_round():
+    def __init__(self, fn, keep=False):
+        self.fn, self.keep, self.calls, self.out = fn, keep, [], []
+
+    @property
+    def seconds(self) -> float:
+        return float(sum(self.calls))
+
+    def __call__(self, *args, **kwargs):
         t0 = time.perf_counter()
-        out = inner()
-        seconds.append(time.perf_counter() - t0)
+        out = self.fn(*args, **kwargs)
+        self.calls.append(time.perf_counter() - t0)
+        if self.keep:
+            self.out.append(out)
         return out
-
-    sess._merged_round = merged_round
-    return seconds
 
 
 def reset_counts():
@@ -978,7 +1050,7 @@ def fabric_main_path(dev):
     """Phase 5: the 8-tenant KV-pooling fabric through FabricSession."""
     t0 = time.perf_counter()
     sess = fabric_session(FABRIC_HOSTS, FABRIC_LOAD, FABRIC_EVENTS_PER_ACCESS, "cuda")
-    merge_s = timed_merges(sess)
+    merge_s = sess._merged_round = Timed(sess._merged_round)
     check(sess._analyzer.fused, "the 8-host fabric must run the fused cascade")
     print(f"[fabric] {sess.flat.n_switches} stages "
           f"({', '.join(sess.flat.switch_names)}), session set-up "
@@ -991,7 +1063,7 @@ def fabric_main_path(dev):
     n_max = max(tr.n for tr in merged)
     print(f"[fabric] {len(merged)} merged epochs, up to {n_max} events, "
           f"{sum(tr.n for tr in merged)} events per round; warm-up round {warm_s:.3f} s "
-          f"(merge {merge_s[0]:.3f} s, analyzer {warm_analyzer_s:.6f} s)")
+          f"(merge {merge_s.calls[0]:.3f} s, analyzer {warm_analyzer_s:.6f} s)")
 
     reset_counts()
     rep = sess.run(3)
@@ -1022,7 +1094,7 @@ def fabric_main_path(dev):
     print(f"[fabric] summary {json.dumps(rep.summary())}")
     print(f"[fabric] analyzer {(rep.analyzer_s - warm_analyzer_s) / 3:.6f} s/round over "
           f"the 3 measured rounds; merge (replayed) "
-          f"{float(np.mean(merge_s[1:])):.6f} s/round")
+          f"{float(np.mean(merge_s.calls[1:])):.6f} s/round")
 
     b = staged_batch(merged, flat, dev)
     row = compare_hosts("fabric_batch", b["t"], b["bits"], b["hosts"], b["stts"],
@@ -1035,7 +1107,7 @@ def wide_fabric_path(dev):
     """Phase 6: 32 hosts, 33 stages: the unfused per-stage loop."""
     t0 = time.perf_counter()
     sess = fabric_session(WIDE_HOSTS, WIDE_LOAD, WIDE_EVENTS_PER_ACCESS, "cuda")
-    merge_s = timed_merges(sess)
+    merge_s = sess._merged_round = Timed(sess._merged_round)
     check(not sess._analyzer.fused, "the 32-host fabric must fall back to the unfused loop")
     stages = sess.flat.n_switches
     print(f"[wide] {stages} stages, session set-up {time.perf_counter() - t0:.3f} s")
@@ -1046,7 +1118,7 @@ def wide_fabric_path(dev):
     c = counts()
     merged = sess._round_cache[0]
     print(f"[wide] {len(merged)} merged epochs, up to {max(tr.n for tr in merged)} "
-          f"events, {sum(tr.n for tr in merged)} per round; merge {merge_s[0]:.3f} s "
+          f"events, {sum(tr.n for tr in merged)} per round; merge {merge_s.calls[0]:.3f} s "
           f"(first round)")
     check_launches("wide", c, "scan", stages * 2)
     flat = sess.flat
@@ -1122,7 +1194,7 @@ def qos_fabric_session(tag, dev, fifo_rep, discipline, weights, rounds):
     sess = fabric_session(FABRIC_HOSTS, FABRIC_LOAD, FABRIC_EVENTS_PER_ACCESS, "cuda",
                           classes=FABRIC_CLASSES, discipline=discipline,
                           class_weights=weights)
-    merge_s = timed_merges(sess)
+    merge_s = sess._merged_round = Timed(sess._merged_round)
     check(sess._analyzer.fused and sess._analyzer.qos_on,
           f"{tag}: the QoS fabric must run the fused QoS cascade")
     sess.round()  # warm-up
@@ -1162,7 +1234,7 @@ def qos_fabric_session(tag, dev, fifo_rep, discipline, weights, rounds):
           f"{rep.qos_delay_shares()}")
     print(f"[{tag}] analyzer {(rep.analyzer_s - warm_analyzer_s) / rounds:.6f} s/round over "
           f"the {rounds} measured rounds; warm-up round {warm_s:.3f} s (merge "
-          f"{merge_s[0]:.3f} s, analyzer {warm_analyzer_s:.6f} s)")
+          f"{merge_s.calls[0]:.3f} s, analyzer {warm_analyzer_s:.6f} s)")
     return sess, merged, c["qos_hosts"]
 
 
@@ -1180,6 +1252,337 @@ def qos_fabric_path(dev, fifo_rep):
     del sess, merged, b
     qos_fabric_session("qos-fabric-wfq", dev, fifo_rep, "wfq", (4.0, 1.0), 2)
     return row, launches
+
+
+# --------------------------------------------------------------------------- #
+# Migration, the device cache and the model zoo's memory programs
+# --------------------------------------------------------------------------- #
+
+
+def recording_cascade():
+    """Record the slot indices of every FIFO cascade the analyzer runs;
+    returns (records, restore).  The ops entry point is wrapped, so the
+    kernels' launch counts are untouched."""
+    inner = kops.congestion_cascade
+    records = []
+
+    def recorder(t, bits, stts, *args, **kwargs):
+        out = inner(t, bits, stts, *args, **kwargs)
+        records.append(out[1].clone())
+        return out
+
+    def restore():
+        kops.congestion_cascade = inner
+
+    kops.congestion_cascade = recorder
+    return records, restore
+
+
+def totals(rep):
+    """A report's delay totals and per-pool / per-switch arrays."""
+    return {k: np.array(getattr(rep, k), copy=True) for k in DELAY_KEYS}
+
+
+def delta(after, before):
+    """The three delay totals between two :func:`totals` snapshots."""
+    return types.SimpleNamespace(**{k: float(after[k]) - float(before[k])
+                                    for k in ("latency_s", "congestion_s", "bandwidth_s")})
+
+
+def check_like(tag, got, want, latency=True):
+    """Congestion (and, with ``latency``, latency), totals and arrays,
+    bitwise equal to ``want``'s; bandwidth to rel 1e-6 (its window sums are
+    f32 scatter-adds, whose atomics add in a run-dependent order on the
+    card).  Returns the bandwidth's relative difference."""
+    exact = [k for k in DELAY_KEYS if "bandwidth" not in k and (latency or "latency" not in k)]
+    for k in exact:
+        check(np.array_equal(got[k], want[k]), f"{tag}: {k} {got[k]!r} != {want[k]!r}")
+    g, w = float(got["bandwidth_s"]), float(want["bandwidth_s"])
+    rel = abs(g - w) / max(abs(w), 1e-30)
+    check(rel <= 1e-6, f"{tag}: bandwidth {g!r} s vs {w!r} s, rel {rel:.3e}")
+    np.testing.assert_allclose(got["per_switch_bandwidth_ns"], want["per_switch_bandwidth_ns"],
+                               rtol=1e-6)
+    print(f"[{tag}] {', '.join(exact)} bitwise equal; bandwidth {g!r} s against {w!r} s "
+          f"(rel {rel:.3e})")
+    return rel
+
+
+def check_slots(tag, got, want):
+    """Every cascade call's slot indices bitwise equal to ``want``'s."""
+    check(len(got) == len(want), f"{tag}: {len(got)} cascade calls, want {len(want)}")
+    for i, (a, b) in enumerate(zip(got, want)):
+        check(a.shape == b.shape and bool(torch.equal(a, b)),
+              f"{tag}: the slot indices of cascade call {i} differ")
+    print(f"[{tag}] slot indices of all {len(got)} cascade calls bitwise equal")
+
+
+def attach_migrating(step, migration=None, cache=None):
+    """Phase 4's program and placement with ``migration`` (a MigrationConfig:
+    a MigrationSimulator over the placed regions, whose homes are then the
+    policy's) and ``cache``, its pre-analysis stages timed and each analyzed
+    batch (epochs and scale rows) kept."""
+    regions, phases = build_regions_and_phases(CONFIG, "train", batch=8, seq=4096)
+    topology = figure1_topology()
+    sim_kw = {}
+    if migration is not None:
+        flat = topology.flatten()
+        ClassMapPolicy(POLICY).place(regions, flat)
+        sim_kw["migration"] = MigrationSimulator(migration, regions, flat)
+    sim = CXLMemSim(
+        topology, ClassMapPolicy(POLICY), epoch=EpochSchedule("layer"), hw=H100_SXM,
+        max_events_per_access=1024, check_capacity=False, device="cuda", cache=cache, **sim_kw,
+    )
+    prog = sim.attach(step, phases, regions)
+    timers = {"pre": Timed(prog._epoch_batch), "synthesis": Timed(prog._traces)}
+    prog._epoch_batch, prog._traces = timers["pre"], timers["synthesis"]
+    if migration is not None:
+        m = prog.sim.migration
+        timers["migration"] = m.observe_and_migrate = Timed(m.observe_and_migrate)
+    if prog._cache is not None:
+        timers["cache"] = prog._cache.observe_scale = Timed(prog._cache.observe_scale)
+    batches = []
+    analyze = prog._analyzer.analyze_batch
+
+    def kept(traces, lat_scales=None):
+        batches.append((list(traces), lat_scales))
+        return analyze(traces, lat_scales)
+
+    prog._analyzer.analyze_batch = kept
+    return prog, timers, batches
+
+
+def run_migrating(tag, step, x, steps=3, **kw):
+    """One warm-up step and ``steps`` measured of :func:`attach_migrating`,
+    every cascade call's slot indices recorded."""
+    prog, timers, batches = attach_migrating(step, **kw)
+    records, restore = recording_cascade()
+    try:
+        prog.step(x)
+        warm = {k: t.seconds for k, t in timers.items()}
+        warm_rep = totals(prog.report)
+        warm_an, warm_native = prog.report.analyzer_s, prog.report.native_s
+        reset_counts()
+        prog.run(steps, x)
+        c = counts()
+    finally:
+        restore()
+    check_launches(tag, c, "cascade", steps)
+    rep = prog.report
+    per_step = {k: (t.seconds - warm[k]) / steps for k, t in timers.items()}
+    parts = ", ".join(f"{k} {v:.6f}" for k, v in per_step.items() if k != "pre")
+    print(f"[{tag}] analyzer {(rep.analyzer_s - warm_an) / steps:.6f} s/step, native "
+          f"{(rep.native_s - warm_native) / steps:.6f} s/step, pre-analysis "
+          f"{per_step['pre']:.6f} s/step on the host ({parts}) over the {steps} measured "
+          f"steps; warm-up step analyzer {warm_an:.6f} s, pre-analysis {warm['pre']:.6f} s; "
+          f"bandwidth {rep.bandwidth_s!r} s")
+    return prog, c["cascade"], records, batches, warm_rep
+
+
+def migration_cache_path(step, x, main_rep):
+    """Phase 11: phase 4's program with software migration and a 1 GiB
+    device cache against the oracle; then phase 4's program without them,
+    with the cache alone, with a zero-capacity cache and with migration
+    'off', each against phase 4's report, cascade call by cascade call."""
+    prog, launches, _, batches, warm_rep = run_migrating(
+        "migration", step, x, migration=MAIN_MIGRATION, cache=CACHE)
+    m, rep = prog.sim.migration, prog.report
+    check(m.promotions >= 1 and m.demotions >= 1,
+          f"migration: {m.promotions} promotions, {m.demotions} demotions in 4 steps")
+    check(0.0 < rep.cache_hit_fraction <= 1.0, f"hit fraction {rep.cache_hit_fraction}")
+    measured = batches[1:]
+    check(any(sc is not None and (sc < 1).any() for _, scs in measured for sc in scs),
+          "the cache never scaled an epoch's latency")
+    # the oracle on the 3 measured steps' own epochs and scale rows
+    t0 = time.perf_counter()
+    want = None
+    for traces, scales in measured:
+        bd = oracle(prog.sim.flat, traces, scales=scales)
+        want = bd if want is None else want + bd
+    check_totals("migration", delta(totals(rep), warm_rep), want, 1)
+    last = measured[-1][0]
+    print(f"[migration] moved {rep.migration_moved_bytes!r} bytes, promotions {m.promotions}, "
+          f"demotions {m.demotions}, hit fraction {rep.cache_hit_fraction!r} over 4 steps; "
+          f"{len(last)} epochs, up to {max(tr.n for tr in last)} events, "
+          f"{sum(tr.n for tr in last)} in the last step (analyze_ref "
+          f"{time.perf_counter() - t0:.1f} s)")
+    print(f"[migration] summary {json.dumps(rep.summary())}")
+
+    # the scale rows move latency only: with no cache, the cache alone, a
+    # zero-capacity cache or migration off, congestion and every slot index
+    # are phase 4's program's, and but for the cache alone, latency too
+    phase4 = totals(main_rep)
+    spread = []
+    prog0, n, slots0, _, _ = run_migrating("no-cache", step, x)
+    launches += n
+    spread.append(check_like("no-cache vs phase 4", totals(prog0.report), phase4))
+    for tag, kw in (("cache-only", dict(cache=CACHE)),
+                    ("cache0", dict(cache=dataclasses.replace(CACHE, capacity_bytes=0))),
+                    ("migration-off",
+                     dict(migration=dataclasses.replace(MAIN_MIGRATION, mode="off")))):
+        p, n, slots, _, _ = run_migrating(tag, step, x, **kw)
+        launches += n
+        got = totals(p.report)
+        cached = tag == "cache-only"
+        spread.append(check_like(f"{tag} vs phase 4", got, phase4, latency=not cached))
+        check_slots(f"{tag} vs no-cache", slots, slots0)
+        if cached:
+            check(0.0 < p.report.cache_hit_fraction and got["latency_s"] < phase4["latency_s"],
+                  f"cache-only: hit fraction {p.report.cache_hit_fraction}, latency "
+                  f"{got['latency_s']} s against {phase4['latency_s']} s")
+        elif tag == "cache0":
+            check(p.report.cache_hit_fraction == 0.0, "a zero-capacity cache hit")
+        print(f"[{tag}] latency {float(got['latency_s'])!r} s (phase 4: "
+              f"{float(phase4['latency_s'])!r} s), hit fraction {p.report.cache_hit_fraction!r}")
+    print(f"[migration] bandwidth across the five runs of phase 4's program: largest "
+          f"relative difference from phase 4's {max(spread):.3e}")
+    return launches
+
+
+def fabric_migration_path():
+    """Phase 12: fabric8 with migration on one shared local budget and the
+    1 GiB cache, warmed by the merged stream: 1 + 2 rounds (no replay)."""
+    t0 = time.perf_counter()
+    sess = fabric_session(FABRIC_HOSTS, FABRIC_LOAD, FABRIC_EVENTS_PER_ACCESS, "cuda",
+                          migration=FABRIC_MIGRATION, cache=CACHE)
+    check(len({id(s._budget) for s in sess._migration}) == 1,
+          "the tenants' local budgets differ")
+    timers = {
+        "pre": Timed(sess._merged_round, keep=True),
+        "synthesis": Timed(sess._tenant_epochs),
+        "cache": Timed(sess._cache.observe_scale),
+    }
+    sess._merged_round, sess._tenant_epochs = timers["pre"], timers["synthesis"]
+    sess._cache.observe_scale = timers["cache"]
+    mig = [Timed(s.observe_and_migrate) for s in sess._migration]
+    for s, t in zip(sess._migration, mig):
+        s.observe_and_migrate = t
+    sess.round()  # warm-up
+    warm_s, warm_an = time.perf_counter() - t0, sess.report.analyzer_s
+    print(f"[fabric-migration] set-up and warm-up round {warm_s:.3f} s (pre-analysis "
+          f"{timers['pre'].seconds:.3f} s, analyzer {warm_an:.6f} s)")
+    warm = {k: t.seconds for k, t in timers.items()}
+    warm_mig = sum(t.seconds for t in mig)
+    reset_counts()
+    sess.round()
+    snap = totals(sess.report)
+    hosts0 = [(h.latency_s, h.congestion_s) for h in sess.report.hosts]
+    sess.round()
+    c = counts()
+    check_launches("fabric-migration", c, "hosts", 2)
+    check(sess._round_cache is None, "the round replay must stay off")
+    rep = sess.report
+    n = 2
+    per = {k: (t.seconds - warm[k]) / n for k, t in timers.items()}
+    per["migration"] = (sum(t.seconds for t in mig) - warm_mig) / n
+    merged, _, scales = timers["pre"].out[-1]
+    print(f"[fabric-migration] analyzer {(rep.analyzer_s - warm_an) / n:.6f} s/round, "
+          f"pre-analysis {per['pre']:.6f} s/round on the host (synthesis "
+          f"{per['synthesis']:.6f}, migration {per['migration']:.6f}, cache "
+          f"{per['cache']:.6f}, the rest coherency and the merge) over the {n} measured "
+          f"rounds; {len(merged)} merged epochs, up to {max(tr.n for tr in merged)} events, "
+          f"{sum(tr.n for tr in merged)} in the last")
+    # the oracle on the last round's own merged epochs and scale rows
+    t0 = time.perf_counter()
+    ref = oracle(sess.flat, merged, scales=scales)
+    check_totals("fabric-migration", delta(totals(rep), snap), ref, 1)
+    lat_h = np.array([s_to_ns(h.latency_s - h0[0]) for h, h0 in zip(rep.hosts, hosts0)])
+    cong_h = np.array([s_to_ns(h.congestion_s - h0[1]) for h, h0 in zip(rep.hosts, hosts0)])
+    np.testing.assert_allclose(lat_h, ref.per_host_latency_ns, rtol=1e-4)
+    np.testing.assert_allclose(cong_h, ref.per_host_congestion_ns, rtol=5e-3)
+    promos = sum(s.promotions for s in sess._migration)
+    demos = sum(s.demotions for s in sess._migration)
+    check(promos >= 1 and demos >= 1, f"fabric migration: {promos} promotions, {demos} demotions")
+    check(0.0 < rep.cache_hit_fraction <= 1.0, f"hit fraction {rep.cache_hit_fraction}")
+    print(f"[fabric-migration] last round per-host latency ns {lat_h.tolist()}, congestion ns "
+          f"{cong_h.tolist()}, analyze_ref {ref.per_host_congestion_ns.tolist()} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    print(f"[fabric-migration] moved {rep.migration_moved_bytes!r} bytes, promotions {promos}, "
+          f"demotions {demos}, hit fraction {rep.cache_hit_fraction!r} over 3 rounds")
+    print(f"[fabric-migration] summary {json.dumps(rep.summary())}")
+    return c["hosts"]
+
+
+def zoo_topology() -> Topology:
+    """Figure 1 with every CXL pool's capacity raised to 1 TiB (latencies,
+    bandwidths and switches as they are), so that the largest model's
+    weights fit one pool."""
+    fig = figure1_topology()
+    pools = [p if p.is_local else dataclasses.replace(p, capacity_bytes=ZOO_POOL_BYTES)
+             for p in fig.pools]
+    return Topology(pools, fig.switches, fig.rc_latency_ns, fig.rc_bandwidth_gbps,
+                    fig.rc_stt_ns, fig.local_dram_latency_ns)
+
+
+def zoo_step(tag, cfg, kind, topology, epoch, step, x):
+    """One arch's program attached to ``step``: 1 + 1 steps, one cascade
+    launch in the measured step; returns (program, its epochs, the measured
+    step's totals, launches)."""
+    regions, phases = build_regions_and_phases(cfg, kind, batch=8, seq=4096,
+                                               param_dtype_bytes=2)
+    sim = CXLMemSim(topology, ClassMapPolicy(ZOO_POLICY), epoch=epoch, hw=H100_SXM,
+                    max_events_per_access=1024, device="cuda")
+    prog = sim.attach(step, phases, regions)
+    traces = prog.epoch_traces()
+    prog.step(x)  # warm-up
+    warm, warm_an = totals(prog.report), prog.report.analyzer_s
+    reset_counts()
+    prog.step(x)
+    c = counts()
+    check_launches(tag, c, "cascade", 1)
+    got = delta(totals(prog.report), warm)
+    got.analyzer_s = prog.report.analyzer_s - warm_an
+    return prog, traces, got, c["cascade"]
+
+
+def model_zoo_path(step, x):
+    """Phase 13: each arch's published memory program (decode at 8 x 4096
+    tokens, prefill for the encoder-only arch; bf16 weights in cxl_pool1)
+    attached to phase 4's stand-in step in layer epochs: 1 + 1 steps each,
+    one cascade a step, totals against the oracle.  Layer epochs that reach
+    2**23 ns hold latency and bandwidth to the oracle and congestion to the
+    plain version on the same epochs (the f32 arithmetic both packages
+    share), and the program runs again in quantum epochs of 2**22 ns."""
+    topology = zoo_topology()
+    launches = 0
+    for arch in ARCH_IDS:
+        cfg = get_config(arch)
+        kind = "prefill" if cfg.family == "audio" else "decode"
+        tag = f"zoo {arch}"
+        prog, traces, got, n = zoo_step(tag, cfg, kind, topology, EpochSchedule("layer"),
+                                        step, x)
+        launches += n
+        flat = prog.sim.flat
+        ref = oracle(flat, traces)
+        span_ns = max(float(tr.t_ns.max()) for tr in traces)
+        if span_ns < F32_EXACT_NS:
+            check_totals(tag, got, ref, 1)
+        else:
+            check_totals(tag, got, ref, 1, keys=("latency_s", "bandwidth_s"))
+            plain = EpochAnalyzer(flat, device="cpu").analyze_batch(traces)
+            g_ns = s_to_ns(got.congestion_s)
+            check(abs(g_ns - plain.congestion_ns) <= 1e-5 * abs(plain.congestion_ns),
+                  f"{tag}: congestion {g_ns} ns vs the plain version's {plain.congestion_ns} ns")
+            print(f"[{tag}] layer epochs up to {span_ns!r} ns, past 2**23: congestion "
+                  f"{g_ns!r} ns on the card, {plain.congestion_ns!r} ns by the plain version, "
+                  f"analyze_ref {ref.congestion_ns!r} ns (f32 epoch-relative times)")
+            qprog, qtraces, qgot, n = zoo_step(
+                f"{tag} quantum", cfg, kind, topology,
+                EpochSchedule("quantum", quantum_ns=ZOO_QUANTUM_NS), step, x)
+            launches += n
+            check_totals(f"{tag} quantum", qgot, oracle(qprog.sim.flat, qtraces), 1)
+            print(f"[{tag} quantum] {len(qtraces)} epochs of 2**22 ns, up to "
+                  f"{max(tr.n for tr in qtraces)} events; analyzer {qgot.analyzer_s:.6f} s/step; "
+                  f"latency {qgot.latency_s!r} s, congestion {qgot.congestion_s!r} s, "
+                  f"bandwidth {qgot.bandwidth_s!r} s")
+        pc = cfg.param_counts()
+        weights = sum(r.nbytes for r in prog.regions if r.tensor_class == "param")
+        print(f"[zoo] {arch} ({cfg.family}, {kind}): total {pc['total']!r} active "
+              f"{pc['active']!r} parameters, {weights!r} weight bytes in "
+              f"{ZOO_POLICY['param']}; {len(traces)} epochs, up to "
+              f"{max(tr.n for tr in traces)} events, {sum(tr.n for tr in traces)} per step; "
+              f"analyzer {got.analyzer_s:.6f} s/step; latency {got.latency_s!r} s, "
+              f"congestion {got.congestion_s!r} s, bandwidth {got.bandwidth_s!r} s")
+    return launches
 
 
 # --------------------------------------------------------------------------- #
@@ -1793,7 +2196,7 @@ def main(argv) -> int:
         print(f"[done] chip_smoke --cascades ran {time.perf_counter() - t_start:.1f} s")
         return 0
 
-    # -- 4-10. the main paths ----------------------------------------------- #
+    # -- 4-13. the main paths ----------------------------------------------- #
     step, x = main_step(dev)
     main_row, cascade_launches, main_rep = slice1_main_path(dev, step, x)
     fabric_row, hosts_launches, fabric_rep = fabric_main_path(dev)
@@ -1807,8 +2210,12 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     flash_rows, flash_row = flash_kernel_phase(dev)
     model_rows, flash_launches = qwen3_serving_path(dev)
+    torch.cuda.empty_cache()
+    cascade_launches += migration_cache_path(step, x, main_rep)
+    hosts_launches += fabric_migration_path()
+    cascade_launches += model_zoo_path(step, x)
 
-    # -- 11. the kernels line and the result -------------------------------- #
+    # -- 14. the kernels line and the result -------------------------------- #
     src = "src/repro_torch/kernels/csrc/"
     kernels = []
     for name, source, replaces, launches, comps, row in (

@@ -1,6 +1,6 @@
 """CXLMemSim core, ported to PyTorch: the Timing Analyzer, synchronous
-attach and the shared multi-host fabric (slices 1 and 2 of the port of
-:mod:`repro.core`).
+attach, the shared multi-host fabric, migration and the expander-side
+device cache (slices 1, 2, 3 and 5 of the port of :mod:`repro.core`).
 
 Components (paper Figure 2):
   Tracer  -> :mod:`repro_torch.core.tracer` (+ :mod:`.events` region map)
@@ -12,6 +12,8 @@ Components (paper Figure 2):
   Placement -> :mod:`repro_torch.core.policy`
   Pooling  -> :mod:`repro_torch.core.fabric` (co-attached tenants on one
   shared fabric) and :mod:`repro_torch.core.coherency`
+  Migration and caching -> :mod:`repro_torch.core.migration` and
+  :mod:`repro_torch.core.cache` (host numpy, like the reference's)
 """
 
 from .analyzer import (
@@ -23,6 +25,7 @@ from .analyzer import (
     plan_cascade,
 )
 from .attach import AttachedProgram, CXLMemSim, SimReport
+from .cache import DeviceCacheConfig, DeviceCacheModel
 from .coherency import CoherencyConfig, CoherencyModel
 from .events import (
     CACHELINE_BYTES,
@@ -37,6 +40,7 @@ from .events import (
     synthetic_trace,
 )
 from .fabric import FabricReport, FabricSession, HostClock, Tenant
+from .migration import LocalBudget, MigrationConfig, MigrationSimulator
 from .policy import (
     ClassMapPolicy,
     HotnessTieredPolicy,
@@ -80,6 +84,8 @@ __all__ = [
     "CoherencyConfig",
     "CoherencyModel",
     "DelayBreakdown",
+    "DeviceCacheConfig",
+    "DeviceCacheModel",
     "EpochAnalyzer",
     "EpochSchedule",
     "EventStager",
@@ -92,8 +98,11 @@ __all__ = [
     "HostClock",
     "HotnessTieredPolicy",
     "InterleavePolicy",
+    "LocalBudget",
     "LocalOnlyPolicy",
     "MemEvents",
+    "MigrationConfig",
+    "MigrationSimulator",
     "PAGE_BYTES",
     "Phase",
     "PlacementPolicy",

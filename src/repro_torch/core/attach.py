@@ -3,13 +3,17 @@ ported from ``repro/core/attach.py`` in synchronous mode.
 
 Wraps any PyTorch step function.  Per step:
 
-  1. cut the step's structural trace into epochs (Timer);
+  1. cut the step's structural trace into epochs (Timer), then on the host,
+     in the reference's order: apply migration (remap the epoch to current
+     residency and inject the copy traffic), inject coherency traffic, and
+     run the device cache's tag simulation over the final epoch, whose hit
+     fractions become the epoch's latency-scale row;
   2. dispatch the real step and measure native wall time (the paper's
      "execution of the attached program"), synchronizing the card when the
      step's outputs are CUDA tensors;
   3. analyze the step's epoch batch with the Timing Analyzer — one
-     :meth:`EpochAnalyzer.analyze_batch` call, one host transfer per step —
-     and fold the delays into the report;
+     :meth:`EpochAnalyzer.analyze_batch` call with the scale rows, one host
+     transfer per step — and fold the delays into the report;
   4. optionally ``time.sleep`` the computed delay — the paper's delay
      injection, making the host observe simulated-topology speed.
 
@@ -22,16 +26,20 @@ plus the per-component delay decomposition, per-pool/switch.  ``analyzer_s``
 is the analyzer's own seconds (the paper's overhead accounting).
 
 ``coherency=CoherencyModel(...)`` adds the analytic single-attach
-back-invalidation traffic and coherency-miss latency.  Asynchronous analysis
-(the reference's shared engine, slice 4 of the port), migration and the
-device cache (slice 3) raise ``NotImplementedError``.
+back-invalidation traffic and coherency-miss latency, ``migration=`` (a
+:class:`~repro_torch.core.migration.MigrationSimulator` over the program's
+region map) hot/cold migration, and ``cache=`` (a
+:class:`~repro_torch.core.cache.DeviceCacheConfig`) the expander-side device
+cache; both run synchronously on the host, as the reference's do.
+Asynchronous analysis (the reference's shared engine, slice 4 of the port)
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Callable, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -43,9 +51,11 @@ from .analyzer import (
     _check_device,
     analyze_any,
 )
+from .cache import DeviceCacheConfig, DeviceCacheModel
 from .coherency import CoherencyModel
 from .engine import EngineClient, fold_dispatch_stats
 from .events import MemEvents, RegionMap, concat_events
+from .migration import MigrationSimulator
 from .policy import PlacementPolicy, capacity_check
 from .timer import EpochSchedule
 from .topology import Topology
@@ -164,8 +174,8 @@ class CXLMemSim:
         hw: HardwareModel = H100_SXM,
         inject_delays: bool = False,
         sample_rate: float = 1.0,
-        migration=None,
-        cache=None,
+        migration: Optional[MigrationSimulator] = None,
+        cache: Optional[DeviceCacheConfig] = None,
         coherency: Optional[CoherencyModel] = None,
         analyzer: str = "epoch",  # 'epoch' (paper) | 'fine' (Gem5-like baseline)
         n_windows: int = 128,
@@ -174,10 +184,6 @@ class CXLMemSim:
         async_analysis: Optional[bool] = None,  # None: synchronous
         device="cuda",
     ):
-        if migration is not None:
-            raise _unsupported("migration", "slice 3")
-        if cache is not None:
-            raise _unsupported("the device cache", "slice 3")
         if async_analysis:
             raise _unsupported("asynchronous analysis (the shared engine)", "slice 4")
         if analyzer not in ("epoch", "fine"):
@@ -189,6 +195,8 @@ class CXLMemSim:
         self.hw = hw
         self.inject_delays = inject_delays
         self.sample_rate = sample_rate
+        self.migration = migration
+        self.cache = cache
         self.coherency = coherency
         self.analyzer_kind = analyzer
         self.n_windows = n_windows
@@ -247,6 +255,11 @@ class AttachedProgram(EngineClient):
             )
         else:
             self._analyzer = FineGrainedSimulator(sim.flat, bandwidth_mode="per_txn")
+        self._cache = (
+            DeviceCacheModel(sim.cache, sim.flat, [regions])
+            if sim.cache is not None
+            else None
+        )
         self._report = SimReport(
             per_pool_latency_ns=np.zeros((sim.flat.n_pools,)),
             per_switch_congestion_ns=np.zeros((sim.flat.n_switches,)),
@@ -266,8 +279,9 @@ class AttachedProgram(EngineClient):
     # ------------------------------------------------------------------ #
 
     def _traces(self):
-        """Structural traces are shape-static per step; cache across steps."""
-        if self._trace_cache is None:
+        """Structural traces are shape-static per step; cache across steps,
+        but recompute when migration has changed residency."""
+        if self._trace_cache is None or self.sim.migration is not None:
             mode = "layer" if self.sim.epoch.mode == "layer" else "step"
             traces, native_ns, names = synthesize_step_trace(
                 self.phases,
@@ -291,22 +305,39 @@ class AttachedProgram(EngineClient):
         return self._trace_cache
 
     def epoch_traces(self) -> List[MemEvents]:
-        """One step's epoch traces, as the analyzer receives them."""
+        """One step's structural epoch traces (before migration, coherency
+        and the cache), as the tracer emits them."""
         return list(self._traces()[0])
 
-    def _epoch_batch(self):
-        """One step's epoch traces with coherency traffic applied, and the
-        step's coherency-miss latency in ns."""
+    def _epoch_batch(self) -> Tuple[List[MemEvents], float, Optional[List]]:
+        """One step's epoch traces with migration, coherency and the cache
+        applied, in the reference's order; returns ``(batch, the step's
+        coherency-miss latency in ns, per-epoch latency-scale rows or None
+        without a cache)``.  The device cache observes the final epoch, so
+        injected copy and BI traffic warm and pollute it like any other
+        access."""
         traces = self._traces()[0]
-        if self.sim.coherency is None:
-            return list(traces), 0.0
         batch: List[MemEvents] = []
+        scales: Optional[List] = [] if self._cache is not None else None
         coh_ns_total = 0.0
         for tr in traces:
-            bi, coh_ns = self.sim.coherency.epoch_traffic(tr)
-            coh_ns_total += coh_ns
-            batch.append(concat_events([tr, bi]) if bi.n else tr)
-        return batch, coh_ns_total
+            if self.sim.migration is not None:
+                tr, extra = self.sim.migration.observe_and_migrate(tr)
+                if extra.n:
+                    tr = concat_events([tr, extra])
+            if self.sim.coherency is not None:
+                bi, coh_ns = self.sim.coherency.epoch_traffic(tr)
+                coh_ns_total += coh_ns
+                if bi.n:
+                    tr = concat_events([tr, bi])
+            if self._cache is not None:
+                scales.append(self._cache.observe_scale(tr))
+            batch.append(tr)
+        if self.sim.migration is not None:
+            self._report.migration_moved_bytes = self.sim.migration.moved_bytes_total
+        if self._cache is not None:
+            self._report.cache_hit_fraction = self._cache.hit_fraction
+        return batch, coh_ns_total, scales
 
     def _fold(
         self, bd: DelayBreakdown, coh_ns: float, analyzer_s: float, n_epochs: int
@@ -334,13 +365,15 @@ class AttachedProgram(EngineClient):
         fold_dispatch_stats(r, getattr(self._analyzer, "last_dispatch", None), 1)
         return delay_ns
 
-    def _analyze_and_accumulate(self, batch: List[MemEvents], coh_ns: float) -> float:
+    def _analyze_and_accumulate(
+        self, batch: List[MemEvents], coh_ns: float, scales: Optional[List] = None
+    ) -> float:
         """Analyze one step's epoch batch and fold it; returns the step's
         total delay in ns.  A failed batch is recorded as dropped before the
         error propagates."""
         a0 = time.perf_counter()
         try:
-            bd = analyze_any(self._analyzer, batch)
+            bd = analyze_any(self._analyzer, batch, scales)
         except BaseException:
             self._report.dropped_batches += 1
             self._report.dropped_epochs += len(batch)
@@ -350,7 +383,7 @@ class AttachedProgram(EngineClient):
 
     def step(self, *args, **kwargs):
         """Run one real step under simulation; returns the step's outputs."""
-        batch, coh_ns = self._epoch_batch()
+        batch, coh_ns, scales = self._epoch_batch()
         t0 = time.perf_counter()
         out = self.step_fn(*args, **kwargs)
         _synchronize_outputs(out)
@@ -359,7 +392,7 @@ class AttachedProgram(EngineClient):
         self._report.simulated_s += native
         self._report.steps += 1
 
-        delay_ns = self._analyze_and_accumulate(batch, coh_ns)
+        delay_ns = self._analyze_and_accumulate(batch, coh_ns, scales)
         if self.sim.inject_delays and delay_ns > 0:
             # the paper's delay injection: the host program observes the
             # simulated-topology execution speed

@@ -21,7 +21,16 @@ storms — only appear when real per-host traces contend on one fabric.
      same device pass (the host-segmented cascade kernel on the card);
   4. **coherency**: sharer sets and write fractions are derived from the
      actual per-host traces (:meth:`CoherencyModel.fabric_traffic`) and BI
-     events are injected into the specific sharers' streams before the merge.
+     events are injected into the specific sharers' streams before the merge;
+  5. **migration** (``migration=MigrationConfig(...)``): every tenant gets
+     its own :class:`~repro_torch.core.migration.MigrationSimulator`, all
+     drawing on **one** shared local-DRAM budget, and their copy traffic
+     lands host-tagged on the shared timeline, where it queues at the shared
+     switches like any other traffic;
+  6. **device cache** (``cache=DeviceCacheConfig(...)``): one expander-side
+     DRAM cache per shared pool, warmed by the *merged* stream (co-tenants
+     evict each other), feeding per-epoch latency-scale rows into the same
+     batched analysis.
 
 With one tenant the session degenerates to the single-host pipeline: the
 merged timeline is the tenant's own trace and the analysis equals
@@ -34,10 +43,10 @@ decomposition (latency / congestion / bandwidth / coherency, per switch,
 per pool, per host).
 
 Analysis is synchronous: each round analyzes on the caller's thread before
-the tenants' native steps run.  The reference's overlapped rounds
-(``async_analysis=True``, ``engine=``) and ``pipeline=True`` come with
-slice 4 of the port, ``migration=`` and ``cache=`` with slice 3; asking for
-them raises ``NotImplementedError``.
+the tenants' native steps run (the reference's rounds overlap by default).
+Its overlapped rounds (``async_analysis=True``, ``engine=``) and
+``pipeline=True`` come with slice 4 of the port; asking for them raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -50,9 +59,11 @@ import numpy as np
 
 from .analyzer import DelayBreakdown, EpochAnalyzer
 from .attach import _synchronize_outputs, _unsupported
+from .cache import DeviceCacheConfig, DeviceCacheModel
 from .coherency import CoherencyConfig, CoherencyModel
 from .engine import EngineClient, fold_dispatch_stats
 from .events import MemEvents, RegionMap, concat_events
+from .migration import LocalBudget, MigrationConfig, MigrationSimulator
 from .policy import PlacementPolicy
 from .timer import EpochSchedule
 from .topology import Topology
@@ -209,8 +220,8 @@ class FabricSession(EngineClient):
         epoch: EpochSchedule = EpochSchedule("step"),
         hw: HardwareModel = H100_SXM,
         coherency: Optional[CoherencyConfig] = None,
-        migration=None,
-        cache=None,
+        migration: Optional[MigrationConfig] = None,
+        cache: Optional[DeviceCacheConfig] = None,
         n_windows: int = 128,
         check_capacity: bool = True,
         max_events_per_access: int = 64,
@@ -219,10 +230,6 @@ class FabricSession(EngineClient):
         pipeline: bool = False,
         device="cuda",
     ):
-        if migration is not None:
-            raise _unsupported("migration", "slice 3")
-        if cache is not None:
-            raise _unsupported("the device cache", "slice 3")
         if async_analysis or engine is not None:
             raise _unsupported("overlapped rounds (the shared engine)", "slice 4")
         if pipeline:
@@ -286,6 +293,25 @@ class FabricSession(EngineClient):
                     )
         if check_capacity:
             self._fabric_capacity_check()
+
+        # per-tenant migration simulators drawing on ONE local-DRAM budget:
+        # co-tenants' promotions compete for the local tier, and each
+        # simulator's copy traffic lands host-tagged on the shared timeline
+        self._migration: List[Optional[MigrationSimulator]] = [None] * H
+        if migration is not None and migration.mode != "off":
+            shared_budget = LocalBudget(migration.local_budget_bytes)
+            self._migration = [
+                MigrationSimulator(
+                    migration, t.regions, self.flat, host=h, budget=shared_budget
+                )
+                for h, t in enumerate(self.tenants)
+            ]
+        self._has_migration = any(s is not None for s in self._migration)
+        self._cache = (
+            DeviceCacheModel(cache, self.flat, [t.regions for t in self.tenants])
+            if cache is not None
+            else None
+        )
 
         self._trace_cache: List[Optional[tuple]] = [None] * H
         self._round_cache: Optional[tuple] = None
@@ -375,25 +401,32 @@ class FabricSession(EngineClient):
             self._trace_cache[h] = (traces, ns_to_s(float(sum(native_ns))))
         return self._trace_cache[h]
 
-    def _merged_round(self) -> Tuple[List[MemEvents], np.ndarray]:
+    def _merged_round(self) -> Tuple[List[MemEvents], np.ndarray, Optional[List]]:
         """Align every tenant's epoch stream and merge each aligned group.
 
         Epoch ``k`` of each host starts at the same fabric instant (the
         co-scheduling assumption).  Returns the merged shared-timeline
-        epochs and per-host coherency miss latency for the round.
+        epochs, per-host coherency miss latency for the round, and (with a
+        cache) per-epoch latency-scale rows.
 
-        Tenant traces are round-invariant, so the merged timelines, BI
-        injection and miss latencies are built once and replayed; only the
-        coherency model's running totals advance per round.
+        Without migration or a device cache, tenant traces are
+        round-invariant, so the merged timelines, BI injection and miss
+        latencies are built once and replayed; only the coherency model's
+        running totals advance per round.  Migration makes rounds stateful
+        (each tenant's simulator remaps its stream and injects host-tagged
+        copy traffic before the merge, and moved regions force next round's
+        traces to be re-synthesized), and the cache's tag state evolves
+        with the merged stream, so either turns the replay off.
         """
         H = len(self.tenants)
-        if self._round_cache is not None:
+        stateful = self._has_migration or self._cache is not None
+        if self._round_cache is not None and not stateful:
             merged, miss_total, bi_msgs, bi_bytes, miss_sum = self._round_cache
             if self._coherency is not None:
                 self._coherency.bi_messages_total += bi_msgs
                 self._coherency.bi_bytes_total += bi_bytes
                 self._coherency.coherency_delay_total_ns += miss_sum
-            return merged, miss_total
+            return merged, miss_total, None
         coh0 = (
             (0.0, 0.0)
             if self._coherency is None
@@ -402,11 +435,17 @@ class FabricSession(EngineClient):
         per_host = [self._tenant_epochs(h)[0] for h in range(H)]
         n_epochs = max(len(e) for e in per_host)
         merged: List[MemEvents] = []
+        scales: Optional[List] = [] if self._cache is not None else None
         miss_total = np.zeros((H,), np.float64)
         for k in range(n_epochs):
             group = [
                 e[k] if k < len(e) else MemEvents.empty() for e in per_host
             ]
+            for h, sim in enumerate(self._migration):
+                if sim is None or group[h].n == 0:
+                    continue
+                tr, extra = sim.observe_and_migrate(group[h])
+                group[h] = concat_events([tr, extra]) if extra.n else tr
             if self._coherency is not None:
                 bi, miss = self._coherency.fabric_traffic(
                     group, [t.regions for t in self.tenants]
@@ -416,15 +455,23 @@ class FabricSession(EngineClient):
                 ]
                 miss_total += miss
             # traces are already host-tagged; concat + sort onto one timeline
-            merged.append(concat_events(group).sorted_by_time())
-        self._round_cache = (
-            merged,
-            miss_total,
-            (self._coherency.bi_messages_total - coh0[0]) if self._coherency else 0.0,
-            (self._coherency.bi_bytes_total - coh0[1]) if self._coherency else 0.0,
-            float(miss_total.sum()),
-        )
-        return merged, miss_total
+            epoch = concat_events(group).sorted_by_time()
+            if self._cache is not None:
+                scales.append(self._cache.observe_scale(epoch))
+            merged.append(epoch)
+        if self._has_migration:
+            # residency moved: next round's structural traces must re-read
+            # Region.pool (the attach pipeline's migration contract)
+            self._trace_cache = [None] * H
+        if not stateful:
+            self._round_cache = (
+                merged,
+                miss_total,
+                (self._coherency.bi_messages_total - coh0[0]) if self._coherency else 0.0,
+                (self._coherency.bi_bytes_total - coh0[1]) if self._coherency else 0.0,
+                float(miss_total.sum()),
+            )
+        return merged, miss_total, scales
 
     # ------------------------------------------------------------------ #
 
@@ -446,6 +493,12 @@ class FabricSession(EngineClient):
         r.coherency_s += ns_to_s(float(miss_ns.sum()))
         if self._coherency is not None:
             r.bi_messages = self._coherency.bi_messages_total
+        if self._has_migration:
+            r.migration_moved_bytes = sum(
+                s.moved_bytes_total for s in self._migration if s is not None
+            )
+        if self._cache is not None:
+            r.cache_hit_fraction = self._cache.hit_fraction
         r.per_pool_latency_ns += bd.per_pool_latency_ns
         r.per_switch_congestion_ns += bd.per_switch_congestion_ns
         r.per_switch_bandwidth_ns += bd.per_switch_bandwidth_ns
@@ -471,11 +524,11 @@ class FabricSession(EngineClient):
         merged timelines are cached: per-round analyzer overhead is a
         reported quantity (the paper's accounting), matching how
         ``CXLMemSim.attach`` re-analyzes its cached trace each step."""
-        merged, miss_ns = self._merged_round()
+        merged, miss_ns, scales = self._merged_round()
         n_epochs = len(merged)
         a0 = time.perf_counter()
         try:
-            bd = self._analyzer.analyze_batch(merged)
+            bd = self._analyzer.analyze_batch(merged, scales)
         except BaseException:
             self._report.dropped_batches += 1
             self._report.dropped_epochs += n_epochs

@@ -31,6 +31,10 @@ class Model(nn.Module):
 
     def __init__(self, cfg: ModelConfig, device="cuda", seed: int = 0):
         super().__init__()
+        if cfg.family not in ("dense", "ssm"):
+            # the config describes the family's structure (group_spec,
+            # param_counts, memory programs); its forward pass is not here
+            raise tf._unported(f"the {cfg.family!r} family's forward pass")
         dev = _check_device(device)
         self.cfg = cfg
         gen = torch.Generator(device=dev).manual_seed(seed)

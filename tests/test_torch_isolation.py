@@ -44,12 +44,17 @@ def _imported_roots(path):
                 yield str(node.args[0].value).split(".")[0]
 
 
-# the model zoo's modules, checked by name so a move cannot drop them
+# the model zoo's modules, migration and the device cache, checked by name
+# so a move cannot drop them
 ZOO_FILES = (
     "configs/mamba2_2_7b.py", "configs/qwen3_0_6b.py", "interop.py", "kernels/build.py",
     "kernels/flash_attention.py", "kernels/ssd_scan.py", "launch/steps.py",
     "models/attention.py", "models/config.py", "models/layers.py", "models/mamba2.py",
     "models/model.py", "models/phases.py", "models/transformer.py",
+    "core/cache.py", "core/migration.py", "configs/__init__.py",
+    "configs/mistral_large_123b.py", "configs/chatglm3_6b.py", "configs/starcoder2_3b.py",
+    "configs/granite_moe_3b_a800m.py", "configs/llama4_maverick_400b_a17b.py",
+    "configs/jamba_v0_1_52b.py", "configs/qwen2_vl_72b.py", "configs/hubert_xlarge.py",
 )
 
 
@@ -63,6 +68,30 @@ def test_port_imports_neither_jax_nor_the_reference():
         for f in files
     }
     assert not {k: v for k, v in bad.items() if v}
+
+
+def test_new_modules_load_without_the_reference():
+    """The port's migration, cache and config registry import and run in a
+    process where neither JAX nor the reference can be imported."""
+    code = (
+        "import sys\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('jax', 'jaxlib', 'repro'):\n"
+        "            raise ImportError(name)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "import repro_torch.configs as C\n"
+        "from repro_torch.core import cache, migration\n"
+        "assert len(C.ARCH_IDS) == 10 and len(C.cells()) == 40\n"
+        "for a in C.ARCH_IDS:\n"
+        "    C.get_config(a).param_counts()\n"
+        "print(cache.DeviceCacheConfig(1 << 20).ways, migration.MigrationConfig().mode)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split() == ["4", "software"]
 
 
 def test_cpu_tensors_take_the_plain_path():

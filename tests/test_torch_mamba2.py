@@ -95,9 +95,16 @@ def test_config_fields_and_groups():
     assert cfg.mamba_layers_per_group == 1 and cfg.attn_layers_per_group == 0
     assert cfg.dtype == cfg.cache_dtype == torch.bfloat16
     assert dataclasses.replace(cfg, d_ff=64).group_spec() == (("mamba", "mlp"),)
+    # the other families' structure is ported (tests/test_torch_model_zoo.py);
+    # their forward passes still raise, naming their slice
+    from repro.models import ModelConfig as RConfig
+
     for fam in ("moe", "hybrid", "vlm", "audio"):
+        kw = dict(attn_every=2, n_experts=4, top_k=2) if fam == "hybrid" else {}
+        cfg = ModelConfig("m", fam, 2, 64, 4, 2, 128, 512, **kw)
+        assert cfg.group_spec() == RConfig("m", fam, 2, 64, 4, 2, 128, 512, **kw).group_spec()
         with pytest.raises(NotImplementedError, match="slice 7"):
-            ModelConfig("m", fam, 2, 64, 4, 2, 128, 512).group_spec()
+            Model(cfg, device="cpu")
 
 
 def _allocated(regions, phases):

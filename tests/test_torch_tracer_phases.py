@@ -19,7 +19,7 @@ from repro_torch.core import timer as t_timer
 from repro_torch.core import topology as t_topo
 from repro_torch.core import tracer as t_tr
 from repro_torch.interop import mem_events_from_arrays
-from repro_torch.models import ModelConfig
+from repro_torch.models import Model, ModelConfig
 from repro_torch.models.phases import build_regions_and_phases as t_build
 
 torch.set_num_threads(2)
@@ -41,11 +41,20 @@ def test_param_counts_exact(which):
 
 
 def test_param_counts_other_families_name_their_slice():
-    cfg = ModelConfig("m", "moe", 2, 64, 4, 2, 128, 512)
+    """The moe family's counts and memory program are ported (equal to the
+    reference's, tests/test_torch_model_zoo.py); its forward pass still
+    raises, naming its slice."""
+    from repro.models import ModelConfig as RConfig
+
+    cfg = ModelConfig("m", "moe", 2, 64, 4, 2, 128, 512, n_experts=4, top_k=2)
+    assert cfg.param_counts() == RConfig("m", "moe", 2, 64, 4, 2, 128, 512, n_experts=4,
+                                         top_k=2).param_counts()
+    r_reg, _ = r_build(RConfig("m", "moe", 2, 64, 4, 2, 128, 512, n_experts=4, top_k=2),
+                       "train", batch=1, seq=8)
+    t_reg, _ = t_build(cfg, "train", batch=1, seq=8)
+    assert [dataclasses.astuple(r) for r in r_reg] == [dataclasses.astuple(t) for t in t_reg]
     with pytest.raises(NotImplementedError, match="slice 7"):
-        cfg.param_counts()
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        t_build(cfg, "train", batch=1, seq=8)
+        Model(cfg, device="cpu")
 
 
 @pytest.mark.parametrize("which", ["CONFIG", "SMOKE"])
