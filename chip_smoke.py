@@ -183,7 +183,23 @@ Phases (any failure exits non-zero and prints no result):
    congestion to the plain version on the same epochs, and then runs in
    quantum epochs of 2**22 ns with all three totals against
    ``analyze_ref``;
-14. a JSON ``kernels`` line, then the card's nvidia-smi line, then the result
+14. the device-resident epoch pipeline (synchronous): ``ops.chain_cascade``
+   on the card (the merges as torch ops, each stage's scan in the scan
+   kernel over ``mask = idx >= 0``) against its plain version (the
+   reference's arange scan) on the same CUDA tensors, final times and
+   slots bitwise and per-stage delays to rel 1e-6, on main's own packed
+   batch and at main's caps tie-free, tie-heavy, mostly ``+inf`` pads,
+   with an empty stage and with all-pad rows; then pipeline-main: phase
+   4's program with ``pipeline=True, warmup=True`` (one build at attach),
+   1 + 3 steps: 3 scan launches a step and no cascade launch, no build
+   after the warm-up, pinned host planes, the totals against
+   ``analyze_ref`` and phase 4's (latency to rel 1e-6, congestion and
+   bandwidth to rtol 1e-4), the dispatch split per step and a
+   torch.profiler table of one batch; then pipeline-fabric8,
+   pipeline-wide32 (1 + 1 rounds) and pipeline-qos-main (1 + 1 steps),
+   each against its own phase (5, 6, 7) per round or step at the fabric
+   bars, with its launches and split;
+15. a JSON ``kernels`` line, then the card's nvidia-smi line, then the result
    line ``{"ok": true, "device": {...}}``.
 
 The earlier phases (4-6) must show no QoS launch, no phase before 9 an SSD
@@ -233,9 +249,10 @@ from repro_torch.core import (  # noqa: E402
     chained_topology,
     figure1_topology,
     plan_cascade,
+    plan_chain,
     pooled_topology,
 )
-from repro_torch.core.units import s_to_ns  # noqa: E402
+from repro_torch.core.units import s_to_ms, s_to_ns  # noqa: E402
 from repro_torch.kernels import congestion as kcong  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels import build as kbuild  # noqa: E402
@@ -896,10 +913,10 @@ def check_totals(tag, got, want, steps, keys=("latency_s", "congestion_s", "band
 
 
 def fabric_session(n_hosts, load, events_per_access, dev, classes=None, migration=None,
-                   cache=None, **topo_kw):
+                   cache=None, pipeline=False, **topo_kw):
     """n_hosts trace-only qwen3-0.6b tenants pooling their KV caches, tenant
     h in QoS class ``classes[h]`` (0 without ``classes``), with
-    ``migration`` and ``cache`` given to the session."""
+    ``migration``, ``cache`` and ``pipeline`` given to the session."""
     tenants = []
     for h in range(n_hosts):
         regions, phases = build_regions_and_phases(CONFIG, **load)
@@ -909,6 +926,7 @@ def fabric_session(n_hosts, load, events_per_access, dev, classes=None, migratio
         pooled_topology(n_hosts=n_hosts, **topo_kw), tenants, epoch=EpochSchedule("layer"),
         hw=H100_SXM, coherency=CoherencyConfig(shared_classes=("kvcache",)),
         max_events_per_access=events_per_access, device=dev, migration=migration, cache=cache,
+        pipeline=pipeline,
     )
 
 
@@ -1000,13 +1018,13 @@ def main_step(dev):
     return step, x
 
 
-def attach_main(topology, step):
+def attach_main(topology, step, **sim_kw):
     """CXLMemSim attached to ``step`` with the qwen3-0.6b layer-epoch trace
-    (8 x 4096 tokens) on ``topology``."""
+    (8 x 4096 tokens) on ``topology``, with ``sim_kw`` given to it."""
     regions, phases = build_regions_and_phases(CONFIG, "train", batch=8, seq=4096)
     sim = CXLMemSim(
         topology, ClassMapPolicy(POLICY), epoch=EpochSchedule("layer"),
-        hw=H100_SXM, max_events_per_access=1024, check_capacity=False, device="cuda",
+        hw=H100_SXM, max_events_per_access=1024, check_capacity=False, device="cuda", **sim_kw,
     )
     return sim.attach(step, phases, regions)
 
@@ -1030,7 +1048,8 @@ def slice1_main_path(dev, step, x):
     c = counts()
     check_launches("main", c, "cascade", 3)
 
-    check_totals("main", rep, oracle(prog.sim.flat, traces), rep.steps)
+    want = oracle(prog.sim.flat, traces)
+    check_totals("main", rep, want, rep.steps)
     # both switches queue; the RC cannot: every event through it has just
     # left switch0, spaced >= 2 ns apart, and the RC's STT is 0.5 ns
     names = prog.sim.flat.switch_names
@@ -1043,7 +1062,7 @@ def slice1_main_path(dev, step, x):
           f"measured steps; warm-up step analyzer {warm_analyzer_s:.6f} s, "
           f"native {warm_native_s:.6f} s")
     profile_batch("profile", prog._analyzer, traces)
-    return main_row, c["cascade"], rep
+    return main_row, c["cascade"], rep, want
 
 
 def fabric_main_path(dev):
@@ -1142,7 +1161,7 @@ def wide_fabric_path(dev):
     check_scan_repeats(name, b["t"], mask, stt)
     del b, routed, mask
     profile_batch("wide-profile", sess._analyzer, merged, rows=20)
-    return row, c["scan"]
+    return row, c["scan"], rep
 
 
 def qos_main_path(dev, step, x, fifo_rep):
@@ -1182,7 +1201,7 @@ def qos_main_path(dev, step, x, fifo_rep):
     print(f"[qos-main] analyzer {(rep.analyzer_s - warm_analyzer_s) / 3:.6f} s/step over "
           f"the 3 measured steps; warm-up step analyzer {warm_analyzer_s:.6f} s")
     profile_batch("qos-main-profile", prog._analyzer, traces)
-    return row, c["qos"]
+    return row, c["qos"], rep
 
 
 def qos_fabric_session(tag, dev, fifo_rep, discipline, weights, rounds):
@@ -2097,6 +2116,246 @@ def qwen3_serving_path(dev):
     return rows, flash_launches
 
 
+# --------------------------------------------------------------------------- #
+# Phase 14: the device-resident epoch pipeline, synchronous
+# --------------------------------------------------------------------------- #
+
+
+def chain_pack(rows, caps, seed, dev, ties=False, fill=(0.5, 1.0), all_pad_rows=()):
+    """Per-stage packed sorted runs on the card: each segment of each row
+    filled to a random share in ``fill`` of its width, the rest ``+inf``
+    pads with slot ``-1``.  Tie-free: every row's times are distinct
+    integers (below 4 W); ``ties``: integers from a span of W/4.  Rows in
+    ``all_pad_rows`` hold only pads."""
+    rng = np.random.default_rng(seed)
+    width = int(sum(caps))
+    t = np.full((rows, width), np.inf, np.float32)
+    idx = np.full((rows, width), -1, np.int32)
+    for r in range(rows):
+        if r in all_pad_rows:
+            continue
+        pool = rng.permutation(4 * width)[:width] if not ties else None
+        off = 0
+        for c in caps:
+            m = int(c * rng.uniform(*fill)) if c else 0
+            vals = rng.integers(0, max(2, width // 4), m) if ties else pool[off:off + m]
+            t[r, off:off + m] = np.sort(vals).astype(np.float32)
+            idx[r, off:off + m] = off + np.arange(m, dtype=np.int32)
+            off += c
+    return torch.from_numpy(t).to(dev), torch.from_numpy(idx).to(dev)
+
+
+def compare_chain(name, t, idx, stts, caps, reps=10):
+    """ops.chain_cascade on the card (the merges as torch ops, each stage's
+    scan in the scan kernel over mask = idx >= 0) against its plain version
+    (the reference's arange scan) on the same CUDA tensors: final times and
+    slots bitwise, per-stage delays to rel 1e-6."""
+    s0 = kcong.scan_launches
+    tk, ik, dk = kops.chain_cascade(t, idx, stts, caps)
+    launched = kcong.scan_launches - s0
+    tp, ip, dp = kref.chain_cascade(t, idx, stts, caps)
+    torch.cuda.synchronize()
+    check(torch.equal(ik, ip), f"{name}: slots differ from the plain version")
+    check(torch.equal(tk, tp), f"{name}: final times differ from the plain version "
+          f"(max abs err {float((tk - tp).nan_to_num().abs().max())})")
+    torch.testing.assert_close(dk, dp, rtol=1e-6, atol=0.0)
+    err = float((dk - dp).abs().max())
+    stages_run = sum(1 for p in range(len(caps)) if sum(caps[:p + 1]))
+    check(launched == stages_run, f"{name}: {launched} scan launches, want {stages_run}")
+    ms = median_ms(lambda: kops.chain_cascade(t, idx, stts, caps), reps)
+    plain_ms = median_ms(lambda: kref.chain_cascade(t, idx, stts, caps), reps)
+    row = dict(shape=list(t.shape), caps=list(caps), pad_share=float(torch.isinf(t).float().mean()),
+               scan_launches=launched, ms=ms, plain_ms=plain_ms, max_abs_err=err,
+               delay_ns=[float(x) for x in dk.sum(0)])
+    print(f"[pipeline] {name}: {json.dumps(row)}")
+    return row
+
+
+def chain_kernel_phase(dev, traces, flat):
+    """The chain cascade on main's own packed batch and on synthetic packs
+    at main's caps: tie-free, tie-heavy, mostly pads, with an empty stage,
+    and with all-pad rows."""
+    plan = plan_chain(flat)
+    n_bucket = bucket_pow2(max(tr.n for tr in traces))
+    b_bucket = bucket_pow2(len(traces), floor=1)
+    _, pack, caps = EventStager(np.float32).stage_packed(
+        traces, b_bucket, n_bucket, plan.enter_stage, len(plan.stage_order))
+    stts = tuple(float(x) for x in np.asarray(flat.switch_stt_ns, np.float32)[
+        list(plan.stage_order)])
+    print(f"[pipeline] main's packed batch: caps {list(caps)}, stage order "
+          f"{list(plan.stage_order)}, STTs {list(stts)}")
+    rows = [compare_chain("chain_main_batch", torch.from_numpy(pack["t"]).to(dev),
+                          torch.from_numpy(pack["idx"]).to(dev), stts, caps)]
+    empty = (caps[0], 0, caps[2] + caps[1])
+    for name, cs, kw in (
+        ("chain_tie_free", caps, dict()),
+        ("chain_ties", caps, dict(ties=True)),
+        ("chain_pad_tails", caps, dict(fill=(0.0, 0.1))),
+        ("chain_empty_stage", empty, dict()),
+        ("chain_all_pad_rows", caps, dict(all_pad_rows=(0, 7, 31))),
+    ):
+        t, idx = chain_pack(32, cs, 40 + len(rows), dev, **kw)
+        rows.append(compare_chain(name, t, idx, stts, cs))
+    return rows
+
+
+def pinned_planes(an) -> bool:
+    """Every host plane the pipeline analyzer's stager holds is page-locked."""
+    sets = list(an._stager._bufs.values()) + list(an._stager._pack_bufs.values())
+    return bool(sets) and all(torch.from_numpy(a).is_pinned()
+                              for s in sets for k, a in s.items() if k != "span")
+
+
+def split(rep, before, n):
+    """The dispatch split per step or round since the ``before`` snapshot."""
+    keys = ("analyzer_s", "stage_s", "transfer_s", "compile_s", "compute_s")
+    return {k: (getattr(rep, k) - before[k]) / n for k in keys}
+
+
+def snapshot(rep):
+    return {k: getattr(rep, k) for k in ("analyzer_s", "stage_s", "transfer_s", "compile_s",
+                                         "compute_s", "aot_cache_hits")}
+
+
+def per_unit(rep):
+    return rep.rounds if hasattr(rep, "rounds") else rep.steps
+
+
+def check_against(tag, got, want, hosts=False, classes=False):
+    """A pipeline run's totals per step or round against its non-pipeline
+    phase's, at the fabric bars (latency rel 1e-4, congestion 1e-3,
+    bandwidth 1e-2; per host latency 1e-4 and congestion 5e-3; per class
+    congestion 5e-3)."""
+    ng, nw = per_unit(got), per_unit(want)
+    for k, rel in (("latency_s", 1e-4), ("congestion_s", 1e-3), ("bandwidth_s", 1e-2)):
+        g, w = getattr(got, k) / ng, getattr(want, k) / nw
+        check(abs(g - w) <= rel * abs(w), f"{tag} {k}: {g!r} vs {w!r} per step or round")
+        print(f"[{tag}] {k} per step or round {g!r}, without the pipeline {w!r}, "
+              f"rel {abs(g - w) / max(abs(w), 1e-30):.3e}")
+    if hosts:
+        for k, rel in (("latency_s", 1e-4), ("congestion_s", 5e-3)):
+            g = np.array([getattr(h, k) for h in got.hosts]) / ng
+            w = np.array([getattr(h, k) for h in want.hosts]) / nw
+            np.testing.assert_allclose(g, w, rtol=rel)
+    if classes:
+        np.testing.assert_allclose(got.per_class_congestion_ns / ng,
+                                   want.per_class_congestion_ns / nw, rtol=5e-3)
+
+
+def profile_pipeline(tag, an, traces, rows=14):
+    """One pipeline batch under torch.profiler: its H2D copies from pinned
+    planes on the side stream, the merges and the kernels."""
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        an.analyze_batch(traces)
+        torch.cuda.synchronize()
+        batch_s = time.perf_counter() - t0
+    st = an.last_dispatch
+    print(f"[{tag}] analyze_batch {batch_s:.6f} s under the profiler, split "
+          f"{json.dumps(dataclasses.asdict(st))}")
+    events = prof.key_averages()
+    h2d = [e for e in events if "HtoD" in e.key]
+    copies = [e for e in events if "Memcpy" in e.key]
+    print(f"[{tag}] profiler rows with device time: "
+          f"{sum(1 for e in events if e.device_time_total > 0)}; copy rows: "
+          f"{[(e.key, e.count) for e in copies]}")
+    for e in h2d:
+        print(f"[{tag}] H2D {e.key}: {e.count} copies, {e.device_time_total / 1e3:.3f} ms "
+              f"on the card (profiler)")
+    print(f"[{tag}] H2D by the copy stream's events: {s_to_ms(st.transfer_s):.3f} ms"
+          + ("" if h2d else "; the profiler recorded no H2D row"))
+    print(events.table(sort_by="device_time_total", row_limit=rows))
+
+
+def pipeline_main_path(dev, step, x, main_rep, main_ref):
+    """Phase 14, pipeline-main: phase 4's program with pipeline=True and
+    warmup=True, one warm-up step and 3 measured."""
+    prog = attach_main(figure1_topology(), step, pipeline=True, warmup=True)
+    an = prog._analyzer
+    check(an._chain_plan is not None and an._aot.lowerings == 1,
+          "pipeline-main must take the chain path and build at attach")
+    traces = prog.epoch_traces()
+    prog.step(x)
+    before, builds = snapshot(prog.report), an._aot.lowerings
+    reset_counts()
+    rep = prog.run(3, x)
+    c = counts()
+    check_launches("pipeline-main", c, "scan", 3 * len(an._chain_plan.stage_order))
+    check(an._aot.lowerings == builds and rep.aot_cache_hits - before["aot_cache_hits"] == 3,
+          f"pipeline-main rebuilt after warm-up: {an._aot.lowerings} builds, was {builds}")
+    check(rep.donated_dispatches == 0, "pipeline-main reported a donation: eager PyTorch has none")
+    check(pinned_planes(an), "pipeline-main's host planes are not pinned")
+    check(len(an._rings) == 1, f"pipeline-main allocated {len(an._rings)} device rings, not 1")
+    check_totals("pipeline-main", rep, main_ref, rep.steps)
+    check(rep.steps == main_rep.steps, f"{rep.steps} steps, phase 4 ran {main_rep.steps}")
+    for k, rel in (("latency_s", 1e-6), ("congestion_s", 1e-4), ("bandwidth_s", 1e-4)):
+        g, w = getattr(rep, k), getattr(main_rep, k)
+        print(f"[pipeline-main] {k} {g!r} s, phase 4 {w!r} s, rel "
+              f"{abs(g - w) / max(abs(w), 1e-30):.3e}")
+        check(abs(g - w) <= rel * abs(w), f"pipeline-main {k} {g!r} vs phase 4's {w!r}")
+    sp = split(rep, before, 3)
+    print(f"[pipeline-main] analyzer {sp['analyzer_s']:.6f} s/step over the 3 measured "
+          f"steps; split per step {json.dumps(sp)}")
+    profile_pipeline("pipeline-main-profile", an, traces)
+    return c["scan"]
+
+
+def pipeline_session_path(tag, sess, want, kernel, per_round, **checks):
+    """A pipeline FabricSession: one warm-up round, one measured, against
+    its non-pipeline phase's report."""
+    sess.round()
+    before = snapshot(sess.report)
+    reset_counts()
+    rep = sess.run(1)
+    c = counts()
+    check_launches(tag, c, kernel, per_round)
+    check(sess._analyzer.pipeline and sess._analyzer._chain_plan is None
+          and rep.donated_dispatches == 0, f"{tag}: must run the full-plane pipeline path")
+    check(pinned_planes(sess._analyzer), f"{tag}: host planes are not pinned")
+    check_against(tag, rep, want, **checks)
+    print(f"[{tag}] analyzer {rep.analyzer_s - before['analyzer_s']:.6f} s/round, split "
+          f"{json.dumps(split(rep, before, 1))}, builds {sess._analyzer._aot.lowerings}")
+    return c[kernel]
+
+
+def pipeline_path(dev, step, x, main_rep, main_ref, fabric_rep, wide_rep, qos_rep):
+    """Phase 14: the chain cascade on the card against its plain version,
+    then each simulator path with pipeline=True against its own phase.
+    Returns the rows and the scan, hosts and QoS launches of the paths."""
+    t0 = time.perf_counter()
+    prog = attach_main(figure1_topology(), step)
+    rows = chain_kernel_phase(dev, prog.epoch_traces(), prog.sim.flat)
+    del prog
+    scan = pipeline_main_path(dev, step, x, main_rep, main_ref)
+    sess = fabric_session(FABRIC_HOSTS, FABRIC_LOAD, FABRIC_EVENTS_PER_ACCESS, "cuda",
+                          pipeline=True)
+    hosts = pipeline_session_path("pipeline-fabric8", sess, fabric_rep, "hosts", 1, hosts=True)
+    del sess
+    sess = fabric_session(WIDE_HOSTS, WIDE_LOAD, WIDE_EVENTS_PER_ACCESS, "cuda", pipeline=True)
+    scan += pipeline_session_path("pipeline-wide32", sess, wide_rep, "scan",
+                                  sess.flat.n_switches)
+    del sess
+    fig = figure1_topology()
+    topo = Topology(
+        fig.pools, [dataclasses.replace(sw, discipline="priority") for sw in fig.switches],
+        fig.rc_latency_ns, fig.rc_bandwidth_gbps, fig.rc_stt_ns, fig.local_dram_latency_ns,
+        n_qos_classes=2,
+    )
+    prog = attach_main(topo, step, pipeline=True, warmup=True)
+    check(prog._analyzer._chain_plan is None, "pipeline-qos-main must leave the chain path")
+    prog.step(x)
+    before = snapshot(prog.report)
+    reset_counts()
+    rep = prog.run(1, x)
+    c = counts()
+    check_launches("pipeline-qos-main", c, "qos", 1)
+    check_against("pipeline-qos-main", rep, qos_rep, classes=True)
+    print(f"[pipeline-qos-main] analyzer {rep.analyzer_s - before['analyzer_s']:.6f} s/step, "
+          f"split {json.dumps(split(rep, before, 1))}")
+    print(f"[pipeline] phase 14 ran {time.perf_counter() - t0:.1f} s")
+    return rows, scan, hosts, c["qos"]
+
+
 def sass_counts(path) -> str:
     """How many atomic, double-add and match instructions a built library's
     SASS holds (cuobjdump), or why it could not be read."""
@@ -2196,12 +2455,12 @@ def main(argv) -> int:
         print(f"[done] chip_smoke --cascades ran {time.perf_counter() - t_start:.1f} s")
         return 0
 
-    # -- 4-13. the main paths ----------------------------------------------- #
+    # -- 4-14. the main paths ----------------------------------------------- #
     step, x = main_step(dev)
-    main_row, cascade_launches, main_rep = slice1_main_path(dev, step, x)
+    main_row, cascade_launches, main_rep, main_ref = slice1_main_path(dev, step, x)
     fabric_row, hosts_launches, fabric_rep = fabric_main_path(dev)
-    wide_row, scan_launches = wide_fabric_path(dev)
-    qos_main_row, qos_launches = qos_main_path(dev, step, x, main_rep)
+    wide_row, scan_launches, wide_rep = wide_fabric_path(dev)
+    qos_main_row, qos_launches, qos_rep = qos_main_path(dev, step, x, main_rep)
     qos_fabric_row, qos_hosts_launches = qos_fabric_path(dev, fabric_rep)
     host_rows.append(fabric_row)
     scan_rows.append(wide_row)
@@ -2214,8 +2473,14 @@ def main(argv) -> int:
     cascade_launches += migration_cache_path(step, x, main_rep)
     hosts_launches += fabric_migration_path()
     cascade_launches += model_zoo_path(step, x)
+    chain_rows, scan14, hosts14, qos14 = pipeline_path(
+        dev, step, x, main_rep, main_ref, fabric_rep, wide_rep, qos_rep)
+    scan_rows += chain_rows
+    scan_launches += scan14
+    hosts_launches += hosts14
+    qos_launches += qos14
 
-    # -- 14. the kernels line and the result -------------------------------- #
+    # -- 15. the kernels line and the result -------------------------------- #
     src = "src/repro_torch/kernels/csrc/"
     kernels = []
     for name, source, replaces, launches, comps, row in (

@@ -6,8 +6,9 @@ Components (paper Figure 2):
   Tracer  -> :mod:`repro_torch.core.tracer` (+ :mod:`.events` region map)
   Timer   -> :mod:`repro_torch.core.timer`
   Timing Analyzer -> :mod:`repro_torch.core.analyzer` (batched PyTorch; the
-  congestion cascade is a hand-written CUDA kernel on the card) and the
-  fine-grained DES baseline
+  congestion cascade is a hand-written CUDA kernel on the card; the
+  device-resident pipeline's dispatch cache in :mod:`repro_torch.core.aot`)
+  and the fine-grained DES baseline
   Topology -> :mod:`repro_torch.core.topology`
   Placement -> :mod:`repro_torch.core.policy`
   Pooling  -> :mod:`repro_torch.core.fabric` (co-attached tenants on one
@@ -17,13 +18,17 @@ Components (paper Figure 2):
 """
 
 from .analyzer import (
+    ChainPlan,
     DelayBreakdown,
     EpochAnalyzer,
     FineGrainedSimulator,
+    PendingBatch,
     analyze_ref,
     bucket_pow2,
     plan_cascade,
+    plan_chain,
 )
+from .aot import AotDispatchCache
 from .attach import AttachedProgram, CXLMemSim, SimReport
 from .cache import DeviceCacheConfig, DeviceCacheModel
 from .coherency import CoherencyConfig, CoherencyModel
@@ -77,9 +82,11 @@ from .tracer import (
 
 __all__ = [
     "Access",
+    "AotDispatchCache",
     "AttachedProgram",
     "CACHELINE_BYTES",
     "CXLMemSim",
+    "ChainPlan",
     "ClassMapPolicy",
     "CoherencyConfig",
     "CoherencyModel",
@@ -104,6 +111,7 @@ __all__ = [
     "MigrationConfig",
     "MigrationSimulator",
     "PAGE_BYTES",
+    "PendingBatch",
     "Phase",
     "PlacementPolicy",
     "Pool",
@@ -126,6 +134,7 @@ __all__ = [
     "local_only_topology",
     "merge_host_traces",
     "plan_cascade",
+    "plan_chain",
     "pooled_topology",
     "skeleton_to_events",
     "slice_by_quantum",

@@ -35,24 +35,30 @@ from __future__ import annotations
 
 import dataclasses
 import heapq
-from typing import List, Optional, Sequence, Tuple
+import time
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..kernels import ops as kops
+from .aot import AotDispatchCache
 from .events import EventStager, MemEvents
 from .topology import FlatTopology
+from .units import ms_to_ns, ns_to_s
 
 __all__ = [
+    "ChainPlan",
     "DelayBreakdown",
     "DispatchStats",
     "EpochAnalyzer",
     "FineGrainedSimulator",
+    "PendingBatch",
     "analyze_any",
     "analyze_ref",
     "bucket_pow2",
     "plan_cascade",
+    "plan_chain",
     "serial_queue_ref",
 ]
 
@@ -60,8 +66,8 @@ __all__ = [
 @dataclasses.dataclass(frozen=True)
 class DispatchStats:
     """Observability record for the most recent dispatch (a copy of the
-    reference's record; this slice fills ``rows``, ``padded_fraction`` and
-    ``qos_classes`` and leaves the rest at their defaults).
+    reference's record; sharding is not ported, so ``devices_used`` stays 1
+    and ``shard_rows`` 0).
 
     ``devices_used`` is 1 whenever sharding did not engage; ``shard_rows``
     is the per-device slice of the (padded) leading axis, 0 when unsharded;
@@ -70,14 +76,18 @@ class DispatchStats:
 
     The pipeline breakdown splits the dispatch wall clock: ``stage_s``
     host staging (pack/fill, zero argsort on the pipeline path),
-    ``transfer_s`` H2D placement, ``compile_s`` AOT lowering (nonzero only
-    on a cache miss — steady state is 0), ``compute_s`` time spent blocked
+    ``transfer_s`` H2D placement (on the card the copy stream's time between
+    two events around the copies; on the CPU the host clock),
+    ``compile_s`` the dispatch cache's build of the key's device buffers
+    (nonzero only on a miss — steady state is 0), ``compute_s`` time spent
+    enqueueing and blocked
     on device execution (under the engine's overlapped dispatcher this is
     only the *exposed* compute, the part H2D/staging of the next batch
-    could not hide).  ``donated`` records whether the dispatch reused the
-    staged device buffers in place; ``aot_cache_hit`` whether it ran a
-    pre-compiled executable.  Non-pipeline dispatches leave all six at
-    their defaults.
+    could not hide).  ``donated`` stays False: eager PyTorch has no
+    buffer donation, and the reuse that the reference's donation buys comes
+    here from the dispatch cache's preallocated buffers on every dispatch;
+    ``aot_cache_hit`` whether the key's buffers were already built.
+    Non-pipeline dispatches leave all six at their defaults.
 
     ``qos_classes`` is the number of QoS classes the dispatched graph
     decomposed congestion over (1 = the plain FIFO fabric).
@@ -486,6 +496,47 @@ def plan_cascade(flat: FlatTopology):
     return bits_pool, merge_plan, stage_order
 
 
+@dataclasses.dataclass(frozen=True)
+class ChainPlan:
+    """Static routing data for the device-resident pipeline dispatch.
+
+    ``enter_stage[v]`` is the cascade stage position at which events of
+    virtual pool ``v`` first enter the fabric (-1 = local, never routed).
+    Valid only for *chain* topologies: single host, and every stage mask a
+    subset of the next in stage order (deepest-first) — then an event
+    entering at position ``p`` traverses exactly stages ``p..S-1``, which
+    is what lets :func:`repro_torch.kernels.ref.chain_cascade` process a
+    compact growing suffix instead of the full padded plane.
+    """
+
+    enter_stage: np.ndarray  # [V] int32
+    stage_order: Tuple[int, ...]
+
+
+def plan_chain(flat: FlatTopology) -> Optional[ChainPlan]:
+    """Chain-eligibility check; None when the compact cascade cannot apply.
+
+    Eligible: ``n_hosts == 1`` and nested stage masks (``M_p ⊆ M_{p+1}``
+    in stage order).  Every linear expander chain — the paper's Figure 1
+    shape, two-tier trees with one leaf switch per level on the path, and
+    the deep ``chained_topology`` — qualifies; sibling switches at the
+    same depth (disjoint masks) do not, and those dispatches run the
+    full-plane path through the same dispatch cache.
+    """
+    if flat.n_hosts != 1:
+        return None
+    route = np.asarray(flat.route)
+    stage_order = tuple(int(s) for s in flat.stage_order())
+    masks = [route[:, s] > 0 for s in stage_order]
+    for p in range(len(masks) - 1):
+        if np.any(masks[p] & ~masks[p + 1]):
+            return None
+    enter = np.full((route.shape[0],), -1, np.int32)
+    for p in range(len(masks) - 1, -1, -1):
+        enter[masks[p]] = p
+    return ChainPlan(enter_stage=enter, stage_order=stage_order)
+
+
 # --------------------------------------------------------------------------- #
 # Batched epoch analysis in PyTorch (the production path)
 # --------------------------------------------------------------------------- #
@@ -499,6 +550,88 @@ def _host_sums(values: torch.Tensor, host: torch.Tensor, n_hosts: int) -> torch.
         (values.shape[0], n_hosts), dtype=torch.float64, device=values.device
     )
     return out.scatter_add_(1, host, values.to(torch.float64))
+
+
+def _latency(
+    pool64: torch.Tensor,  # [B, N] i64 physical pool
+    vp: torch.Tensor,  # [B, N] i64 virtual pool (host * P + pool)
+    weight: torch.Tensor,  # [B, N] f32
+    valid: torch.Tensor,  # [B, N] bool
+    lat_scale: torch.Tensor,  # [B, V] f32
+    pool_latency_ns: torch.Tensor,  # [V] f32
+    local_latency_ns: torch.Tensor,  # [] f32
+    n_pools: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Latency delay: a gather plus a one-hot contraction.  Returns the
+    per-event delays ``[B, N]`` (0 on invalid events), their sums per
+    physical pool ``[B, P]`` and their totals ``[B]``."""
+    per_event_lat = (
+        torch.clamp(pool_latency_ns[vp] - local_latency_ns, min=0.0)
+        * torch.gather(lat_scale, 1, vp)
+        * weight
+    )
+    per_event_lat = torch.where(valid, per_event_lat, 0.0)
+    # keyed by the *physical* pool: multi-host batches report [P], not [H*P]
+    pool_onehot = (  # [B, N, P]
+        pool64[..., None] == torch.arange(n_pools, device=pool64.device)
+    ).to(weight.dtype)
+    per_pool_lat = torch.bmm(per_event_lat[:, None, :], pool_onehot)[:, 0]  # [B, P]
+    return per_event_lat, per_pool_lat, per_event_lat.sum(dim=1)
+
+
+def _bandwidth(
+    t_end: torch.Tensor,  # [B, M] f32 post-congestion times
+    lat_e: torch.Tensor,  # [B, M] f32 each event's latency delay
+    vp_e: torch.Tensor,  # [B, M] i64 each event's virtual pool
+    nbytes_e: torch.Tensor,  # [B, M] f32
+    valid_e: torch.Tensor,  # [B, M] bool
+    bw_window_ns: torch.Tensor,  # [B] f32
+    route: torch.Tensor,  # [V, S] f32
+    switch_bw: torch.Tensor,  # [S] f32 bytes/ns
+    n_windows: int,
+    n_hosts: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Bandwidth delay: one scatter-add over (window, virtual pool) keys,
+    then a tiny ``[W, V] @ [V, S]`` product distributes pools onto
+    switches.  Returns per-switch ``[B, S]``, total ``[B]`` and per-host
+    ``[B, H]`` stretch."""
+    n_rows = t_end.shape[0]
+    V, S = route.shape
+    P = V // n_hosts
+    t_obs = torch.where(valid_e, t_end + lat_e, 0.0)
+    win = torch.clamp(
+        (t_obs / bw_window_ns[:, None]).to(torch.int32), max=n_windows - 1
+    )
+    win = torch.where(valid_e, win, n_windows - 1)
+    key = win.to(torch.int64) * V + vp_e
+    wp = torch.zeros((n_rows, n_windows * V), dtype=t_end.dtype, device=t_end.device)
+    wp.scatter_add_(1, key, torch.where(valid_e, nbytes_e, 0.0))
+    if n_hosts == 1:
+        wbytes = torch.matmul(wp.view(n_rows, n_windows, V), route)  # [B, W, S]
+        wbytes_h = None
+    else:
+        wbytes_h = torch.einsum(  # [B, W, H, S]
+            "bwhp,hps->bwhs",
+            wp.view(n_rows, n_windows, n_hosts, P),
+            route.view(n_hosts, P, S),
+        )
+        wbytes = wbytes_h.sum(dim=2)
+    # bw <= 0 means an unconstrained component (analyze_ref skips it)
+    bw_ok = switch_bw > 0
+    bw_safe = torch.where(bw_ok, switch_bw, 1.0)
+    stretch = torch.clamp(
+        wbytes / bw_safe - bw_window_ns[:, None, None], min=0.0
+    )
+    stretch = torch.where(bw_ok, stretch, 0.0)
+    per_switch_bw = stretch.sum(dim=1)  # [B, S]
+    bandwidth = per_switch_bw.sum(dim=1)
+    if wbytes_h is None:
+        per_host_bw = bandwidth[:, None]
+    else:
+        # window stretch attributed to hosts by their byte share in the window
+        share = stretch / torch.clamp(wbytes, min=1e-30)
+        per_host_bw = torch.einsum("bws,bwhs->bh", share, wbytes_h)
+    return per_switch_bw, bandwidth, per_host_bw
 
 
 def _analyze_batch(
@@ -554,17 +687,9 @@ def _analyze_batch(
     host64 = None if n_hosts == 1 else host.to(torch.int64)
     vp = pool64 if n_hosts == 1 else host64 * P + pool64
 
-    # -- latency: gather + one-hot contraction ----------------------------- #
-    per_event_lat = (
-        torch.clamp(pool_latency_ns[vp] - local_latency_ns, min=0.0)
-        * torch.gather(lat_scale, 1, vp)
-        * weight
+    per_event_lat, per_pool_lat, latency = _latency(
+        pool64, vp, weight, valid, lat_scale, pool_latency_ns, local_latency_ns, P
     )
-    per_event_lat = torch.where(valid, per_event_lat, 0.0)
-    # keyed by the *physical* pool: multi-host batches report [P], not [H*P]
-    pool_onehot = (pool64[..., None] == torch.arange(P, device=dev)).to(dtype)  # [B, N, P]
-    per_pool_lat = torch.bmm(per_event_lat[:, None, :], pool_onehot)[:, 0]  # [B, P]
-    latency = per_event_lat.sum(dim=1)
     if n_hosts == 1:
         per_host_lat = latency[:, None]
     else:
@@ -654,47 +779,85 @@ def _analyze_batch(
     else:
         lat_e, vp_e, nbytes_e, valid_e = per_event_lat, vp, nbytes, valid
 
-    # -- bandwidth: one scatter-add over (window, virtual pool) keys, then a
-    #    tiny [W, V] @ [V, S] product distributes pools onto switches ------ #
-    t_obs = torch.where(valid_e, t_end + lat_e, 0.0)
-    win = torch.clamp(
-        (t_obs / bw_window_ns[:, None]).to(torch.int32), max=n_windows - 1
+    per_switch_bw, bandwidth, per_host_bw = _bandwidth(
+        t_end, lat_e, vp_e, nbytes_e, valid_e, bw_window_ns, route, switch_bw,
+        n_windows, n_hosts,
     )
-    win = torch.where(valid_e, win, n_windows - 1)
-    key = win.to(torch.int64) * V + vp_e
-    wp = torch.zeros((n_rows, n_windows * V), dtype=dtype, device=dev)
-    wp.scatter_add_(1, key, torch.where(valid_e, nbytes_e, 0.0))
-    if n_hosts == 1:
-        wbytes = torch.matmul(wp.view(n_rows, n_windows, V), route)  # [B, W, S]
-        wbytes_h = None
-    else:
-        wbytes_h = torch.einsum(  # [B, W, H, S]
-            "bwhp,hps->bwhs",
-            wp.view(n_rows, n_windows, n_hosts, P),
-            route.view(n_hosts, P, S),
-        )
-        wbytes = wbytes_h.sum(dim=2)
-    # bw <= 0 means an unconstrained component (analyze_ref skips it)
-    bw_ok = switch_bw > 0
-    bw_safe = torch.where(bw_ok, switch_bw, 1.0)
-    stretch = torch.clamp(
-        wbytes / bw_safe - bw_window_ns[:, None, None], min=0.0
-    )
-    stretch = torch.where(bw_ok, stretch, 0.0)
-    per_switch_bw = stretch.sum(dim=1)  # [B, S]
-    bandwidth = per_switch_bw.sum(dim=1)
-    if wbytes_h is None:
-        per_host_bw = bandwidth[:, None]
-    else:
-        # window stretch attributed to hosts by their byte share in the window
-        share = stretch / torch.clamp(wbytes, min=1e-30)
-        per_host_bw = torch.einsum("bws,bwhs->bh", share, wbytes_h)
 
     rows = torch.cat(
         [
             latency[:, None], congestion[:, None], bandwidth[:, None],
             per_pool_lat, per_switch_cong, per_switch_bw,
             per_host_lat, per_host_cong, per_host_bw, per_class_cong,
+        ],
+        dim=1,
+    )
+    return rows.sum(dim=0)
+
+
+def _analyze_pipeline(
+    t_pack: torch.Tensor,  # [B, W] f32 per-stage packed sorted runs (+inf pads)
+    idx_pack: torch.Tensor,  # [B, W] i32 positions into the staged row (-1 pads)
+    pool: torch.Tensor,  # [B, N] i32 full plane (staged row order)
+    nbytes: torch.Tensor,  # [B, N] f32
+    weight: torch.Tensor,  # [B, N] f32
+    valid: torch.Tensor,  # [B, N] bool
+    bw_window_ns: torch.Tensor,  # [B] f32
+    lat_scale: torch.Tensor,  # [B, V] f32
+    pool_latency_ns: torch.Tensor,  # [V] f32
+    local_latency_ns: torch.Tensor,  # [] f32
+    route: torch.Tensor,  # [V, S] f32
+    switch_bw: torch.Tensor,  # [S] f32
+    stage_idx: torch.Tensor,  # [D] i64 switch of each stage, stage order
+    stage_stt: Tuple[float, ...],  # [D] service times, stage order, on the host
+    seg_caps: Tuple[int, ...],  # packed segment widths
+    n_windows: int,
+) -> torch.Tensor:
+    """Device-resident single-host chain dispatch (port of the reference's
+    ``_analyze_pipeline_jax``).
+
+    The merge of the per-stage sorted runs into one fabric timeline and
+    every serial-queue scan run on the device
+    (:func:`repro_torch.kernels.ops.chain_cascade` over a compact suffix
+    that only ever holds routed events), so staging performed zero host
+    argsorts.  Bandwidth windows come straight off the compact array:
+    local-DRAM route rows are all zero, so unrouted events could only ever
+    contribute zero bytes to every switch — skipping them is exact.
+    Latency stays the full-plane gather.  Returns the flat totals of
+    :func:`_analyze_batch` (this path is FIFO and single-host, so the
+    per-host and per-class leaves are the totals).
+    """
+    n_rows = t_pack.shape[0]
+    V, S = route.shape
+    pool64 = pool.to(torch.int64)
+    per_event_lat, per_pool_lat, latency = _latency(
+        pool64, pool64, weight, valid, lat_scale, pool_latency_ns, local_latency_ns, V
+    )
+
+    # congestion: compact suffix cascade (merges, then each stage's scan)
+    t_fin, idx_fin, dsums = kops.chain_cascade(t_pack, idx_pack, stage_stt, seg_caps)
+    per_switch_cong = torch.zeros((n_rows, S), dtype=t_pack.dtype, device=t_pack.device)
+    per_switch_cong[:, stage_idx] = dsums
+    congestion = per_switch_cong.sum(dim=1)
+
+    # bandwidth from the compact array: payloads gathered through the
+    # staged-row positions the cascade carried along
+    real = idx_fin >= 0
+    safe = idx_fin.clamp(min=0).to(torch.int64)
+    per_switch_bw, bandwidth, _ = _bandwidth(
+        t_fin,
+        torch.gather(per_event_lat, 1, safe),
+        torch.gather(pool64, 1, safe),
+        torch.gather(nbytes, 1, safe),
+        real, bw_window_ns, route, switch_bw, n_windows, 1,
+    )
+
+    rows = torch.cat(
+        [
+            latency[:, None], congestion[:, None], bandwidth[:, None],
+            per_pool_lat, per_switch_cong, per_switch_bw,
+            latency[:, None], congestion[:, None], bandwidth[:, None],
+            congestion[:, None],
         ],
         dim=1,
     )
@@ -711,6 +874,141 @@ def _check_device(device) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+class _DeviceRing:
+    """One ``(batch, length)`` bucket's device side of the staging ring: a
+    preallocated device buffer for every full plane (``planes``), one flat
+    device buffer each for the chain path's packed ``(t, idx)`` as wide as
+    the widest segment capacities reserved yet (:meth:`reserve`), and host
+    buffers (pinned for a card) for the window and scale rows, which each
+    dispatch makes anew.  Every dispatch key of the bucket runs from this
+    one ring, so new capacities never allocate full planes again.
+
+    :meth:`upload` copies a dispatch's host planes in: on the card
+    asynchronously on ``copy_stream``, after the last compute-stream use of
+    these buffers (``read``: the last dispatch that read them, or their
+    allocation) and ending in an event (``copied``) that the compute stream
+    waits on; on the CPU as plain copies.
+    """
+
+    ROWS = ("window", "scale")  # the per-dispatch rows, staged here
+    PACKED = {"t": torch.float32, "idx": torch.int32}
+
+    def __init__(self, specs: Dict[str, tuple], device: torch.device):
+        self.device = device
+        self.planes = {
+            name: torch.empty(shape, dtype=dtype, device=device)
+            for name, (shape, dtype) in specs.items()
+        }
+        pin = device.type == "cuda"
+        self.rows = {
+            name: torch.empty(specs[name][0], dtype=specs[name][1], pin_memory=pin)
+            for name in self.ROWS
+        }
+        self.flat: Dict[str, torch.Tensor] = {}
+        self.copied = None
+        self.release()
+
+    def reserve(self, b_bucket: int, width: int) -> None:
+        """Make room for packed planes of ``[b_bucket, width]``: the flat
+        buffers grow (the narrower ones are freed) only past the widest
+        reservation yet."""
+        if self.flat and self.flat["t"].numel() >= b_bucket * width:
+            return
+        self.flat = {
+            name: torch.empty(b_bucket * width, dtype=dtype, device=self.device)
+            for name, dtype in self.PACKED.items()
+        }
+        self.release()
+
+    def packed(self, b_bucket: int, width: int) -> Dict[str, torch.Tensor]:
+        """The packed ``(t, idx)`` planes of one dispatch: contiguous
+        ``[b_bucket, width]`` views at the head of the flat buffers."""
+        n = b_bucket * width
+        return {name: buf[:n].view(b_bucket, width) for name, buf in self.flat.items()}
+
+    def upload(
+        self, dst: Dict[str, torch.Tensor], host: Dict[str, np.ndarray], copy_stream
+    ):
+        """Copy one dispatch's host planes into ``dst``, this ring's device
+        buffers (the window and scale rows through its own host buffers).
+        Returns the copy's seconds on the CPU, or on the card its ``(start,
+        end)`` timing events on ``copy_stream``."""
+        if self.copied is not None:  # the host rows' last copy is done
+            self.copied.synchronize()
+        for name in self.ROWS:
+            self.rows[name].numpy()[:] = host[name]
+        src = {
+            name: self.rows[name] if name in self.rows else torch.from_numpy(host[name])
+            for name in dst
+        }
+        if copy_stream is None:
+            t0 = time.perf_counter()
+            for name, a in src.items():
+                dst[name].copy_(a)
+            return time.perf_counter() - t0
+        copy_stream.wait_event(self.read)
+        start = torch.cuda.Event(enable_timing=True)
+        self.copied = torch.cuda.Event(enable_timing=True)
+        with torch.cuda.stream(copy_stream):
+            start.record(copy_stream)
+            for name, a in src.items():
+                dst[name].copy_(a, non_blocking=True)
+            self.copied.record(copy_stream)
+        torch.cuda.current_stream(self.device).wait_event(self.copied)
+        return start, self.copied
+
+    def release(self) -> None:
+        """Mark the device buffers as used by the compute stream up to now
+        (the dispatch just enqueued, or an allocation, whose memory may
+        have served work still queued there); the next copy waits for it."""
+        if self.device.type == "cuda":
+            self.read = torch.cuda.Event()
+            self.read.record(torch.cuda.current_stream(self.device))
+        else:
+            self.read = None
+
+
+@dataclasses.dataclass
+class PendingBatch:
+    """An in-flight epoch dispatch: staged, transferred and launched, but
+    not yet resolved.  :meth:`finish` makes the batch's single D2H copy and
+    returns the :class:`DelayBreakdown`; until then the caller is free to
+    stage and launch the *next* batch.  ``stats.compute_s`` is finalized at
+    finish time with the exposed device wait, and on the card
+    ``stats.transfer_s`` with the copy stream's time between ``copies``."""
+
+    analyzer: "EpochAnalyzer"
+    out: Optional[torch.Tensor]
+    stats: DispatchStats
+    copies: Optional[tuple] = None  # (start, end) CUDA events around the H2D copies
+
+    def finish(self) -> DelayBreakdown:
+        a = self.analyzer
+        P, S, H = a.flat.n_pools, a.flat.n_switches, a.flat.n_hosts
+        if self.out is None:
+            a.last_dispatch = self.stats
+            return DelayBreakdown.zero(P, S, H)
+        t0 = time.perf_counter()
+        # the single host-boundary crossing for the whole batch
+        tot = self.out.cpu().numpy().astype(np.float64)
+        stats = self.stats
+        if a.pipeline:
+            stats = dataclasses.replace(
+                stats, compute_s=stats.compute_s + (time.perf_counter() - t0)
+            )
+        if self.copies is not None:
+            start, end = self.copies
+            stats = dataclasses.replace(
+                stats, transfer_s=ns_to_s(ms_to_ns(start.elapsed_time(end)))
+            )
+        a.last_dispatch = self.stats = stats
+        self.out = None
+        lat, cong, bw = (float(x) for x in tot[:3])
+        parts = np.split(tot[3:], np.cumsum([P, S, S, H, H, H]))
+        ppl, psc, psb, phl, phc, phb, pcc = parts
+        return DelayBreakdown(lat, cong, bw, ppl, psc, psb, phl, phc, phb, pcc)
 
 
 class EpochAnalyzer:
@@ -732,8 +1030,23 @@ class EpochAnalyzer:
     arbitrating switches (``FlatTopology.has_qos``) run the QoS cascade,
     host-segmented on multi-host fabrics, and report congestion per class;
     it needs the fused cascade, so QoS on the unfused loop raises
-    ``ValueError`` as in the reference.  ``pipeline=`` (slice 4) and
-    ``mesh=`` (slice 6) raise ``NotImplementedError``.
+    ``ValueError`` as in the reference.  ``mesh=`` (slice 6) raises
+    ``NotImplementedError``.
+
+    ``pipeline=True`` enables the device-resident dispatch path
+    (:meth:`launch_batch`): the host planes are staged into pinned buffers
+    (on a card) and copied asynchronously on a side stream into the
+    preallocated device buffers of the dispatch key (``aot``, an
+    :class:`~repro_torch.core.aot.AotDispatchCache`, private by default;
+    no caller in the port passes one before the analysis engine, slice 4).
+    Keys of one ``(batch, length)`` bucket share its full-plane buffers.
+    Chain-eligible FIFO topologies (:func:`plan_chain`) then run the packed
+    compact cascade (:func:`_analyze_pipeline`), the merges on the device
+    and each stage's scan in the scan kernel; every other topology runs the
+    full-plane :func:`_analyze_batch` from the dispatch cache's buffers.
+    The stage/transfer/compile/compute split lands in
+    :attr:`last_dispatch`.  The default (``pipeline=False``) copies each
+    plane with a pageable ``torch.from_numpy(a).to(device)``.
     """
 
     def __init__(
@@ -744,13 +1057,9 @@ class EpochAnalyzer:
         device="cuda",
         fused: bool = True,
         pipeline: bool = False,
+        aot: Optional[AotDispatchCache] = None,
         mesh=None,
     ):
-        if pipeline:
-            raise NotImplementedError(
-                "the device-resident pipeline (pipeline=True) comes with "
-                "slice 4 of the port"
-            )
         if mesh is not None:
             raise NotImplementedError("sharded dispatch (mesh=) comes with slice 6 of the port")
         self.flat = flat
@@ -797,7 +1106,27 @@ class EpochAnalyzer:
             )
         else:
             self._disc = self._weights = None
-        self._stager = EventStager(np.float32)
+        self.pipeline = bool(pipeline)
+        # pinned host planes only where an asynchronous copy reads them
+        self._stager = EventStager(np.float32, pin=self.pipeline and dev.type == "cuda")
+        self._chain_plan: Optional[ChainPlan] = None
+        self._aot: Optional[AotDispatchCache] = None
+        self._rings: Dict[Tuple[int, int], _DeviceRing] = {}
+        self._copy_stream = None
+        if self.pipeline:
+            self._aot = aot if aot is not None else AotDispatchCache()
+            # the packed compact cascade is FIFO-only: QoS topologies run the
+            # full-plane path (still through the dispatch cache) instead
+            self._chain_plan = None if self.qos_on else plan_chain(flat)
+            if dev.type == "cuda":
+                self._copy_stream = torch.cuda.Stream(dev)
+        if self._chain_plan is not None:
+            order = list(self._chain_plan.stage_order)
+            self._chain_stage_idx = torch.tensor(order, dtype=torch.int64, device=dev)
+            # each stage's scan takes its STT by value, as the unfused loop's
+            self._chain_stt = tuple(
+                float(x) for x in np.asarray(flat.switch_stt_ns, np.float32)[order]
+            )
 
     _bucket = staticmethod(bucket_pow2)
 
@@ -808,18 +1137,12 @@ class EpochAnalyzer:
             [events], None if lat_scale is None else [lat_scale]
         )
 
-    def analyze_batch(
+    def _clean_pairs(
         self,
         traces: Sequence[MemEvents],
-        lat_scales: Optional[Sequence[Optional[np.ndarray]]] = None,
-    ) -> DelayBreakdown:
-        """Analyze B epochs in one batched pass; returns summed totals.
-
-        ``lat_scales`` optionally pairs each epoch with a ``[P]`` latency
-        scale vector; ``None`` entries (and padded rows) analyze with the
-        exact ones vector.
-        """
-        P, S, H = self.flat.n_pools, self.flat.n_switches, self.flat.n_hosts
+        lat_scales: Optional[Sequence[Optional[np.ndarray]]],
+    ) -> List[Tuple[MemEvents, Optional[np.ndarray]]]:
+        """Pair epochs with their scales, drop empties, validate routes."""
         if lat_scales is None:
             lat_scales = [None] * len(traces)
         elif len(lat_scales) != len(traces):
@@ -830,40 +1153,20 @@ class EpochAnalyzer:
         pairs = [(tr, sc) for tr, sc in zip(traces, lat_scales) if tr.n]
         for tr, _ in pairs:
             _check_reachable(self.flat, tr)
-        if not pairs:
-            return DelayBreakdown.zero(P, S, H)
-        traces = [tr for tr, _ in pairs]
-        n_bucket = self._bucket(max(tr.n for tr in traces))
-        b_bucket = self._bucket(len(traces), floor=1)
-        buf = self._stager.stage(traces, b_bucket, n_bucket, qos=self.qos_on)
-        scale_buf = np.ones((b_bucket, H * P), np.float32)
-        for row, (_, sc) in enumerate(pairs):
-            if sc is not None:
-                scale_buf[row] = sc
-        # per-epoch window length: n_windows static windows tile each span
-        span = np.maximum(buf["span"], self.bw_window_ns)
-        bw_window = np.maximum(span / self.n_windows, 1.0)
-        self.last_dispatch = DispatchStats(
-            devices_used=1,
-            shard_rows=0,
-            rows=len(traces),
-            padded_fraction=float(b_bucket - len(traces)) / b_bucket,
-            qos_classes=self.flat.n_qos_classes,
-        )
-        dev = self.device
+        return pairs
 
-        def put(a: np.ndarray) -> torch.Tensor:
-            return torch.from_numpy(a).to(dev)
-
-        out = _analyze_batch(
-            put(buf["t"]),
-            put(buf["pool"]),
-            put(buf["bytes"]),
-            put(buf["weight"]),
-            put(buf["host"]) if H > 1 else None,  # one host: no plane to move
-            put(buf["valid"]),
-            put(bw_window.astype(np.float32)),
-            put(scale_buf),
+    def _run_batch(self, t, pool, nbytes, weight, host, valid, window, scale, qos):
+        """:func:`_analyze_batch` on device planes with this analyzer's
+        topology tensors."""
+        return _analyze_batch(
+            t,
+            pool,
+            nbytes,
+            weight,
+            host,
+            valid,
+            window,
+            scale,
             self._bits_table,
             self._pool_lat,
             self._local_lat,
@@ -872,19 +1175,179 @@ class EpochAnalyzer:
             self._bw,
             stage_order=self._stage_order,
             n_windows=self.n_windows,
-            n_hosts=H,
+            n_hosts=self.flat.n_hosts,
             merge_plan=self._merge_plan,
             stage_stt_ns=self._stage_stt,
-            qos=put(buf["qos"]) if self.qos_on else None,  # FIFO: no plane to move
+            qos=qos,
             disc_code=self._disc,
             class_weights=self._weights,
         )
-        # the single host-boundary crossing for the whole batch
-        tot = out.cpu().numpy().astype(np.float64)
-        lat, cong, bw = (float(x) for x in tot[:3])
-        parts = np.split(tot[3:], np.cumsum([P, S, S, H, H, H]))
-        ppl, psc, psb, phl, phc, phb, pcc = parts
-        return DelayBreakdown(lat, cong, bw, ppl, psc, psb, phl, phc, phb, pcc)
+
+    def _ring(self, b_bucket: int, n_bucket: int, width: int) -> _DeviceRing:
+        """The bucket's device ring, made on first use, with room for packed
+        planes ``width`` wide (0: none, off the chain).  The full planes are
+        those the dispatch kind reads, the reference's staged planes."""
+        ring = self._rings.get((b_bucket, n_bucket))
+        if ring is None:
+            full = (b_bucket, n_bucket)
+            specs = {
+                "pool": (full, torch.int32),
+                "bytes": (full, torch.float32),
+                "weight": (full, torch.float32),
+                "valid": (full, torch.bool),
+                "window": ((b_bucket,), torch.float32),
+                "scale": ((b_bucket, self.flat.n_hosts * self.flat.n_pools), torch.float32),
+            }
+            if self._chain_plan is None:
+                specs["t"] = (full, torch.float32)
+                if self.flat.n_hosts > 1:
+                    specs["host"] = (full, torch.int32)
+                if self.qos_on:
+                    specs["qos"] = (full, torch.int32)
+            ring = self._rings[(b_bucket, n_bucket)] = _DeviceRing(specs, self.device)
+        if width:
+            ring.reserve(b_bucket, width)
+        return ring
+
+    def launch_batch(
+        self,
+        traces: Sequence[MemEvents],
+        lat_scales: Optional[Sequence[Optional[np.ndarray]]] = None,
+    ) -> PendingBatch:
+        """Stage, transfer and launch one epoch batch without blocking.
+
+        The non-blocking half of :meth:`analyze_batch` (same arguments,
+        same semantics once the returned :class:`PendingBatch` is
+        finished).  Pipeline analyzers copy the staged planes into the
+        dispatch key's device buffers on the side stream and run the packed
+        chain dispatch on chain-eligible topologies, the full-plane
+        analysis otherwise, recording the stage/transfer/compile/compute
+        split; non-pipeline analyzers copy each plane with a pageable
+        ``torch.from_numpy(a).to(device)`` and leave the split at its
+        defaults.
+        """
+        P, H = self.flat.n_pools, self.flat.n_hosts
+        pairs = self._clean_pairs(traces, lat_scales)
+        if not pairs:
+            return PendingBatch(self, None, DispatchStats(rows=0))
+        traces = [tr for tr, _ in pairs]
+        t0 = time.perf_counter()
+        n_bucket = self._bucket(max(tr.n for tr in traces))
+        b_bucket = self._bucket(len(traces), floor=1)
+        st = self._stager
+        chain = self._chain_plan
+        pack = caps = None
+        if chain is not None:
+            # the chain path never reads the qos plane
+            buf, pack, caps = st.stage_packed(
+                traces, b_bucket, n_bucket, chain.enter_stage,
+                len(chain.stage_order), qos=False,
+            )
+        else:
+            buf = st.stage(traces, b_bucket, n_bucket, qos=self.qos_on)
+        scale_buf = np.ones((b_bucket, H * P), np.float32)
+        for row, (_, sc) in enumerate(pairs):
+            if sc is not None:
+                scale_buf[row] = sc
+        # per-epoch window length: n_windows static windows tile each span
+        span = np.maximum(buf["span"], self.bw_window_ns)
+        bw_window = np.maximum(span / self.n_windows, 1.0).astype(np.float32)
+        stats = DispatchStats(
+            devices_used=1,
+            shard_rows=0,
+            rows=len(traces),
+            padded_fraction=float(b_bucket - len(traces)) / b_bucket,
+            qos_classes=self.flat.n_qos_classes,
+        )
+        if not self.pipeline:
+            dev = self.device
+
+            def put(a: np.ndarray) -> torch.Tensor:
+                return torch.from_numpy(a).to(dev)
+
+            out = self._run_batch(
+                put(buf["t"]),
+                put(buf["pool"]),
+                put(buf["bytes"]),
+                put(buf["weight"]),
+                put(buf["host"]) if H > 1 else None,  # one host: no plane to move
+                put(buf["valid"]),
+                put(bw_window),
+                put(scale_buf),
+                put(buf["qos"]) if self.qos_on else None,  # FIFO: no plane to move
+            )
+            return PendingBatch(self, out, stats)
+        t1 = time.perf_counter()
+
+        # the reference's dispatch keys; a key's entry is its bucket's ring
+        width = 0 if chain is None else int(sum(caps))
+        key = ("batch", b_bucket, n_bucket) if chain is None else (
+            "chain", b_bucket, n_bucket, caps)
+        ring, hit = self._aot.get(key, lambda: self._ring(b_bucket, n_bucket, width))
+        compile_s = 0.0 if hit else time.perf_counter() - t1
+        d = dict(ring.planes)
+        if chain is not None:
+            d.update(ring.packed(b_bucket, width))
+        planes = {**buf, **(pack or {}), "window": bw_window, "scale": scale_buf}
+        copies = ring.upload(d, {name: planes[name] for name in d}, self._copy_stream)
+        if self._copy_stream is None:
+            transfer_s, copies = copies, None
+        else:  # read off the copy events at finish
+            transfer_s = 0.0
+            st.fence([buf] if pack is None else [buf, pack], copies[1])
+        t2 = time.perf_counter()
+        if chain is not None:
+            out = _analyze_pipeline(
+                d["t"], d["idx"], d["pool"], d["bytes"], d["weight"], d["valid"],
+                d["window"], d["scale"], self._pool_lat, self._local_lat, self._route,
+                self._bw, self._chain_stage_idx, self._chain_stt, caps, self.n_windows,
+            )
+        else:
+            out = self._run_batch(
+                d["t"], d["pool"], d["bytes"], d["weight"], d.get("host"), d["valid"],
+                d["window"], d["scale"], d.get("qos"),
+            )
+        ring.release()
+        stats = dataclasses.replace(
+            stats,
+            stage_s=t1 - t0,
+            transfer_s=transfer_s,
+            compile_s=compile_s,
+            compute_s=time.perf_counter() - t2,
+            aot_cache_hit=hit,
+        )
+        self.last_dispatch = stats
+        return PendingBatch(self, out, stats, copies)
+
+    def warmup(
+        self,
+        traces: Sequence[MemEvents],
+        lat_scales: Optional[Sequence[Optional[np.ndarray]]] = None,
+    ) -> bool:
+        """Build the dispatch cache's entry that this batch shape would use
+        (one throwaway dispatch), so the first *real* dispatch of a serving
+        loop finds its device buffers in place.  Returns True if a build
+        actually happened (False: already warm, empty batch, or a
+        non-pipeline analyzer)."""
+        if not self.pipeline:
+            return False
+        before = self._aot.lowerings
+        self.launch_batch(traces, lat_scales).finish()
+        return self._aot.lowerings > before
+
+    def analyze_batch(
+        self,
+        traces: Sequence[MemEvents],
+        lat_scales: Optional[Sequence[Optional[np.ndarray]]] = None,
+    ) -> DelayBreakdown:
+        """Analyze B epochs in one batched pass; returns summed totals —
+        :meth:`launch_batch`, then at once :meth:`PendingBatch.finish`.
+
+        ``lat_scales`` optionally pairs each epoch with a ``[H*P]`` latency
+        scale vector; ``None`` entries (and padded rows) analyze with the
+        exact ones vector.
+        """
+        return self.launch_batch(traces, lat_scales).finish()
 
     def analyze_batch_multi(self, *args, **kwargs):
         raise NotImplementedError(

@@ -1,0 +1,60 @@
+"""Dispatch cache for the device-resident epoch pipeline (the counterpart
+of ``repro/core/aot.py``).
+
+The reference compiles one XLA executable per dispatch key ahead of time,
+so a serving loop never stalls on a compile mid-stream.  PyTorch runs
+eagerly and compiles nothing here, so :class:`AotDispatchCache` keeps the
+reference's name, keys and counters but holds, per key, the **device side
+of the staging ring** that dispatch runs from: preallocated device buffers
+for every staged plane of its ``(batch, length)`` bucket (the full planes,
+the window and scale rows) and, on the chain path, room for its packed
+``(t, idx)``.  Keys of one bucket share the bucket's full planes, so a new
+set of segment capacities adds no full-plane buffers.  A dispatch key is
+the reference's — ``("chain", b, n, caps)`` or ``("batch", b, n)`` — so
+
+  * a hit is a dict lookup and no device allocation, observable through
+    the ``lowerings`` (builds) and ``hits`` counters: the steady-state
+    invariant is that ``lowerings`` stops growing;
+  * a miss can be taken ahead of time
+    (:meth:`~repro_torch.core.analyzer.EpochAnalyzer.warmup`);
+  * a build's cost is measured where it happens and reported as
+    ``compile_s`` in :class:`~repro_torch.core.analyzer.DispatchStats`.
+
+The port dispatches synchronously from one thread, so the cache takes no
+lock.  Left out: ``install_persistent_cache`` (XLA's on-disk compilation
+cache has no counterpart; there is nothing compiled to keep), the
+reference's process-wide lowering probe for its JAX recompile sanitizer,
+and ``warm`` (the analyzer warms through one throwaway dispatch, as the
+reference's does).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, Hashable, Tuple
+
+__all__ = ["AotDispatchCache"]
+
+
+class AotDispatchCache:
+    """Map from dispatch key to the device buffers it runs from.
+
+    ``get`` returns ``(entry, hit)``; ``lowerings`` counts how many times a
+    build actually ran, ``hits`` counts lookups served without one.
+    """
+
+    def __init__(self) -> None:
+        self._cache: Dict[Hashable, Any] = {}
+        self.lowerings = 0
+        self.hits = 0
+
+    def __len__(self) -> int:
+        return len(self._cache)
+
+    def get(self, key: Hashable, build: Callable[[], Any]) -> Tuple[Any, bool]:
+        entry = self._cache.get(key)
+        if entry is not None:
+            self.hits += 1
+            return entry, True
+        entry = self._cache[key] = build()
+        self.lowerings += 1
+        return entry, False

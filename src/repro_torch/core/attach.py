@@ -31,8 +31,11 @@ back-invalidation traffic and coherency-miss latency, ``migration=`` (a
 region map) hot/cold migration, and ``cache=`` (a
 :class:`~repro_torch.core.cache.DeviceCacheConfig`) the expander-side device
 cache; both run synchronously on the host, as the reference's do.
-Asynchronous analysis (the reference's shared engine, slice 4 of the port)
-raises ``NotImplementedError``.
+``pipeline=True`` analyzes through the device-resident epoch pipeline
+(pinned staging, the dispatch cache's device buffers, the chain cascade on
+chain topologies), and ``warmup=True`` builds its dispatch-cache entry at
+attach.  Asynchronous analysis (the reference's shared engine, slice 4 of
+the port) raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -182,6 +185,8 @@ class CXLMemSim:
         check_capacity: bool = True,
         max_events_per_access: int = 64,  # trace fidelity (higher = finer)
         async_analysis: Optional[bool] = None,  # None: synchronous
+        pipeline: bool = False,  # device-resident epoch pipeline (dispatch cache + pinned staging)
+        warmup: bool = False,  # build the pipeline's dispatch-cache entry at attach
         device="cuda",
     ):
         if async_analysis:
@@ -202,6 +207,8 @@ class CXLMemSim:
         self.n_windows = n_windows
         self.check_capacity = check_capacity
         self.max_events_per_access = max_events_per_access
+        self.pipeline = pipeline
+        self.warmup = warmup
         self.device = _check_device(device)
 
     def attach(
@@ -251,7 +258,8 @@ class AttachedProgram(EngineClient):
         self.calibration = calibration
         if sim.analyzer_kind == "epoch":
             self._analyzer = EpochAnalyzer(
-                sim.flat, n_windows=sim.n_windows, device=sim.device
+                sim.flat, n_windows=sim.n_windows, device=sim.device,
+                pipeline=sim.pipeline,
             )
         else:
             self._analyzer = FineGrainedSimulator(sim.flat, bandwidth_mode="per_txn")
@@ -268,6 +276,10 @@ class AttachedProgram(EngineClient):
             per_class_congestion_ns=np.zeros((sim.flat.n_qos_classes,)),
         )
         self._trace_cache: Optional[tuple] = None
+        if sim.warmup and isinstance(self._analyzer, EpochAnalyzer):
+            # build the pipeline's dispatch-cache entry on this step's trace
+            # shapes so the first real dispatch is a cache hit
+            self._analyzer.warmup(self._traces()[0])
 
     # ------------------------------------------------------------------ #
 

@@ -17,7 +17,8 @@ them epoch-relative bounds their magnitude (epochs are ms-scale), so float32
 retains sub-ns resolution inside the analyzer; totals are accumulated
 host-side in float64.
 
-The stager's ring slots, packed and stacked planes come with later slices.
+The stager's ring slots and packed planes are ported (the device-resident
+pipeline); its stacked planes come with the sweeps (slice 6).
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ import dataclasses
 from typing import Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 __all__ = [
     "CACHELINE_BYTES",
@@ -275,30 +277,93 @@ class EventStager:
     zero host allocations, and the float64 -> analyzer-dtype conversion
     happens once, during the fill.
 
+    ``pin=True`` allocates every ``[B, N]`` plane as the numpy view of a
+    page-locked torch tensor (``torch.zeros(..., pin_memory=True).numpy()``),
+    once per bucket and slot, so the pipeline's H2D copies run
+    asynchronously at pinned rates; it needs a card.  The stager itself
+    stays host-only: a caller that copies a slot asynchronously hands it a
+    fence (:meth:`fence`, anything with ``synchronize()``), and the stager
+    waits on it before it fills that slot's planes again.
+
     Not thread-safe: every thread that stages must own its stager.  Each
     :class:`~repro_torch.core.analyzer.EpochAnalyzer` keeps a private one.
     """
 
-    def __init__(self, time_dtype: object = np.float32) -> None:
+    # dispatches a bucket's natural caps must sit at (or below) half the
+    # sticky high-water mark before the sticky caps shrink to the recent
+    # peak — a transient burst stops pinning peak-size staging planes (and
+    # their dispatch-cache entries) after this many consecutive idle calls
+    CAP_DECAY_CALLS = 8
+
+    def __init__(
+        self, time_dtype: object = np.float32, slots: int = 1, pin: bool = False
+    ) -> None:
         self.time_dtype = np.dtype(time_dtype)
-        self._bufs: Dict[Tuple[int, int], Dict[str, np.ndarray]] = {}
+        # ``slots`` > 1 turns each bucket's buffer set into a ring: every
+        # stage() call rotates to the next slot before filling, so a caller
+        # overlapping H2D/compute of dispatch k with the staging of k+1
+        # never overwrites host planes an in-flight transfer may still be
+        # reading.
+        self.slots = max(1, int(slots))
+        self.pin = bool(pin)
+        self._bufs: Dict[Tuple[int, int, int], Dict[str, np.ndarray]] = {}
+        self._turn: Dict[Tuple[int, int], int] = {}
+        self._pack_bufs: Dict[Tuple[int, int, int], Dict[str, np.ndarray]] = {}
+        self._cap_hwm: Dict[Tuple[int, int, int], Tuple[int, ...]] = {}
+        # idle-decay state per cap key: consecutive calls whose natural caps
+        # sat at <= half the sticky high-water mark, and the elementwise peak
+        # of the natural caps observed during that streak
+        self._cap_slack: Dict[Tuple[int, int, int], int] = {}
+        self._cap_peak: Dict[Tuple[int, int, int], Tuple[int, ...]] = {}
+        # per buffer set (by identity): the fence of its last asynchronous copy
+        self._fences: Dict[int, object] = {}
+
+    def _zeros(self, shape: Tuple[int, ...], dtype) -> np.ndarray:
+        if not self.pin:
+            return np.zeros(shape, dtype)
+        # the numpy view keeps its pinned tensor alive
+        return torch.zeros(
+            shape, dtype=torch.from_numpy(np.zeros(0, dtype)).dtype, pin_memory=True
+        ).numpy()
+
+    def fence(self, bufs: Sequence[Dict[str, np.ndarray]], done: object) -> None:
+        """Mark buffer sets as read by an asynchronous copy that ``done``
+        (anything with ``synchronize()``, such as a ``torch.cuda.Event``
+        recorded after the copies) completes; the next fill of each waits
+        on it."""
+        for buf in bufs:
+            self._fences[id(buf)] = done
+
+    def _ready(self, buf: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+        done = self._fences.pop(id(buf), None)
+        if done is not None:
+            done.synchronize()
+        return buf
+
+    def rotate(self, b_bucket: int, n_bucket: int) -> int:
+        """Advance this bucket's ring and return the now-current slot."""
+        key = (b_bucket, n_bucket)
+        slot = (self._turn.get(key, self.slots - 1) + 1) % self.slots
+        self._turn[key] = slot
+        return slot
 
     def buffers(self, b_bucket: int, n_bucket: int) -> Dict[str, np.ndarray]:
-        key = (b_bucket, n_bucket)
+        key = (b_bucket, n_bucket, self._turn.get((b_bucket, n_bucket), 0))
         buf = self._bufs.get(key)
         if buf is None:
+            shape = (b_bucket, n_bucket)
             buf = {
-                "t": np.zeros((b_bucket, n_bucket), self.time_dtype),
-                "pool": np.zeros((b_bucket, n_bucket), np.int32),
-                "bytes": np.zeros((b_bucket, n_bucket), self.time_dtype),
-                "weight": np.zeros((b_bucket, n_bucket), self.time_dtype),
-                "host": np.zeros((b_bucket, n_bucket), np.int32),
-                "qos": np.zeros((b_bucket, n_bucket), np.int32),
-                "valid": np.zeros((b_bucket, n_bucket), bool),
+                "t": self._zeros(shape, self.time_dtype),
+                "pool": self._zeros(shape, np.int32),
+                "bytes": self._zeros(shape, self.time_dtype),
+                "weight": self._zeros(shape, self.time_dtype),
+                "host": self._zeros(shape, np.int32),
+                "qos": self._zeros(shape, np.int32),
+                "valid": self._zeros(shape, bool),
                 "span": np.zeros((b_bucket,), np.float64),
             }
             self._bufs[key] = buf
-        return buf
+        return self._ready(buf)
 
     def stage(
         self,
@@ -320,9 +385,134 @@ class EventStager:
         """
         if len(traces) > b_bucket:
             raise ValueError(f"{len(traces)} traces exceed batch bucket {b_bucket}")
+        self.rotate(b_bucket, n_bucket)
         buf = self.buffers(b_bucket, n_bucket)
         self._fill_rows(buf, traces, b_bucket, qos)
         return buf
+
+    def _pack_buffers(self, b_bucket: int, width: int) -> Dict[str, np.ndarray]:
+        key = (b_bucket, width, self._turn.get((b_bucket, width), 0))
+        buf = self._pack_bufs.get(key)
+        if buf is None:
+            buf = {
+                "t": self._zeros((b_bucket, width), self.time_dtype),
+                "idx": self._zeros((b_bucket, width), np.int32),
+            }
+            self._pack_bufs[key] = buf
+        return self._ready(buf)
+
+    def _drop_pack_width(self, b_bucket: int, width: int) -> None:
+        """Free the packed buffer sets of a width that new caps superseded
+        (after their last copies), unless a bucket still packs at it: held
+        caps only change a few times, and page-locked sets must not pile up
+        with each change."""
+        if any(k[0] == b_bucket and sum(c) == width for k, c in self._cap_hwm.items()):
+            return
+        for key in [k for k in self._pack_bufs if k[:2] == (b_bucket, width)]:
+            self._ready(self._pack_bufs.pop(key))
+
+    def stage_packed(
+        self,
+        traces: Sequence["MemEvents"],
+        b_bucket: int,
+        n_bucket: int,
+        enter_stage: np.ndarray,
+        n_stages: int,
+        cap_floor: int = 16,
+        qos: bool = True,
+    ) -> Tuple[Dict[str, np.ndarray], Dict[str, np.ndarray], Tuple[int, ...]]:
+        """Pipeline staging: the full planes of :meth:`stage` plus per-stage
+        packed ``(t, idx)`` planes feeding the device-resident chain cascade.
+
+        ``enter_stage[pool]`` gives the cascade stage position at which an
+        event routed to ``pool`` first enters the fabric (-1 = local, never
+        routed).  Because every staged row is time-sorted and extracting a
+        per-stage subsequence preserves that order, each packed segment is
+        already a sorted run — the merge into one fabric timeline happens on
+        the device, with **zero host argsort** beyond the monotone check of
+        :meth:`_fill_rows`.  Segment ``p`` occupies ``caps[p]`` slots (a
+        power-of-two bucket of the batch-max count, shared across rows so
+        the packed width is fixed per dispatch); pad slots carry
+        ``t=+inf, idx=-1`` and sort harmlessly to every merge's tail.
+        ``idx`` values are positions into the staged (sorted) full row.
+        ``qos`` as for :meth:`stage`.  The caps are the reference's, call for
+        call, but for one fault of its idle decay that the port repairs (a
+        stage held at ``cap_floor`` whose demand grows ends the idle streak).
+        """
+        if len(traces) > b_bucket:
+            raise ValueError(f"{len(traces)} traces exceed batch bucket {b_bucket}")
+        self.rotate(b_bucket, n_bucket)
+        buf = self.buffers(b_bucket, n_bucket)
+        self._fill_rows(buf, traces, b_bucket, qos)
+        enter = np.asarray(enter_stage, np.int32)
+        n_stages = int(n_stages)
+        counts = np.zeros((max(len(traces), 1), n_stages), np.int64)
+        depth_rows: List[np.ndarray] = []
+        for row, ev in enumerate(traces):
+            d = enter[buf["pool"][row, : ev.n]]
+            depth_rows.append(d)
+            routed = d >= 0
+            if routed.any():
+                counts[row, :] = np.bincount(d[routed], minlength=n_stages)
+        caps = tuple(
+            _bucket_pow2(int(counts[:, p].max()), cap_floor)
+            for p in range(n_stages)
+        )
+        # sticky caps: hold the high-water mark within a (batch, length)
+        # bucket, so the packed width — and with it the dispatch-cache key —
+        # stabilizes after the first few dispatches instead of flapping with
+        # each epoch's depth distribution (zero steady-state rebuilds).
+        # Idle decay: once CAP_DECAY_CALLS consecutive calls need at most
+        # half the held caps, shrink to the peak demand of that streak —
+        # a one-off burst stops pinning peak-size planes forever, while a
+        # workload oscillating around the mark never shrinks (each touch of
+        # the high caps resets the streak, so decay costs at most one
+        # rebuild per genuine regime change.)
+        cap_key = (b_bucket, n_bucket, n_stages)
+        natural = caps
+        prev = self._cap_hwm.get(cap_key)
+        if prev is not None:
+            # a stage held at the floor is idle only while its demand fits
+            # the floor: the reference's ``p <= cap_floor`` alone keeps the
+            # held caps when such a stage's demand grows, and that stage's
+            # events then overrun its segment into the next one's
+            idle = all(
+                n <= p // 2 or n <= p <= cap_floor
+                for n, p in zip(natural, prev)
+            )
+            if idle:
+                peak = self._cap_peak.get(cap_key, natural)
+                peak = tuple(max(a, b) for a, b in zip(peak, natural))
+                streak = self._cap_slack.get(cap_key, 0) + 1
+                if streak >= self.CAP_DECAY_CALLS:
+                    caps = tuple(max(c, cap_floor) for c in peak)
+                    self._cap_slack[cap_key] = 0
+                    self._cap_peak.pop(cap_key, None)
+                else:
+                    caps = prev
+                    self._cap_slack[cap_key] = streak
+                    self._cap_peak[cap_key] = peak
+            else:
+                caps = tuple(max(c, p) for c, p in zip(natural, prev))
+                self._cap_slack[cap_key] = 0
+                self._cap_peak.pop(cap_key, None)
+        self._cap_hwm[cap_key] = caps
+        width = int(sum(caps))
+        if prev is not None and sum(prev) != width:
+            self._drop_pack_width(b_bucket, int(sum(prev)))
+        self._turn[(b_bucket, width)] = self._turn.get((b_bucket, n_bucket), 0)
+        pack = self._pack_buffers(b_bucket, width)
+        pack["t"].fill(np.inf)
+        pack["idx"].fill(-1)
+        for row, d in enumerate(depth_rows):
+            off = 0
+            for p in range(n_stages):
+                sel = np.flatnonzero(d == p)
+                m = sel.shape[0]
+                pack["t"][row, off : off + m] = buf["t"][row, sel]
+                pack["idx"][row, off : off + m] = sel
+                off += caps[p]
+        return buf, pack, caps
 
     @staticmethod
     def _fill_rows(

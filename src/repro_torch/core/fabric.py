@@ -44,8 +44,9 @@ per pool, per host).
 
 Analysis is synchronous: each round analyzes on the caller's thread before
 the tenants' native steps run (the reference's rounds overlap by default).
-Its overlapped rounds (``async_analysis=True``, ``engine=``) and
-``pipeline=True`` come with slice 4 of the port; asking for them raises
+``pipeline=True`` analyzes each round through the device-resident epoch
+pipeline.  The overlapped rounds (``async_analysis=True``, ``engine=``)
+come with slice 4 of the port; asking for them raises
 ``NotImplementedError``.
 """
 
@@ -232,8 +233,6 @@ class FabricSession(EngineClient):
     ):
         if async_analysis or engine is not None:
             raise _unsupported("overlapped rounds (the shared engine)", "slice 4")
-        if pipeline:
-            raise _unsupported("the device-resident pipeline", "slice 4")
         if not tenants:
             raise ValueError("need at least one tenant")
         self.tenants = list(tenants)
@@ -262,7 +261,9 @@ class FabricSession(EngineClient):
         self.epoch = epoch
         self.hw = hw
         self.max_events_per_access = max_events_per_access
-        self._analyzer = EpochAnalyzer(self.flat, n_windows=n_windows, device=device)
+        self._analyzer = EpochAnalyzer(
+            self.flat, n_windows=n_windows, device=device, pipeline=pipeline
+        )
         if coherency is not None and H == 1:
             # trace-driven coherency needs a second host to derive sharers
             # from; silently reporting zero BI traffic would look like a

@@ -3,7 +3,7 @@
 A CPU tensor runs the plain PyTorch version (:mod:`.ref`); a CUDA tensor
 runs the hand-written kernel or raises.  There is no fallback from one to
 the other.  ``plain_launches`` counts the plain path's calls here, cascades,
-queue, SSD scan and attention alike; the kernel path counts its launches
+chain cascade, queue, SSD scan and attention alike; the kernel path counts its launches
 in :mod:`repro_torch.kernels.congestion` (``launches``, ``hosts_launches``,
 ``scan_launches``, ``qos_launches``, ``qos_hosts_launches``),
 :mod:`repro_torch.kernels.ssd_scan` (``ssd_launches``) and
@@ -23,6 +23,7 @@ from . import ssd_scan as _ssd
 
 __all__ = [
     "attention",
+    "chain_cascade",
     "congestion_cascade",
     "congestion_queue",
     "plain_launches",
@@ -62,6 +63,30 @@ def congestion_cascade(
             return _kernel.congestion_cascade(t, bits, stts)
         return _kernel.congestion_cascade_hosts(t, bits, hosts, stts, n_hosts)
     raise ValueError(f"no congestion_cascade for tensors on {t.device}")
+
+
+def chain_cascade(
+    t_pack: torch.Tensor,  # [B, W] f32 per-stage packed sorted runs (+inf pads)
+    idx_pack: torch.Tensor,  # [B, W] i32 positions in the staged row (-1 pads)
+    stts: Sequence[float],  # [D] service times in stage order (f32 values), on the host
+    seg_caps: Sequence[int],  # per-stage segment widths, sum == W
+):
+    """The device-resident pipeline's compact suffix cascade on chain
+    topologies; returns ``(t_fin [B, W], idx [B, W], per_stage_delay [B,
+    D])``; see :func:`repro_torch.kernels.ref.chain_cascade`.  The merges
+    are plain torch ops on every device (the reference never had a kernel
+    for them); on the card each stage's scan is the scan kernel
+    (``csrc/congestion_scan.cu``) over ``mask = idx >= 0``, so a batch
+    launches it once per stage."""
+    global plain_launches
+    if t_pack.device.type == "cpu":
+        plain_launches += 1
+        return ref.chain_cascade(t_pack, idx_pack, stts, seg_caps)
+    if t_pack.device.type == "cuda":
+        return ref.chain_cascade(
+            t_pack, idx_pack, stts, seg_caps, scan=_kernel.congestion_scan
+        )
+    raise ValueError(f"no chain_cascade for tensors on {t_pack.device}")
 
 
 def congestion_queue(

@@ -9,14 +9,18 @@ Beside the two cascades stand their partitioned mirrors
 the same results, computed the way the cascade kernels split a row between
 the CTAs of a cluster, for the tests and ``chip_smoke.py``; beside the
 single-switch scan stands :func:`congestion_scan_tiled`, the scan computed
-tile by tile with the scan kernel's look-back.
+tile by tile with the scan kernel's look-back.  The device-resident
+pipeline's merges (:func:`two_run_merge`, :func:`staging_sort`) and its
+chain cascade (:func:`chain_cascade`) never had a Pallas kernel: they are
+plain batched torch ops on every device, and on the card the chain
+cascade's per-stage scans run in the scan kernel.
 
 They define what the CUDA kernels (:mod:`repro_torch.kernels.congestion`,
 :mod:`repro_torch.kernels.ssd_scan`, :mod:`repro_torch.kernels.flash_attention`)
 compute.  The CPU tests hold them against the reference, ``chip_smoke.py``
 holds the kernel against them on the card, and :mod:`.ops` runs them for
 tensors that lie on the CPU.  On the card nothing on the main path calls
-them.
+them but the chain cascade's merges.
 
 Every function works on ``[..., N]`` tensors along the last dimension, so a
 batch of epochs is a leading dimension (the reference's ``vmap``), and the
@@ -38,6 +42,7 @@ __all__ = [
     "MERGE_RAN",
     "MERGE_SKIPPED",
     "SCAN_TILE",
+    "chain_cascade",
     "congestion_scan",
     "congestion_scan_tiled",
     "merge_sorted_runs",
@@ -52,6 +57,8 @@ __all__ = [
     "split_kv_attention",
     "ssd_chunked",
     "ssd_naive",
+    "staging_sort",
+    "two_run_merge",
 ]
 
 # discipline codes of the data-driven QoS cascade (the topology's
@@ -216,6 +223,176 @@ def merge_sorted_runs(
     return tuple(
         torch.zeros_like(p).scatter(-1, pos, p) for p in (x,) + payloads
     )
+
+
+def two_run_merge(
+    x: torch.Tensor, lead: torch.Tensor, *payloads: torch.Tensor
+) -> Tuple[torch.Tensor, ...]:
+    """Merge two interleaved sorted runs by rank arithmetic (no compaction).
+
+    ``x`` (``[..., n]``) holds two individually-sorted runs per row, marked
+    by the boolean ``lead`` mask (``[n]`` or ``x``'s shape); ties place
+    ``lead`` elements first.  Each run is ranked against the forward-filled
+    cumulative-max envelope of the other run in place: for a ``lead``
+    element the merged rank is its own-run rank plus the count of other-run
+    elements strictly below it, read off one ``searchsorted`` against the
+    envelope plus a prefix count — the reference's formulation, bit for bit.
+
+    Padding contract (the device pipeline's): entries keyed ``+inf`` in
+    either run sort to the tail, ``lead``-run pads before the others, and
+    never perturb the ranks of finite entries.
+
+    Returns ``(x, *payloads)`` permuted into merged order.
+    """
+    n = x.shape[-1]
+    a = lead.expand(x.shape)
+    b = ~a
+    ca = torch.cumsum(a.to(torch.int32), dim=-1, dtype=torch.int32)
+    cb = torch.cumsum(b.to(torch.int32), dim=-1, dtype=torch.int32)
+    neg = float("-inf")
+    m_a = torch.cummax(torch.where(a, x, neg), dim=-1).values
+    m_b = torch.cummax(torch.where(b, x, neg), dim=-1).values
+    xc = x.contiguous()
+    # a-queries count b-elements strictly below ('left': a first on ties);
+    # b-queries count a-elements at-or-below ('right')
+    pos_b = torch.searchsorted(m_b, xc)
+    pos_a = torch.searchsorted(m_a, xc, right=True)
+    cnt_b = torch.where(pos_b > 0, torch.gather(cb, -1, (pos_b - 1).clamp(min=0)), 0)
+    cnt_a = torch.where(pos_a > 0, torch.gather(ca, -1, (pos_a - 1).clamp(min=0)), 0)
+    rank = torch.where(a, (ca - 1) + cnt_b, (cb - 1) + cnt_a).to(torch.int64)
+    # rank is a permutation of [0, n) in each row: invert once, gather every
+    # payload
+    iota = torch.arange(n, dtype=torch.int64, device=x.device).expand_as(rank)
+    src = torch.empty_like(rank).scatter_(-1, rank, iota)
+    return tuple(torch.gather(p, -1, src) for p in (x,) + payloads)
+
+
+def staging_sort(
+    x: torch.Tensor, run_caps: Sequence[int], *payloads: torch.Tensor
+) -> Tuple[torch.Tensor, ...]:
+    """Sort R concatenated time-sorted runs, row by row.
+
+    ``x`` (``[..., W]``) is the concatenation of ``len(run_caps)``
+    individually-sorted runs, run ``r`` occupying the slice of width
+    ``run_caps[r]`` (pad entries keyed ``+inf`` at each run's tail).  A
+    ``ceil(log2 R)`` round tree of :func:`two_run_merge` calls over adjacent
+    run pairs produces the fully-sorted order; ties keep the lower run
+    first, so the result is **bitwise identical** to a host stable argsort
+    of the run-major concatenation (all pads land at the global tail).
+
+    Returns ``(x, *payloads)`` fully sorted.
+    """
+    caps = [int(c) for c in run_caps]
+    if sum(caps) != x.shape[-1]:
+        raise ValueError(f"run_caps {caps} do not tile length {x.shape[-1]}")
+    arrs = (x,) + payloads
+    runs = []
+    off = 0
+    for c in caps:
+        if c:
+            runs.append((off, c))
+        off += c
+    while len(runs) > 1:
+        nxt = []
+        pieces = [[] for _ in arrs]
+        cursor = 0
+
+        def flush_gap(lo, hi):
+            if hi > lo:
+                for j, p in enumerate(arrs):
+                    pieces[j].append(p[..., lo:hi])
+
+        for i in range(0, len(runs) - 1, 2):
+            (s0, w0), (s1, w1) = runs[i], runs[i + 1]
+            flush_gap(cursor, s0)
+            lead = torch.arange(w0 + w1, device=x.device) < w0
+            merged = two_run_merge(
+                arrs[0][..., s0 : s1 + w1], lead, *(p[..., s0 : s1 + w1] for p in arrs[1:])
+            )
+            for j, m in enumerate(merged):
+                pieces[j].append(m)
+            nxt.append((s0, w0 + w1))
+            cursor = s1 + w1
+        if len(runs) % 2:
+            nxt.append(runs[-1])
+        flush_gap(cursor, x.shape[-1])
+        arrs = tuple(torch.cat(ps, dim=-1) for ps in pieces)
+        runs = nxt
+    return arrs
+
+
+def chain_cascade(
+    t_pack: torch.Tensor,  # [..., W] f32 depth-packed times (+inf pads per segment)
+    idx_pack: torch.Tensor,  # [..., W] i32 original slot of each event (-1 pads)
+    stts: Sequence[float],  # [D] service times in stage order (f32 values)
+    seg_caps: Sequence[int],  # per-stage entry-segment capacities, sum == W
+    scan=None,  # None: the arange scan; else fn(t, mask, stt) -> (start, delay)
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Compact suffix cascade for nested-mask (chained) topologies.
+
+    Eligibility (checked by ``plan_chain``): in deepest-first stage order
+    every stage's route mask is a subset of the next stage's, so an event
+    entering the fabric at depth ``d`` traverses every shallower switch on
+    its way to the RC.  The working array ``A`` holds exactly the events
+    that traverse the current stage; each stage folds in the time-sorted
+    segment of events whose *deepest* switch it is with one
+    :func:`two_run_merge`, and the stage's scan runs over ``A`` — its start
+    times are non-decreasing, so ``A`` stays sorted.  Local-DRAM traffic
+    never enters at all.
+
+    Per-event final times are bitwise identical to
+    :func:`serial_queue_cascade` on tie-free inputs.  (Exact-time ties
+    *across* entry depths may resolve in a different — equally valid FIFO —
+    order; per-stage delay sums then still agree.)
+
+    Pads ride along keyed ``+inf`` with ``idx < 0``: merges keep them at the
+    tail of every row, so after each merge a row's real events form its
+    prefix.  The scan is the reference's unmasked one (``rank = arange``),
+    or with ``scan`` a masked scan over ``mask = idx >= 0``
+    (:func:`congestion_scan`'s contract; on the card the scan kernel):
+    on a prefix the masked rank is the ``arange`` rank, and pads pass
+    through unmasked, so the two agree bit for bit.
+
+    Returns ``(t_fin [..., W], idx [..., W], per_stage_delay [..., D])``.
+    """
+    caps = [int(c) for c in seg_caps]
+    if sum(caps) != t_pack.shape[-1]:
+        raise ValueError(f"seg_caps {caps} do not tile length {t_pack.shape[-1]}")
+    stt_values = [float(s) for s in stts]
+    if len(stt_values) != len(caps):
+        raise ValueError(f"{len(stt_values)} service times for {len(caps)} stages")
+    a_t = t_pack[..., :0]
+    a_i = idx_pack[..., :0]
+    per_stage = []
+    off = 0
+    for p, cap in enumerate(caps):
+        if cap:
+            seg_t = t_pack[..., off : off + cap]
+            seg_i = idx_pack[..., off : off + cap]
+            if a_t.shape[-1] == 0:
+                a_t, a_i = seg_t, seg_i
+            else:
+                w0 = a_t.shape[-1]
+                lead = torch.arange(w0 + cap, device=t_pack.device) < w0
+                a_t, a_i = two_run_merge(
+                    torch.cat([a_t, seg_t], dim=-1), lead, torch.cat([a_i, seg_i], dim=-1)
+                )
+            off += cap
+        if a_t.shape[-1] == 0:
+            per_stage.append(t_pack.new_zeros(t_pack.shape[:-1]))
+            continue
+        stt = stt_values[p]
+        real = a_i >= 0
+        if scan is None:
+            rankf = torch.arange(a_t.shape[-1], dtype=a_t.dtype, device=a_t.device)
+            f = torch.cummax(a_t - stt * rankf, dim=-1).values
+            start = f + stt * rankf
+            d = torch.where(real, start - a_t, 0.0)
+        else:
+            start, d = scan(a_t.contiguous(), real.contiguous(), stt)
+        per_stage.append(d.sum(dim=-1))
+        a_t = torch.where(real, start, a_t)
+    return a_t, a_i, torch.stack(per_stage, dim=-1)
 
 
 def serial_queue_cascade(

@@ -147,7 +147,8 @@ def test_analyzer_runs_the_plain_cascade_on_cpu():
 def test_unported_options_name_their_slice():
     fig = t_topo.figure1_topology().flatten()
     cases = [
-        (dict(flat=fig, pipeline=True), "slice 4"),
+        # the pipeline is ported: sharded dispatch still raises beside it
+        (dict(flat=fig, pipeline=True, mesh=object()), "slice 6"),
         (dict(flat=fig, mesh=object()), "slice 6"),
     ]
     for kw, slice_name in cases:

@@ -377,11 +377,12 @@ def test_fabric_session_configuration_errors():
 @pytest.mark.parametrize("kw, slice_name", [
     (dict(async_analysis=True), "slice 4"),
     (dict(engine=object()), "slice 4"),
-    (dict(pipeline=True), "slice 4"),
-    # migration= and cache= are ported (tests/test_torch_migration_cache.py);
-    # the overlapped rounds and the pipeline still raise beside them
+    # migration=, cache= and pipeline= are ported (tests/test_torch_migration_cache.py,
+    # tests/test_torch_pipeline.py); the overlapped rounds still raise beside them
+    (dict(pipeline=True, async_analysis=True), "slice 4"),
     (dict(async_analysis=True, migration=T.MigrationConfig()), "slice 4"),
-    (dict(pipeline=True, cache=T.DeviceCacheConfig(capacity_bytes=1 << 20)), "slice 4"),
+    (dict(pipeline=True, engine=object(),
+          cache=T.DeviceCacheConfig(capacity_bytes=1 << 20)), "slice 4"),
 ])
 def test_unported_fabric_options_name_their_slice(kw, slice_name):
     with pytest.raises(NotImplementedError, match=slice_name):

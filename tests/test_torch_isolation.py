@@ -51,7 +51,7 @@ ZOO_FILES = (
     "kernels/flash_attention.py", "kernels/ssd_scan.py", "launch/steps.py",
     "models/attention.py", "models/config.py", "models/layers.py", "models/mamba2.py",
     "models/model.py", "models/phases.py", "models/transformer.py",
-    "core/cache.py", "core/migration.py", "configs/__init__.py",
+    "core/cache.py", "core/migration.py", "core/aot.py", "configs/__init__.py",
     "configs/mistral_large_123b.py", "configs/chatglm3_6b.py", "configs/starcoder2_3b.py",
     "configs/granite_moe_3b_a800m.py", "configs/llama4_maverick_400b_a17b.py",
     "configs/jamba_v0_1_52b.py", "configs/qwen2_vl_72b.py", "configs/hubert_xlarge.py",
