@@ -3,7 +3,8 @@
 
 Run from the repository root:  python3 chip_smoke.py
 (``python3 chip_smoke.py --cascades`` runs phases 1-3 and the two fabric
-round batches' cascade comparisons only, and prints no result line.)
+round batches' cascade comparisons only; ``--engine`` runs phases 1-2, 4, 5,
+14's pipeline-main and 15; neither prints a result line.)
 
 Phases (any failure exits non-zero and prints no result):
 
@@ -199,7 +200,26 @@ Phases (any failure exits non-zero and prints no result):
    pipeline-wide32 (1 + 1 rounds) and pipeline-qos-main (1 + 1 steps),
    each against its own phase (5, 6, 7) per round or step at the fabric
    bars, with its launches and split;
-15. a JSON ``kernels`` line, then the card's nvidia-smi line, then the result
+15. the shared analysis engine: engine-main, phase 4's program
+   synchronously and with ``async_analysis=True`` on a private engine in
+   turns (sync, async, async, sync; 1 + 3 steps each): one cascade launch
+   a step, every cascade on the engine's own CUDA stream, the asynchronous
+   totals against phase 4's (latency and bandwidth to rel 1e-6,
+   congestion 1e-4), and the native, analyzer and wall seconds of the
+   measured steps printed for both modes; engine-pipeline-main, phase
+   14's pipeline-main through an engine (1 + 3 steps): 3 scan launches a
+   step, no build after attach, staging through the engine's pinned
+   2-slot ring, totals against phase 14's at the same bars;
+   engine-fabric8, phase 5's fabric with overlapped rounds (1 + 3): one
+   hosts launch a round, totals and per-host latency and congestion
+   against phase 5's at the fabric bars; engine-coalesced, 4 sessions of
+   phase 4's program on one engine whose steps' submissions queue behind
+   a held dispatcher: 4 sessions coalesced, exactly one cascade launch,
+   over ``[128, 131072]``, each session's step against its solo analysis
+   (latency rel 1e-6, congestion and bandwidth rel 1e-5); the stacked
+   batch's cascade against its plain version and timed beside 4 solo
+   batches;
+16. a JSON ``kernels`` line, then the card's nvidia-smi line, then the result
    line ``{"ok": true, "device": {...}}``.
 
 The earlier phases (4-6) must show no QoS launch, no phase before 9 an SSD
@@ -230,14 +250,17 @@ from repro_torch.configs.mamba2_2_7b import CONFIG as M2_CONFIG  # noqa: E402
 from repro_torch.configs.qwen3_0_6b import CONFIG  # noqa: E402
 from repro_torch.core import (  # noqa: E402
     H100_SXM,
+    AnalysisEngine,
     ClassMapPolicy,
     CoherencyConfig,
     CXLMemSim,
+    DelayBreakdown,
     DeviceCacheConfig,
     EpochAnalyzer,
     EpochSchedule,
     EventStager,
     FabricSession,
+    MemEvents,
     MigrationConfig,
     MigrationSimulator,
     Pool,
@@ -913,10 +936,11 @@ def check_totals(tag, got, want, steps, keys=("latency_s", "congestion_s", "band
 
 
 def fabric_session(n_hosts, load, events_per_access, dev, classes=None, migration=None,
-                   cache=None, pipeline=False, **topo_kw):
+                   cache=None, pipeline=False, engine=None, **topo_kw):
     """n_hosts trace-only qwen3-0.6b tenants pooling their KV caches, tenant
     h in QoS class ``classes[h]`` (0 without ``classes``), with
-    ``migration``, ``cache`` and ``pipeline`` given to the session."""
+    ``migration``, ``cache``, ``pipeline`` and ``engine`` (overlapped rounds)
+    given to the session."""
     tenants = []
     for h in range(n_hosts):
         regions, phases = build_regions_and_phases(CONFIG, **load)
@@ -926,7 +950,7 @@ def fabric_session(n_hosts, load, events_per_access, dev, classes=None, migratio
         pooled_topology(n_hosts=n_hosts, **topo_kw), tenants, epoch=EpochSchedule("layer"),
         hw=H100_SXM, coherency=CoherencyConfig(shared_classes=("kvcache",)),
         max_events_per_access=events_per_access, device=dev, migration=migration, cache=cache,
-        pipeline=pipeline,
+        pipeline=pipeline, engine=engine,
     )
 
 
@@ -2297,7 +2321,7 @@ def pipeline_main_path(dev, step, x, main_rep, main_ref):
     print(f"[pipeline-main] analyzer {sp['analyzer_s']:.6f} s/step over the 3 measured "
           f"steps; split per step {json.dumps(sp)}")
     profile_pipeline("pipeline-main-profile", an, traces)
-    return c["scan"]
+    return c["scan"], rep
 
 
 def pipeline_session_path(tag, sess, want, kernel, per_round, **checks):
@@ -2326,7 +2350,7 @@ def pipeline_path(dev, step, x, main_rep, main_ref, fabric_rep, wide_rep, qos_re
     prog = attach_main(figure1_topology(), step)
     rows = chain_kernel_phase(dev, prog.epoch_traces(), prog.sim.flat)
     del prog
-    scan = pipeline_main_path(dev, step, x, main_rep, main_ref)
+    scan, pipe_rep = pipeline_main_path(dev, step, x, main_rep, main_ref)
     sess = fabric_session(FABRIC_HOSTS, FABRIC_LOAD, FABRIC_EVENTS_PER_ACCESS, "cuda",
                           pipeline=True)
     hosts = pipeline_session_path("pipeline-fabric8", sess, fabric_rep, "hosts", 1, hosts=True)
@@ -2353,7 +2377,324 @@ def pipeline_path(dev, step, x, main_rep, main_ref, fabric_rep, wide_rep, qos_re
     print(f"[pipeline-qos-main] analyzer {rep.analyzer_s - before['analyzer_s']:.6f} s/step, "
           f"split {json.dumps(split(rep, before, 1))}")
     print(f"[pipeline] phase 14 ran {time.perf_counter() - t0:.1f} s")
-    return rows, scan, hosts, c["qos"]
+    return rows, scan, hosts, c["qos"], pipe_rep
+
+
+# --------------------------------------------------------------------------- #
+# Phase 15: the shared analysis engine
+# --------------------------------------------------------------------------- #
+
+
+class ParkAnalyzer:
+    """A DES-style analyzer (``.flat`` and ``.simulate``) that holds the
+    engine's dispatcher for ``sleep_s``, so the submissions behind it queue
+    and coalesce."""
+
+    def __init__(self, flat, sleep_s):
+        self.flat, self.sleep_s = flat, sleep_s
+
+    def simulate(self, tr, lat_scale=None):
+        time.sleep(self.sleep_s)
+        f = self.flat
+        return DelayBreakdown.zero(f.n_pools, f.n_switches, f.n_hosts)
+
+
+def recording_streams():
+    """Record the shape of every batch and the current CUDA stream of every
+    thread that enters the analyzer's cascades; returns (records, restore).
+    The ops entry points are wrapped, so the kernels' launch counts are
+    untouched."""
+    names = ("congestion_cascade", "chain_cascade")
+    inner = {n: getattr(kops, n) for n in names}
+    records = []
+
+    def wrap(name):
+        def recorder(t, *args, **kwargs):
+            records.append((name, list(t.shape), torch.cuda.current_stream(t.device)))
+            return inner[name](t, *args, **kwargs)
+        return recorder
+
+    def restore():
+        for n in names:
+            setattr(kops, n, inner[n])
+
+    for n in names:
+        setattr(kops, n, wrap(n))
+    return records, restore
+
+
+def check_on_engine_stream(tag, records, eng):
+    """Every recorded cascade ran on the engine's own stream, not on this
+    thread's."""
+    own = eng.stream("cuda")
+    check(own is not None and records, f"{tag}: the engine made no stream or ran no cascade")
+    check(all(r[2] == own for r in records) and own != torch.cuda.current_stream(),
+          f"{tag}: a cascade ran off the engine's stream")
+
+
+def dispatch_timeline(an, marks):
+    """Append ``(kind, start, end)`` host-clock marks of each of ``an``'s
+    ``launch_batch`` and each returned batch's ``finish`` to ``marks``."""
+    inner = an.launch_batch
+
+    def launch(*args, **kwargs):
+        t0 = time.perf_counter()
+        pending = inner(*args, **kwargs)
+        marks.append(("launch", t0, time.perf_counter()))
+        fin = pending.finish
+
+        def finish():
+            t1 = time.perf_counter()
+            out = fin()
+            marks.append(("finish", t1, time.perf_counter()))
+            return out
+
+        pending.finish = finish
+        return pending
+
+    an.launch_batch = launch
+
+
+def print_timeline(tag, marks, t0):
+    """The measured window's marks in ms from its start."""
+    spans = " ".join(f"{k} {1e3 * (a - t0):.1f}-{1e3 * (b - t0):.1f}"
+                     for k, a, b in sorted(marks, key=lambda m: m[1]) if a >= t0)
+    print(f"[{tag}] timeline ms: {spans}")
+
+
+def measured_steps(prog, x, steps=3, marks=None):
+    """One warm-up step, then ``steps`` measured (the engine flushed at
+    their end).  Returns the report, the launch counts, the wall seconds of
+    the measured steps, the native and analyzer seconds they added and the
+    report's :func:`snapshot` before them.  With ``marks``, each measured
+    step's host-clock span is appended to it, and the window's start."""
+    prog.step(x)
+    before = snapshot(prog.report)  # the property flushes the warm-up step
+    n0, a0 = prog.report.native_s, before["analyzer_s"]
+    reset_counts()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        ts = time.perf_counter()
+        prog.step(x)
+        if marks is not None:
+            marks.append(("step", ts, time.perf_counter()))
+    if marks is not None:
+        marks.append(("start", t0, t0))
+    prog.flush()
+    wall = time.perf_counter() - t0
+    c = counts()
+    rep = prog.report
+    return rep, c, wall, rep.native_s - n0, rep.analyzer_s - a0, before
+
+
+def check_equal_phase(tag, rep, want, phase):
+    """Totals against another phase's report over as many steps: latency
+    and bandwidth to rel 1e-6, congestion to rel 1e-4."""
+    check(rep.steps == want.steps, f"{tag}: {rep.steps} steps, phase {phase} ran {want.steps}")
+    for k, rel in (("latency_s", 1e-6), ("congestion_s", 1e-4), ("bandwidth_s", 1e-6)):
+        g, w = getattr(rep, k), getattr(want, k)
+        print(f"[{tag}] {k} {g!r} s, phase {phase} {w!r} s, rel "
+              f"{abs(g - w) / max(abs(w), 1e-30):.3e}")
+        check(abs(g - w) <= rel * abs(w), f"{tag} {k} {g!r} vs phase {phase}'s {w!r}")
+
+
+def engine_main_path(step, x, main_rep):
+    """engine-main: phase 4's program, synchronous and with
+    async_analysis=True on a private engine whose stream has the default
+    priority (async) or a high one (async-high), in one process, in turns,
+    1 + 3 steps each (checked), then 3 more steps timed: the first 3 pay
+    the first fill of the engine's second ring slot; the dispatch
+    timelines printed."""
+    cascade = 0
+    order = ("sync", "async", "async-high", "async-high", "async", "sync")
+    runs = {mode: [] for mode in order}
+    steady = {mode: [] for mode in order}
+    for mode in order:
+        eng = None if mode == "sync" else AnalysisEngine(
+            stream_priority=-1 if mode == "async-high" else 0)
+        prog = attach_main(figure1_topology(), step, async_analysis=eng is not None, engine=eng)
+        records, restore = recording_streams()
+        marks = []
+        dispatch_timeline(prog._analyzer, marks)
+        try:
+            rep, c, wall, native, analyzer, _ = measured_steps(prog, x, marks=marks)
+        finally:
+            restore()
+        check_launches(f"engine-main {mode}", c, "cascade", 3)
+        cascade += c["cascade"]
+        if eng is not None:
+            check(prog._handle is not None and prog._handle.engine is eng,
+                  "engine-main must analyze through its engine")
+            check_on_engine_stream("engine-main", records, eng)
+            check_equal_phase("engine-main", rep, main_rep, 4)
+        runs[mode].append((native, analyzer, wall))
+        print(f"[engine-main] {mode}: native {native:.6f} s, analyzer {analyzer:.6f} s, wall "
+              f"{wall:.6f} s over the 3 measured steps")
+        t0 = [m[1] for m in marks if m[0] == "start"][0]
+        print_timeline(f"engine-main {mode}", [m for m in marks if m[0] != "start"], t0)
+        # 3 more steps, both ring slots warm
+        n0, a0 = prog.report.native_s, prog.report.analyzer_s
+        marks.clear()
+        reset_counts()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            ts = time.perf_counter()
+            prog.step(x)
+            marks.append(("step", ts, time.perf_counter()))
+        prog.flush()
+        wall = time.perf_counter() - t0
+        cascade += counts()["cascade"]
+        native, analyzer = prog.report.native_s - n0, prog.report.analyzer_s - a0
+        steady[mode].append((native, analyzer, wall))
+        print(f"[engine-main] {mode} steady: native {native:.6f} s, analyzer {analyzer:.6f} s, "
+              f"wall {wall:.6f} s over 3 more steps")
+        print_timeline(f"engine-main {mode} steady", marks, t0)
+        if eng is not None:
+            prog.close()
+            eng.close()
+    for window, rs in (("measured", runs), ("steady", steady)):
+        sync_sum = np.mean([n + a for n, a, _ in rs["sync"]])
+        sync_native = np.mean([n for n, _, _ in rs["sync"]])
+        for mode in ("async", "async-high"):
+            native = np.mean([n for n, _, _ in rs[mode]])
+            wall = np.mean([w for _, _, w in rs[mode]])
+            print(f"[engine-main] {window} 3 steps, mean of two runs each: {mode} wall "
+                  f"{wall:.6f} s against sync native + analyzer {sync_sum:.6f} s (ratio "
+                  f"{wall / sync_sum:.3f}); {mode} native {native:.6f} s against sync "
+                  f"native {sync_native:.6f} s (ratio {native / sync_native:.3f})")
+    return cascade
+
+
+def engine_pipeline_main_path(step, x, pipe_rep):
+    """engine-pipeline-main: phase 14's pipeline-main through a private
+    engine, 1 + 3 steps."""
+    with AnalysisEngine() as eng:
+        prog = attach_main(figure1_topology(), step, pipeline=True, warmup=True, engine=eng)
+        an = prog._analyzer
+        check(prog._handle is not None and an._aot.lowerings == 1,
+              "engine-pipeline-main must be asynchronous and build at attach")
+        records, restore = recording_streams()
+        try:
+            rep, c, wall, native, analyzer, before = measured_steps(prog, x)
+        finally:
+            restore()
+        check_launches("engine-pipeline-main", c, "scan", 3 * len(an._chain_plan.stage_order))
+        check(an._aot.lowerings == 1, f"engine-pipeline-main built {an._aot.lowerings} times")
+        stagers = list(eng._stagers.values())
+        check(len(stagers) == 1 and stagers[0].pin and stagers[0].slots == 2,
+              "engine-pipeline-main must stage through the engine's pinned 2-slot ring")
+        check_on_engine_stream("engine-pipeline-main", records, eng)
+        check_equal_phase("engine-pipeline-main", rep, pipe_rep, 14)
+        print(f"[engine-pipeline-main] native {native:.6f} s, analyzer {analyzer:.6f} s, wall "
+              f"{wall:.6f} s over the 3 measured steps; split per step "
+              f"{json.dumps(split(rep, before, 3))}")
+        prog.close()
+    return c["scan"]
+
+
+def engine_fabric_path(fabric_rep):
+    """engine-fabric8: phase 5's fabric with overlapped rounds, 1 + 3."""
+    with AnalysisEngine() as eng:
+        sess = fabric_session(FABRIC_HOSTS, FABRIC_LOAD, FABRIC_EVENTS_PER_ACCESS, "cuda",
+                              engine=eng)
+        check(sess.round() is None, "an overlapped round returns no breakdown")
+        before = snapshot(sess.report)
+        reset_counts()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            sess.round()
+        sess.flush()
+        wall = time.perf_counter() - t0
+        c = counts()
+        rep = sess.report
+        check_launches("engine-fabric8", c, "hosts", 3)
+        check_against("engine-fabric8", rep, fabric_rep, hosts=True)
+        print(f"[engine-fabric8] analyzer {(rep.analyzer_s - before['analyzer_s']) / 3:.6f} "
+              f"s/round, wall {wall / 3:.6f} s/round over the 3 measured rounds")
+        sess.close()
+    return c["hosts"]
+
+
+def engine_coalesced_path(dev, step, x, sessions=4, park_s=2.0):
+    """engine-coalesced: ``sessions`` programs of phase 4 on one engine;
+    their steps' submissions queue behind a parked dispatcher and go out
+    as one stacked dispatch: one cascade launch over all rows."""
+    with AnalysisEngine() as eng:
+        progs = [attach_main(figure1_topology(), step, engine=eng) for _ in range(sessions)]
+        for p in progs:  # warm-up: solo dispatches
+            p.step(x)
+        before = [totals(p.report) for p in progs]
+        an_before = [p.report.analyzer_s for p in progs]
+        stats0 = eng.stats()
+        park = eng.register(ParkAnalyzer(progs[0].sim.flat, park_s))
+        records, restore = recording_streams()
+        try:
+            reset_counts()
+            park.submit([MemEvents.empty()])
+            for p in progs:
+                p.step(x)
+            for p in progs:
+                p.flush()
+            c = counts()
+        finally:
+            restore()
+        park.close()
+        stats = eng.stats()
+        check_launches("engine-coalesced", c, "cascade", 1)
+        check(stats["max_coalesced_sessions"] == sessions
+              and stats["coalesced_dispatches"] == stats0["coalesced_dispatches"] + 1,
+              f"engine-coalesced: engine stats {stats}, before {stats0}")
+        traces = progs[0].epoch_traces()
+        rows = bucket_pow2(sessions, floor=1) * bucket_pow2(len(traces), floor=1)
+        shape = [rows, bucket_pow2(max(tr.n for tr in traces))]
+        check([r[1] for r in records] == [shape],
+              f"engine-coalesced: cascade calls {[r[1] for r in records]}, want one of {shape}")
+        check_on_engine_stream("engine-coalesced", records, eng)
+        # each session's coalesced step against its solo analysis of the same
+        # epochs, at tests/test_engine.py's coalescing bars
+        solo = progs[0]._analyzer.analyze_batch(traces)
+        for i, (p, b) in enumerate(zip(progs, before)):
+            d = delta(totals(p.report), b)
+            check(p.report.coalesced_group_size == sessions,
+                  f"session {i}: group size {p.report.coalesced_group_size}")
+            for k, want, rel in (("latency_s", solo.latency_ns, 1e-6),
+                                 ("congestion_s", solo.congestion_ns, 1e-5),
+                                 ("bandwidth_s", solo.bandwidth_ns, 1e-5)):
+                g = s_to_ns(getattr(d, k))
+                check(abs(g - want) <= rel * abs(want),
+                      f"engine-coalesced session {i} {k}: {g!r} ns vs solo {want!r} ns")
+            print(f"[engine-coalesced] session {i}: latency {s_to_ns(d.latency_s)!r} ns, "
+                  f"congestion {s_to_ns(d.congestion_s)!r} ns, bandwidth "
+                  f"{s_to_ns(d.bandwidth_s)!r} ns; solo {solo.latency_ns!r}, "
+                  f"{solo.congestion_ns!r}, {solo.bandwidth_ns!r}")
+        shares = [p.report.analyzer_s - a for p, a in zip(progs, an_before)]
+        print(f"[engine-coalesced] the stacked dispatch {sum(shares):.6f} s (shares "
+              f"{[round(v, 6) for v in shares]}); solo analyzer steps before it "
+              f"{[round(a, 6) for a in an_before]} s")
+        for p in progs:
+            p.close()
+    # the group's cascade against 4 solo batches' on the same rows
+    b = staged_batch(traces, progs[0].sim.flat, dev)
+    t4, bits4 = b["t"].repeat(sessions, 1), b["bits"].repeat(sessions, 1)
+    row = compare("coalesced_batch", t4, bits4, b["stts"], reps=10)
+    solo_ms = median_ms(lambda: kcong.congestion_cascade(b["t"], b["bits"], b["stts"]), 10)
+    print(f"[engine-coalesced] cascade over {list(t4.shape)}: {row['ms']:.6f} ms, against "
+          f"{sessions} solo {list(b['t'].shape)} batches: {sessions * solo_ms:.6f} ms "
+          f"({solo_ms:.6f} ms each)")
+    return row, c["cascade"]
+
+
+def engine_path(dev, step, x, main_rep, pipe_rep, fabric_rep):
+    """Phase 15: the shared analysis engine on the card.  Returns the
+    coalesced batch's cascade row and the cascade, scan and hosts launches
+    of its paths."""
+    t0 = time.perf_counter()
+    cascade = engine_main_path(step, x, main_rep)
+    scan = engine_pipeline_main_path(step, x, pipe_rep)
+    hosts = engine_fabric_path(fabric_rep)
+    row, coalesced = engine_coalesced_path(dev, step, x)
+    print(f"[engine] phase 15 ran {time.perf_counter() - t0:.1f} s")
+    return row, cascade + coalesced, scan, hosts
 
 
 def sass_counts(path) -> str:
@@ -2388,8 +2729,19 @@ def cascade_batches(dev):
                       w, sess.flat.n_hosts)
 
 
+def engine_only_paths(dev):
+    """``--engine``: phase 15 and the phases it is held to (4, 5 and 14's
+    pipeline-main); prints no result line."""
+    step, x = main_step(dev)
+    _, _, main_rep, main_ref = slice1_main_path(dev, step, x)
+    _, _, fabric_rep = fabric_main_path(dev)
+    _, pipe_rep = pipeline_main_path(dev, step, x, main_rep, main_ref)
+    engine_path(dev, step, x, main_rep, pipe_rep, fabric_rep)
+
+
 def main(argv) -> int:
     cascades_only = "--cascades" in argv
+    engine_only = "--engine" in argv
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script needs a card",
               file=sys.stderr)
@@ -2418,6 +2770,11 @@ def main(argv) -> int:
                 print(f"[build] {line.strip()}")
         if name in ("congestion_cascade", "qos_cascade"):
             print(f"[build] {name} SASS: {sass_counts(res.path)}")
+
+    if engine_only:
+        engine_only_paths(dev)
+        print(f"[done] chip_smoke --engine ran {time.perf_counter() - t_start:.1f} s")
+        return 0
 
     # -- 3. kernels vs plain at synthetic shapes ---------------------------- #
     fig = figure1_topology().flatten()
@@ -2455,7 +2812,7 @@ def main(argv) -> int:
         print(f"[done] chip_smoke --cascades ran {time.perf_counter() - t_start:.1f} s")
         return 0
 
-    # -- 4-14. the main paths ----------------------------------------------- #
+    # -- 4-15. the main paths ----------------------------------------------- #
     step, x = main_step(dev)
     main_row, cascade_launches, main_rep, main_ref = slice1_main_path(dev, step, x)
     fabric_row, hosts_launches, fabric_rep = fabric_main_path(dev)
@@ -2473,14 +2830,20 @@ def main(argv) -> int:
     cascade_launches += migration_cache_path(step, x, main_rep)
     hosts_launches += fabric_migration_path()
     cascade_launches += model_zoo_path(step, x)
-    chain_rows, scan14, hosts14, qos14 = pipeline_path(
+    chain_rows, scan14, hosts14, qos14, pipe_rep = pipeline_path(
         dev, step, x, main_rep, main_ref, fabric_rep, wide_rep, qos_rep)
     scan_rows += chain_rows
     scan_launches += scan14
     hosts_launches += hosts14
     qos_launches += qos14
+    coalesced_row, cascade15, scan15, hosts15 = engine_path(
+        dev, step, x, main_rep, pipe_rep, fabric_rep)
+    rows.append(coalesced_row)
+    cascade_launches += cascade15
+    scan_launches += scan15
+    hosts_launches += hosts15
 
-    # -- 15. the kernels line and the result -------------------------------- #
+    # -- 16. the kernels line and the result -------------------------------- #
     src = "src/repro_torch/kernels/csrc/"
     kernels = []
     for name, source, replaces, launches, comps, row in (

@@ -1,6 +1,7 @@
-"""CXLMemSim core, ported to PyTorch: the Timing Analyzer, synchronous
-attach, the shared multi-host fabric, migration and the expander-side
-device cache (slices 1, 2, 3 and 5 of the port of :mod:`repro.core`).
+"""CXLMemSim core, ported to PyTorch: the Timing Analyzer, attach, the
+shared multi-host fabric, migration, the expander-side device cache, the
+device-resident pipeline and the shared analysis engine (slices 1-5 of the
+port of :mod:`repro.core`; the sweeps and the fleet are still to come).
 
 Components (paper Figure 2):
   Tracer  -> :mod:`repro_torch.core.tracer` (+ :mod:`.events` region map)
@@ -15,6 +16,8 @@ Components (paper Figure 2):
   shared fabric) and :mod:`repro_torch.core.coherency`
   Migration and caching -> :mod:`repro_torch.core.migration` and
   :mod:`repro_torch.core.cache` (host numpy, like the reference's)
+  Asynchronous analysis -> :mod:`repro_torch.core.engine` (one dispatcher
+  thread on its own CUDA stream, cross-session coalescing)
 """
 
 from .analyzer import (
@@ -32,6 +35,7 @@ from .aot import AotDispatchCache
 from .attach import AttachedProgram, CXLMemSim, SimReport
 from .cache import DeviceCacheConfig, DeviceCacheModel
 from .coherency import CoherencyConfig, CoherencyModel
+from .engine import AnalysisEngine, EngineHandle, dispatch_key
 from .events import (
     CACHELINE_BYTES,
     PAGE_BYTES,
@@ -82,6 +86,7 @@ from .tracer import (
 
 __all__ = [
     "Access",
+    "AnalysisEngine",
     "AotDispatchCache",
     "AttachedProgram",
     "CACHELINE_BYTES",
@@ -94,6 +99,7 @@ __all__ = [
     "DeviceCacheConfig",
     "DeviceCacheModel",
     "EpochAnalyzer",
+    "EngineHandle",
     "EpochSchedule",
     "EventStager",
     "FabricReport",
@@ -130,6 +136,7 @@ __all__ = [
     "capacity_check",
     "chained_topology",
     "concat_events",
+    "dispatch_key",
     "figure1_topology",
     "local_only_topology",
     "merge_host_traces",

@@ -34,6 +34,7 @@ form with a cumulative max:  let ``f_i = cummax(arr_i − STT·rank_i)``; then
 from __future__ import annotations
 
 import dataclasses
+import functools
 import heapq
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -634,7 +635,16 @@ def _bandwidth(
     return per_switch_bw, bandwidth, per_host_bw
 
 
-def _analyze_batch(
+@functools.lru_cache(maxsize=None)
+def _stage_index(stage_order: Tuple[int, ...], device: torch.device) -> torch.Tensor:
+    """The stages' switch indices on ``device``, made once per order and
+    device: a ``torch.tensor(..., device=...)`` per dispatch is a host copy
+    that waits for the work already queued on the stream (under the engine,
+    work that shares the card with the attached program's step)."""
+    return torch.tensor(stage_order, dtype=torch.int64, device=device)
+
+
+def _analyze_rows(
     t: torch.Tensor,  # [B, N] f32 epoch-relative ns, each row TIME-SORTED
     pool: torch.Tensor,  # [B, N] i32 physical pool (padded entries: 0)
     nbytes: torch.Tensor,  # [B, N] f32 (padded entries: 0)
@@ -658,10 +668,11 @@ def _analyze_batch(
     disc_code: Optional[torch.Tensor] = None,  # [S_stages] i32 codes, stage order
     class_weights: Optional[torch.Tensor] = None,  # [S_stages, C] f32, stage order
 ) -> torch.Tensor:
-    """B epochs' three-delay analysis, summed over the batch on the device.
+    """B epochs' three-delay analysis, one row of totals per epoch.
 
     Port of the reference's ``_analyze_jax`` with the ``vmap`` of
-    ``_analyze_batch_jax`` written out as the leading dimension.
+    ``_analyze_batch_jax`` written out as the leading dimension (the rows of
+    a coalesced dispatch are K sessions' B epochs, ``[K·B, N]``).
     Multi-host fabrics (``n_hosts > 1``) key every lookup by the virtual
     pool ``vp = host * P + pool`` (shared switches see the merged timeline,
     per-host RCs stay private) and host-segment every delay class.  The
@@ -674,8 +685,7 @@ def _analyze_batch(
     tensor ``[latency, congestion, bandwidth, per_pool_latency (P),
     per_switch_congestion (S), per_switch_bandwidth (S), per_host_latency
     (H), per_host_congestion (H), per_host_bandwidth (H),
-    per_class_congestion (C, or 1 without ``qos``)]`` so the host needs one
-    transfer per batch.
+    per_class_congestion (C, or 1 without ``qos``)]`` per row, ``[B, M]``.
     """
     n_rows = t.shape[0]
     V = pool_latency_ns.shape[0]
@@ -701,7 +711,7 @@ def _analyze_batch(
     per_class_cong = None
     if stage_stt_ns is None:  # the fused cascades: one route word per event
         ev_bits = torch.where(valid, bits_table[vp], 0)
-        stage_idx = torch.tensor(stage_order, dtype=torch.int64, device=dev)
+        stage_idx = _stage_index(tuple(stage_order), dev)
         stage_stt = switch_stt_ns[stage_idx].contiguous()
     if qos is not None:
         # -- congestion: the QoS cascade (a kernel on the card) ------------- #
@@ -792,7 +802,13 @@ def _analyze_batch(
         ],
         dim=1,
     )
-    return rows.sum(dim=0)
+    return rows
+
+
+def _analyze_batch(*args, **kwargs) -> torch.Tensor:
+    """:func:`_analyze_rows` summed over the batch on the device: one flat
+    ``[M]`` tensor, so the host needs one transfer per batch."""
+    return _analyze_rows(*args, **kwargs).sum(dim=0)
 
 
 def _analyze_pipeline(
@@ -916,6 +932,12 @@ class _DeviceRing:
         reservation yet."""
         if self.flat and self.flat["t"].numel() >= b_bucket * width:
             return
+        if self.device.type == "cuda":
+            # the buffers may have been allocated on another thread's stream
+            # (a warm-up at attach) and last read on this one (the engine's):
+            # the allocator must not hand them out before this stream is done
+            for buf in self.flat.values():
+                buf.record_stream(torch.cuda.current_stream(self.device))
         self.flat = {
             name: torch.empty(b_bucket * width, dtype=dtype, device=self.device)
             for name, dtype in self.PACKED.items()
@@ -1005,10 +1027,16 @@ class PendingBatch:
             )
         a.last_dispatch = self.stats = stats
         self.out = None
-        lat, cong, bw = (float(x) for x in tot[:3])
-        parts = np.split(tot[3:], np.cumsum([P, S, S, H, H, H]))
-        ppl, psc, psb, phl, phc, phb, pcc = parts
-        return DelayBreakdown(lat, cong, bw, ppl, psc, psb, phl, phc, phb, pcc)
+        return _unpack(tot, P, S, H)
+
+
+def _unpack(tot: np.ndarray, P: int, S: int, H: int) -> DelayBreakdown:
+    """One flat f64 row of :func:`_analyze_batch`'s totals as a
+    :class:`DelayBreakdown`."""
+    lat, cong, bw = (float(x) for x in tot[:3])
+    parts = np.split(tot[3:], np.cumsum([P, S, S, H, H, H]))
+    ppl, psc, psb, phl, phc, phb, pcc = parts
+    return DelayBreakdown(lat, cong, bw, ppl, psc, psb, phl, phc, phb, pcc)
 
 
 class EpochAnalyzer:
@@ -1037,8 +1065,7 @@ class EpochAnalyzer:
     (:meth:`launch_batch`): the host planes are staged into pinned buffers
     (on a card) and copied asynchronously on a side stream into the
     preallocated device buffers of the dispatch key (``aot``, an
-    :class:`~repro_torch.core.aot.AotDispatchCache`, private by default;
-    no caller in the port passes one before the analysis engine, slice 4).
+    :class:`~repro_torch.core.aot.AotDispatchCache`, private by default).
     Keys of one ``(batch, length)`` bucket share its full-plane buffers.
     Chain-eligible FIFO topologies (:func:`plan_chain`) then run the packed
     compact cascade (:func:`_analyze_pipeline`), the merges on the device
@@ -1155,10 +1182,11 @@ class EpochAnalyzer:
             _check_reachable(self.flat, tr)
         return pairs
 
-    def _run_batch(self, t, pool, nbytes, weight, host, valid, window, scale, qos):
-        """:func:`_analyze_batch` on device planes with this analyzer's
-        topology tensors."""
-        return _analyze_batch(
+    def _run_batch(self, t, pool, nbytes, weight, host, valid, window, scale, qos,
+                   per_row=False):
+        """:func:`_analyze_batch` (:func:`_analyze_rows` with ``per_row``) on
+        device planes with this analyzer's topology tensors."""
+        return (_analyze_rows if per_row else _analyze_batch)(
             t,
             pool,
             nbytes,
@@ -1213,6 +1241,7 @@ class EpochAnalyzer:
         self,
         traces: Sequence[MemEvents],
         lat_scales: Optional[Sequence[Optional[np.ndarray]]] = None,
+        stager: Optional[EventStager] = None,
     ) -> PendingBatch:
         """Stage, transfer and launch one epoch batch without blocking.
 
@@ -1224,7 +1253,10 @@ class EpochAnalyzer:
         analysis otherwise, recording the stage/transfer/compile/compute
         split; non-pipeline analyzers copy each plane with a pageable
         ``torch.from_numpy(a).to(device)`` and leave the split at its
-        defaults.
+        defaults.  ``stager`` substitutes the caller's staging buffers for
+        the analyzer's own: the shared engine passes its own, so its
+        dispatcher thread never shares mutable buffers with callers
+        analyzing on this analyzer from theirs.
         """
         P, H = self.flat.n_pools, self.flat.n_hosts
         pairs = self._clean_pairs(traces, lat_scales)
@@ -1234,7 +1266,7 @@ class EpochAnalyzer:
         t0 = time.perf_counter()
         n_bucket = self._bucket(max(tr.n for tr in traces))
         b_bucket = self._bucket(len(traces), floor=1)
-        st = self._stager
+        st = stager if stager is not None else self._stager
         chain = self._chain_plan
         pack = caps = None
         if chain is not None:
@@ -1339,33 +1371,131 @@ class EpochAnalyzer:
         self,
         traces: Sequence[MemEvents],
         lat_scales: Optional[Sequence[Optional[np.ndarray]]] = None,
+        stager: Optional[EventStager] = None,
     ) -> DelayBreakdown:
         """Analyze B epochs in one batched pass; returns summed totals —
         :meth:`launch_batch`, then at once :meth:`PendingBatch.finish`.
 
         ``lat_scales`` optionally pairs each epoch with a ``[H*P]`` latency
         scale vector; ``None`` entries (and padded rows) analyze with the
-        exact ones vector.
+        exact ones vector.  ``stager`` as for :meth:`launch_batch`.
         """
-        return self.launch_batch(traces, lat_scales).finish()
+        return self.launch_batch(traces, lat_scales, stager=stager).finish()
 
-    def analyze_batch_multi(self, *args, **kwargs):
-        raise NotImplementedError(
-            "multi-session stacked dispatch (analyze_batch_multi) comes with "
-            "the analysis engine, slice 4 of the port"
+    def analyze_batch_multi(
+        self,
+        groups: Sequence[Sequence[MemEvents]],
+        lat_scale_groups: Optional[Sequence[Optional[Sequence]]] = None,
+        stager: Optional[EventStager] = None,
+        mesh=None,
+    ) -> List[DelayBreakdown]:
+        """K sessions' epoch batches → K summed breakdowns, one dispatch.
+
+        The multi-session entry point the shared engine coalesces through:
+        ``groups[k]`` is session k's epoch list and comes back as its own
+        :class:`DelayBreakdown`.  The K batches are staged into one
+        ``[K, B, N]`` stack (:meth:`EventStager.stage_stack`; every axis a
+        :func:`bucket_pow2` bucket, as in the reference) and analyzed as the
+        ``[K·B, N]`` rows of **one** :func:`_analyze_rows` — on the card one
+        cascade launch over all K·B rows (the host-segmented cascade on
+        fabrics, the QoS cascade on QoS topologies), whose per-row host bins
+        keep every row's per-host sums apart.  The rows are reduced to
+        per-session totals on the device and cross to the host as one
+        ``[K, M]`` copy.  Every session must share this analyzer's topology,
+        arbitration and window configuration
+        (:func:`~repro_torch.core.engine.dispatch_key` guarantees it).
+        Empty groups come back as zero breakdowns; a single live group runs
+        :meth:`analyze_batch`.  ``mesh=`` (slice 6) raises
+        ``NotImplementedError``.
+        """
+        if mesh is not None:
+            raise NotImplementedError("sharded dispatch (mesh=) comes with slice 6 of the port")
+        P, S, H = self.flat.n_pools, self.flat.n_switches, self.flat.n_hosts
+        K = len(groups)
+        if lat_scale_groups is None:
+            lat_scale_groups = [None] * K
+        elif len(lat_scale_groups) != K:
+            raise ValueError(
+                f"{len(lat_scale_groups)} lat_scale_groups for {K} groups"
+            )
+        cleaned = [
+            self._clean_pairs(traces, scales)
+            for traces, scales in zip(groups, lat_scale_groups)
+        ]
+        out = [DelayBreakdown.zero(P, S, H) for _ in range(K)]
+        rows = [i for i, p in enumerate(cleaned) if p]
+        if not rows:
+            return out
+        if len(rows) == 1:  # degenerate stack: the plain batched path
+            i = rows[0]
+            out[i] = self.analyze_batch(
+                [tr for tr, _ in cleaned[i]],
+                [sc for _, sc in cleaned[i]],
+                stager=stager,
+            )
+            return out
+        n_bucket = self._bucket(max(tr.n for i in rows for tr, _ in cleaned[i]))
+        b_bucket = self._bucket(max(len(cleaned[i]) for i in rows), floor=1)
+        k_bucket = self._bucket(len(rows), floor=1)
+        st = stager if stager is not None else self._stager
+        buf = st.stage_stack(
+            [[tr for tr, _ in cleaned[i]] for i in rows], k_bucket, b_bucket, n_bucket
         )
+        scale_buf = np.ones((k_bucket, b_bucket, H * P), np.float32)
+        for k, i in enumerate(rows):
+            for row, (_, sc) in enumerate(cleaned[i]):
+                if sc is not None:
+                    scale_buf[k, row] = sc
+        span = np.maximum(buf["span"], self.bw_window_ns)
+        bw_window = np.maximum(span / self.n_windows, 1.0).astype(np.float32)
+        self.last_dispatch = DispatchStats(
+            devices_used=1,
+            shard_rows=0,
+            rows=len(rows),
+            padded_fraction=float(k_bucket - len(rows)) / k_bucket,
+            qos_classes=self.flat.n_qos_classes,
+        )
+        n_rows, dev = k_bucket * b_bucket, self.device
+
+        def put(a: np.ndarray) -> torch.Tensor:
+            # [K, B, ...] planes as the [K·B, ...] rows of one batch
+            return torch.from_numpy(a).to(dev).view((n_rows,) + a.shape[2:])
+
+        res = self._run_batch(
+            put(buf["t"]),
+            put(buf["pool"]),
+            put(buf["bytes"]),
+            put(buf["weight"]),
+            put(buf["host"]) if H > 1 else None,  # one host: no plane to move
+            put(buf["valid"]),
+            put(bw_window),
+            put(scale_buf),
+            put(buf["qos"]) if self.qos_on else None,  # FIFO: no plane to move
+            per_row=True,
+        )
+        per_session = res.view(k_bucket, b_bucket, -1).sum(dim=1)[: len(rows)]
+        # one [K, M] transfer for every coalesced session
+        tot = per_session.cpu().numpy().astype(np.float64)
+        for k, i in enumerate(rows):
+            out[i] = _unpack(tot[k], P, S, H)
+        return out
 
 
 def analyze_any(
     analyzer,
     traces: Sequence[MemEvents],
     lat_scales: Optional[Sequence] = None,
+    stager: Optional[EventStager] = None,
 ) -> DelayBreakdown:
     """Run one epoch batch through whichever analyzer a session carries:
     an :class:`EpochAnalyzer` batches on its device; DES-style analyzers
-    (anything with ``.flat`` and ``.simulate``) run per epoch and sum."""
+    (anything with ``.flat`` and ``.simulate``) run per epoch and sum.
+    The single dispatch point shared by the synchronous sessions and the
+    engine's solo submissions."""
     if isinstance(analyzer, EpochAnalyzer):
-        return analyzer.analyze_batch(traces, lat_scales)
+        if stager is None:  # the caller's thread: the analyzer's own stager
+            return analyzer.analyze_batch(traces, lat_scales)
+        return analyzer.analyze_batch(traces, lat_scales, stager=stager)
     flat = analyzer.flat
     bd = DelayBreakdown.zero(flat.n_pools, flat.n_switches, flat.n_hosts)
     for i, tr in enumerate(traces):

@@ -20,29 +20,34 @@ the reference's — ``("chain", b, n, caps)`` or ``("batch", b, n)`` — so
   * a build's cost is measured where it happens and reported as
     ``compile_s`` in :class:`~repro_torch.core.analyzer.DispatchStats`.
 
-The port dispatches synchronously from one thread, so the cache takes no
-lock.  Left out: ``install_persistent_cache`` (XLA's on-disk compilation
-cache has no counterpart; there is nothing compiled to keep), the
-reference's process-wide lowering probe for its JAX recompile sanitizer,
-and ``warm`` (the analyzer warms through one throwaway dispatch, as the
-reference's does).
+A session's :meth:`~repro_torch.core.analyzer.EpochAnalyzer.warmup` at
+attach (the caller's thread) and the analysis engine's dispatcher can reach
+one cache, so :meth:`AotDispatchCache.get` takes a lock around the lookup
+and the insertion, as the reference's does; the build runs outside it, so
+other keys never queue behind one.  Left out: ``install_persistent_cache``
+(XLA's on-disk compilation cache has no counterpart; there is nothing
+compiled to keep), the reference's process-wide lowering probe for its JAX
+recompile sanitizer, and ``warm`` (the analyzer warms through one
+throwaway dispatch, as the reference's does).
 """
 
 from __future__ import annotations
 
+import threading
 from typing import Any, Callable, Dict, Hashable, Tuple
 
 __all__ = ["AotDispatchCache"]
 
 
 class AotDispatchCache:
-    """Map from dispatch key to the device buffers it runs from.
+    """Thread-safe map from dispatch key to the device buffers it runs from.
 
     ``get`` returns ``(entry, hit)``; ``lowerings`` counts how many times a
     build actually ran, ``hits`` counts lookups served without one.
     """
 
     def __init__(self) -> None:
+        self._lock = threading.Lock()
         self._cache: Dict[Hashable, Any] = {}
         self.lowerings = 0
         self.hits = 0
@@ -51,10 +56,18 @@ class AotDispatchCache:
         return len(self._cache)
 
     def get(self, key: Hashable, build: Callable[[], Any]) -> Tuple[Any, bool]:
-        entry = self._cache.get(key)
-        if entry is not None:
-            self.hits += 1
-            return entry, True
-        entry = self._cache[key] = build()
-        self.lowerings += 1
-        return entry, False
+        with self._lock:
+            entry = self._cache.get(key)
+            if entry is not None:
+                self.hits += 1
+                return entry, True
+        # build outside the lock: an allocation can take a while, and other
+        # dispatch keys must not queue behind it
+        entry = build()
+        with self._lock:
+            won = self._cache.setdefault(key, entry)
+            if won is entry:
+                self.lowerings += 1
+            else:
+                self.hits += 1
+            return won, won is not entry

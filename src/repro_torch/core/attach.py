@@ -1,5 +1,5 @@
 """CXLMemSim.attach — the user-facing simulator (paper Figure 2, assembled),
-ported from ``repro/core/attach.py`` in synchronous mode.
+ported from ``repro/core/attach.py``.
 
 Wraps any PyTorch step function.  Per step:
 
@@ -8,14 +8,21 @@ Wraps any PyTorch step function.  Per step:
      residency and inject the copy traffic), inject coherency traffic, and
      run the device cache's tag simulation over the final epoch, whose hit
      fractions become the epoch's latency-scale row;
-  2. dispatch the real step and measure native wall time (the paper's
-     "execution of the attached program"), synchronizing the card when the
-     step's outputs are CUDA tensors;
-  3. analyze the step's epoch batch with the Timing Analyzer — one
-     :meth:`EpochAnalyzer.analyze_batch` call with the scale rows, one host
-     transfer per step — and fold the delays into the report;
-  4. optionally ``time.sleep`` the computed delay — the paper's delay
-     injection, making the host observe simulated-topology speed.
+  2. with ``async_analysis=True`` (or ``engine=``), submit the step's epoch
+     batch to the shared :class:`~repro_torch.core.engine.AnalysisEngine`
+     *before* the native step, so the analyzer works on its own thread and
+     CUDA stream while the step executes; the defaults stay synchronous;
+  3. dispatch the real step and measure native wall time (the paper's
+     "execution of the attached program"), waiting for the card only on
+     the streams the step's outputs were produced on (the caller's current
+     stream), never on the engine's;
+  4. synchronously, analyze the step's epoch batch with the Timing Analyzer
+     — one :meth:`EpochAnalyzer.analyze_batch` call with the scale rows,
+     one host transfer per step — and fold the delays into the report;
+  5. optionally ``time.sleep`` the computed delay — the paper's delay
+     injection, making the host observe simulated-topology speed (this
+     forces synchronous analysis: the delay must exist before it can be
+     injected).
 
 Two clocks are reported:
 
@@ -30,17 +37,20 @@ back-invalidation traffic and coherency-miss latency, ``migration=`` (a
 :class:`~repro_torch.core.migration.MigrationSimulator` over the program's
 region map) hot/cold migration, and ``cache=`` (a
 :class:`~repro_torch.core.cache.DeviceCacheConfig`) the expander-side device
-cache; both run synchronously on the host, as the reference's do.
-``pipeline=True`` analyzes through the device-resident epoch pipeline
-(pinned staging, the dispatch cache's device buffers, the chain cascade on
-chain topologies), and ``warmup=True`` builds its dispatch-cache entry at
-attach.  Asynchronous analysis (the reference's shared engine, slice 4 of
-the port) raises ``NotImplementedError``.
+cache; both run on the submitting thread, as the reference's do, so the
+asynchronous and synchronous reports agree.  ``pipeline=True`` analyzes
+through the device-resident epoch pipeline (pinned staging, the dispatch
+cache's device buffers, the chain cascade on chain topologies), and
+``warmup=True`` builds its dispatch-cache entry at attach.  Reading
+:attr:`AttachedProgram.report` flushes in-flight asynchronous work first; a
+batch lost to an analyzer failure is re-raised once from ``flush()`` and
+recorded in ``dropped_batches`` / ``dropped_epochs``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -54,9 +64,10 @@ from .analyzer import (
     _check_device,
     analyze_any,
 )
+from ..annotations import guarded_by
 from .cache import DeviceCacheConfig, DeviceCacheModel
 from .coherency import CoherencyModel
-from .engine import EngineClient, fold_dispatch_stats
+from .engine import AnalysisEngine, EngineClient, EngineHandle, fold_dispatch_stats
 from .events import MemEvents, RegionMap, concat_events
 from .migration import MigrationSimulator
 from .policy import PlacementPolicy, capacity_check
@@ -159,15 +170,15 @@ class SimReport:
         }
 
 
-def _unsupported(what: str, where: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} comes with {where} of the port")
-
-
 class CXLMemSim:
     """Configure once, attach to any number of step functions.
 
     ``device`` is where the analyzer runs: ``"cuda"`` (the default; raises
-    when no card is present) or ``"cpu"`` (the plain PyTorch versions)."""
+    when no card is present) or ``"cpu"`` (the plain PyTorch versions).
+    ``async_analysis=True`` analyzes through ``engine`` (the process-wide
+    :meth:`AnalysisEngine.default` when None); ``None``, the default, is
+    asynchronous only when an ``engine`` is given.  ``inject_delays`` always
+    forces synchronous analysis."""
 
     def __init__(
         self,
@@ -184,13 +195,12 @@ class CXLMemSim:
         n_windows: int = 128,
         check_capacity: bool = True,
         max_events_per_access: int = 64,  # trace fidelity (higher = finer)
-        async_analysis: Optional[bool] = None,  # None: synchronous
+        async_analysis: Optional[bool] = None,  # None: asynchronous iff engine= is given
+        engine: Optional[AnalysisEngine] = None,  # None: the shared default
         pipeline: bool = False,  # device-resident epoch pipeline (dispatch cache + pinned staging)
         warmup: bool = False,  # build the pipeline's dispatch-cache entry at attach
         device="cuda",
     ):
-        if async_analysis:
-            raise _unsupported("asynchronous analysis (the shared engine)", "slice 4")
         if analyzer not in ("epoch", "fine"):
             raise ValueError(f"unknown analyzer {analyzer!r} (use 'epoch' or 'fine')")
         self.topology = topology
@@ -207,9 +217,15 @@ class CXLMemSim:
         self.n_windows = n_windows
         self.check_capacity = check_capacity
         self.max_events_per_access = max_events_per_access
+        self.engine = engine
         self.pipeline = pipeline
         self.warmup = warmup
         self.device = _check_device(device)
+        # delay injection needs the delay before the step returns, so it
+        # forces the synchronous path
+        if async_analysis is None:
+            async_analysis = engine is not None
+        self.async_analysis = bool(async_analysis) and not inject_delays
 
     def attach(
         self,
@@ -226,7 +242,10 @@ class CXLMemSim:
 
 def _synchronize_outputs(out: Any) -> None:
     """Wait for the card if any tensor in ``out`` (nested tuples, lists and
-    dicts) lies on it — the counterpart of ``jax.block_until_ready``."""
+    dicts) lies on it — the counterpart of ``jax.block_until_ready``.  It
+    waits on the calling thread's current stream of each such device, the
+    stream the outputs were produced on, and not on the whole device: the
+    analysis engine's stream must not bill its work to the native clock."""
     stack = [out]
     devices = set()
     while stack:
@@ -239,10 +258,14 @@ def _synchronize_outputs(out: Any) -> None:
         elif isinstance(x, dict):
             stack.extend(x.values())
     for dev in devices:
-        torch.cuda.synchronize(dev)
+        torch.cuda.current_stream(dev).synchronize()
 
 
 class AttachedProgram(EngineClient):
+    # the report is folded from the engine's dispatcher thread while the
+    # submitting thread accumulates native clocks — every touch locks
+    _simlint_guards = guarded_by("_report_lock", "_report")
+
     def __init__(
         self,
         sim: CXLMemSim,
@@ -275,7 +298,13 @@ class AttachedProgram(EngineClient):
             qos_classes=sim.flat.n_qos_classes,
             per_class_congestion_ns=np.zeros((sim.flat.n_qos_classes,)),
         )
+        self._report_lock = threading.Lock()
         self._trace_cache: Optional[tuple] = None
+        if sim.async_analysis:
+            eng = sim.engine if sim.engine is not None else AnalysisEngine.default()
+            self._handle: Optional[EngineHandle] = eng.register(self._analyzer)
+        else:
+            self._handle = None
         if sim.warmup and isinstance(self._analyzer, EpochAnalyzer):
             # build the pipeline's dispatch-cache entry on this step's trace
             # shapes so the first real dispatch is a cache hit
@@ -285,8 +314,11 @@ class AttachedProgram(EngineClient):
 
     @property
     def report(self) -> SimReport:
-        """The accumulated report."""
-        return self._report
+        """The accumulated report; flushes in-flight asynchronous analysis
+        first (``flush``/``close``/context-manager semantics come from
+        :class:`~repro_torch.core.engine.EngineClient`)."""
+        self.flush()
+        return self._report  # simlint: ignore[lock-discipline] -- post-flush read: no in-flight fold can race the caller's view
 
     # ------------------------------------------------------------------ #
 
@@ -345,36 +377,51 @@ class AttachedProgram(EngineClient):
             if self._cache is not None:
                 scales.append(self._cache.observe_scale(tr))
             batch.append(tr)
-        if self.sim.migration is not None:
-            self._report.migration_moved_bytes = self.sim.migration.moved_bytes_total
-        if self._cache is not None:
-            self._report.cache_hit_fraction = self._cache.hit_fraction
+        if self.sim.migration is not None or self._cache is not None:
+            # running-statistic snapshots; written under the report lock —
+            # the dispatcher folds breakdowns under the same lock
+            with self._report_lock:
+                if self.sim.migration is not None:
+                    self._report.migration_moved_bytes = (
+                        self.sim.migration.moved_bytes_total
+                    )
+                if self._cache is not None:
+                    self._report.cache_hit_fraction = self._cache.hit_fraction
         return batch, coh_ns_total, scales
 
     def _fold(
         self, bd: DelayBreakdown, coh_ns: float, analyzer_s: float, n_epochs: int
     ) -> float:
-        """Fold one analyzed batch into the report; returns its total delay
-        in ns."""
+        """Fold one analyzed batch into the report (any thread; locks).
+        Returns its total delay in ns; ``analyzer_s`` accumulates the
+        analyzer's own seconds whether or not they overlapped the step."""
         delay_ns = bd.total_ns + coh_ns
-        r = self._report
-        r.epochs += n_epochs
-        r.latency_s += ns_to_s(bd.latency_ns)
-        r.congestion_s += ns_to_s(bd.congestion_ns)
-        r.bandwidth_s += ns_to_s(bd.bandwidth_ns)
-        r.coherency_s += ns_to_s(coh_ns)
-        r.per_pool_latency_ns += bd.per_pool_latency_ns
-        r.per_switch_congestion_ns += bd.per_switch_congestion_ns
-        r.per_switch_bandwidth_ns += bd.per_switch_bandwidth_ns
-        if bd.per_class_congestion_ns is not None:
-            pcc = np.asarray(bd.per_class_congestion_ns, np.float64)
-            if len(pcc) == len(r.per_class_congestion_ns):
-                r.per_class_congestion_ns += pcc
-            else:  # qos-off breakdown on a multi-class fabric: all class 0
-                r.per_class_congestion_ns[0] += float(pcc.sum())
-        r.simulated_s += ns_to_s(delay_ns)
-        r.analyzer_s += analyzer_s
-        fold_dispatch_stats(r, getattr(self._analyzer, "last_dispatch", None), 1)
+        with self._report_lock:
+            r = self._report
+            r.epochs += n_epochs
+            r.latency_s += ns_to_s(bd.latency_ns)
+            r.congestion_s += ns_to_s(bd.congestion_ns)
+            r.bandwidth_s += ns_to_s(bd.bandwidth_ns)
+            r.coherency_s += ns_to_s(coh_ns)
+            r.per_pool_latency_ns += bd.per_pool_latency_ns
+            r.per_switch_congestion_ns += bd.per_switch_congestion_ns
+            r.per_switch_bandwidth_ns += bd.per_switch_bandwidth_ns
+            if bd.per_class_congestion_ns is not None:
+                pcc = np.asarray(bd.per_class_congestion_ns, np.float64)
+                if len(pcc) == len(r.per_class_congestion_ns):
+                    r.per_class_congestion_ns += pcc
+                else:  # qos-off breakdown on a multi-class fabric: all class 0
+                    r.per_class_congestion_ns[0] += float(pcc.sum())
+            r.simulated_s += ns_to_s(delay_ns)
+            r.analyzer_s += analyzer_s
+            if self._handle is not None:
+                fold_dispatch_stats(
+                    r, self._handle.last_dispatch, self._handle.last_group_size
+                )
+            else:
+                fold_dispatch_stats(
+                    r, getattr(self._analyzer, "last_dispatch", None), 1
+                )
         return delay_ns
 
     def _analyze_and_accumulate(
@@ -387,32 +434,49 @@ class AttachedProgram(EngineClient):
         try:
             bd = analyze_any(self._analyzer, batch, scales)
         except BaseException:
-            self._report.dropped_batches += 1
-            self._report.dropped_epochs += len(batch)
+            with self._report_lock:
+                self._report.dropped_batches += 1
+                self._report.dropped_epochs += len(batch)
             raise
         elapsed = time.perf_counter() - a0
         return self._fold(bd, coh_ns, elapsed, len(batch))
 
     def step(self, *args, **kwargs):
-        """Run one real step under simulation; returns the step's outputs."""
+        """Run one real step under simulation; returns the step's outputs.
+
+        Asynchronously, the step's epoch batch is submitted *before* the
+        native step, so the analyzer works while the step executes; totals
+        become visible through :attr:`report` (which flushes)."""
         batch, coh_ns, scales = self._epoch_batch()
+        if self._handle is not None:
+            n_epochs = len(batch)
+            self._handle.submit(
+                batch,
+                scales,
+                fold=lambda bd, elapsed: self._fold(bd, coh_ns, elapsed, n_epochs),
+            )
+
         t0 = time.perf_counter()
         out = self.step_fn(*args, **kwargs)
         _synchronize_outputs(out)
         native = time.perf_counter() - t0
-        self._report.native_s += native
-        self._report.simulated_s += native
-        self._report.steps += 1
+        with self._report_lock:
+            self._report.native_s += native
+            self._report.simulated_s += native
+            self._report.steps += 1
 
-        delay_ns = self._analyze_and_accumulate(batch, coh_ns, scales)
-        if self.sim.inject_delays and delay_ns > 0:
-            # the paper's delay injection: the host program observes the
-            # simulated-topology execution speed
-            time.sleep(ns_to_s(delay_ns))
-            self._report.injected_sleep_s += ns_to_s(delay_ns)
+        if self._handle is None:
+            delay_ns = self._analyze_and_accumulate(batch, coh_ns, scales)
+            if self.sim.inject_delays and delay_ns > 0:
+                # the paper's delay injection: the host program observes the
+                # simulated-topology execution speed
+                time.sleep(ns_to_s(delay_ns))
+                with self._report_lock:
+                    self._report.injected_sleep_s += ns_to_s(delay_ns)
         return out
 
     def run(self, n_steps: int, *args, **kwargs) -> SimReport:
         for _ in range(n_steps):
             self.step(*args, **kwargs)
-        return self._report
+        self.flush()
+        return self._report  # simlint: ignore[lock-discipline] -- post-flush read: no in-flight fold can race the caller's view

@@ -17,8 +17,9 @@ them epoch-relative bounds their magnitude (epochs are ms-scale), so float32
 retains sub-ns resolution inside the analyzer; totals are accumulated
 host-side in float64.
 
-The stager's ring slots and packed planes are ported (the device-resident
-pipeline); its stacked planes come with the sweeps (slice 6).
+The stager's ring slots and packed planes (the device-resident pipeline)
+and its stacked ``[K, B, N]`` planes (the analysis engine's coalesced
+dispatch) are ported.
 """
 
 from __future__ import annotations
@@ -285,9 +286,14 @@ class EventStager:
     fence (:meth:`fence`, anything with ``synchronize()``), and the stager
     waits on it before it fills that slot's planes again.
 
-    Not thread-safe: every thread that stages must own its stager.  Each
-    :class:`~repro_torch.core.analyzer.EpochAnalyzer` keeps a private one.
+    Not thread-safe: every thread that stages must own its stager.  The
+    shared :class:`~repro_torch.core.engine.AnalysisEngine` owns its stagers
+    (all its staging happens on its one dispatcher thread); each
+    :class:`~repro_torch.core.analyzer.EpochAnalyzer` keeps a private one for
+    callers analyzing on their own thread — the two never share buffers.
     """
+
+    _FIELDS = ("t", "pool", "bytes", "weight", "host", "qos", "valid")
 
     # dispatches a bucket's natural caps must sit at (or below) half the
     # sticky high-water mark before the sticky caps shrink to the recent
@@ -309,6 +315,8 @@ class EventStager:
         self._bufs: Dict[Tuple[int, int, int], Dict[str, np.ndarray]] = {}
         self._turn: Dict[Tuple[int, int], int] = {}
         self._pack_bufs: Dict[Tuple[int, int, int], Dict[str, np.ndarray]] = {}
+        self._stack_bufs: Dict[Tuple[int, int, int], Dict[str, np.ndarray]] = {}
+        self._stack_filled: Dict[Tuple[int, int, int], int] = {}
         self._cap_hwm: Dict[Tuple[int, int, int], Tuple[int, ...]] = {}
         # idle-decay state per cap key: consecutive calls whose natural caps
         # sat at <= half the sticky high-water mark, and the elementwise peak
@@ -555,6 +563,53 @@ class EventStager:
             if with_qos:
                 buf["qos"][row, n:] = 0
             buf["valid"][row, n:] = False
+
+    def stack_buffers(
+        self, k_bucket: int, b_bucket: int, n_bucket: int
+    ) -> Dict[str, np.ndarray]:
+        """The ``[K, B, N]`` buffer set of a stacked bucket (pinned with
+        ``pin``), made on first use."""
+        key = (k_bucket, b_bucket, n_bucket)
+        buf = self._stack_bufs.get(key)
+        if buf is None:
+            shape = (k_bucket, b_bucket, n_bucket)
+            dtypes = {"pool": np.int32, "host": np.int32, "qos": np.int32, "valid": bool}
+            buf = {f: self._zeros(shape, dtypes.get(f, self.time_dtype)) for f in self._FIELDS}
+            buf["span"] = np.zeros((k_bucket, b_bucket), np.float64)
+            self._stack_bufs[key] = buf
+        return buf
+
+    def stage_stack(
+        self,
+        groups: Sequence[Sequence["MemEvents"]],
+        k_bucket: int,
+        b_bucket: int,
+        n_bucket: int,
+    ) -> Dict[str, np.ndarray]:
+        """Fill (in place) and return ``[K, B, N]`` buffers: one plane per
+        epoch batch, each staged under the exact :meth:`stage` contract —
+        the shared engine's cross-session coalescing path.  Planes beyond
+        ``len(groups)`` are all-invalid; only planes a previous (larger)
+        fill dirtied are re-cleared, and clearing touches just the masks
+        the analyzer reads (``valid``/``span``) — stale payload values
+        under an invalid mask are never observable.  The stacked planes
+        have one slot: their caller reads them back before it stages the
+        next stack."""
+        if len(groups) > k_bucket:
+            raise ValueError(f"{len(groups)} groups exceed stack bucket {k_bucket}")
+        for g in groups:
+            if len(g) > b_bucket:
+                raise ValueError(f"{len(g)} traces exceed batch bucket {b_bucket}")
+        key = (k_bucket, b_bucket, n_bucket)
+        buf = self.stack_buffers(*key)
+        for k, traces in enumerate(groups):
+            plane = {f: buf[f][k] for f in self._FIELDS + ("span",)}
+            self._fill_rows(plane, traces, b_bucket)
+        for k in range(len(groups), self._stack_filled.get(key, 0)):
+            buf["valid"][k] = False
+            buf["span"][k] = 0.0
+        self._stack_filled[key] = len(groups)
+        return buf
 
 
 # --------------------------------------------------------------------------- #

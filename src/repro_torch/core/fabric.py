@@ -1,5 +1,5 @@
 """Shared-fabric multi-host simulation — the paper's pooling scenario,
-ported from ``repro/core/fabric.py`` in synchronous mode.
+ported from ``repro/core/fabric.py``.
 
 The headline use case of CXL.mem is *pooling*: several servers attach to the
 same expanders to fix memory stranding.  The interesting effects — queueing
@@ -42,27 +42,37 @@ seconds (native + that host's delay share), and the fabric-wide contention
 decomposition (latency / congestion / bandwidth / coherency, per switch,
 per pool, per host).
 
-Analysis is synchronous: each round analyzes on the caller's thread before
-the tenants' native steps run (the reference's rounds overlap by default).
+By default analysis is synchronous: each round analyzes on the caller's
+thread before the tenants' native steps run (the reference's rounds overlap
+by default).  **Overlapped rounds** (``async_analysis=True`` or
+``engine=``): each round's merged timeline is submitted to the shared
+:class:`~repro_torch.core.engine.AnalysisEngine` *before* the tenants'
+native steps, so the analyzer's device work hides behind the attached
+programs' own execution, and concurrent sessions on equal topologies
+coalesce into one stacked dispatch.  The stateful pre-analysis transforms
+(migration, coherency, cache) still run on the submitting thread, and each
+round's fold uses the running totals captured when it was submitted, so
+overlapped and synchronous rounds produce bit-equal reports.
 ``pipeline=True`` analyzes each round through the device-resident epoch
-pipeline.  The overlapped rounds (``async_analysis=True``, ``engine=``)
-come with slice 4 of the port; asking for them raises
-``NotImplementedError``.
+pipeline.  ``FabricSession`` is a context manager; ``close()`` releases its
+engine handle, and ``run()`` flushes before it returns the report.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ..annotations import guarded_by
 from .analyzer import DelayBreakdown, EpochAnalyzer
-from .attach import _synchronize_outputs, _unsupported
+from .attach import _synchronize_outputs
 from .cache import DeviceCacheConfig, DeviceCacheModel
 from .coherency import CoherencyConfig, CoherencyModel
-from .engine import EngineClient, fold_dispatch_stats
+from .engine import AnalysisEngine, EngineClient, EngineHandle, fold_dispatch_stats
 from .events import MemEvents, RegionMap, concat_events
 from .migration import LocalBudget, MigrationConfig, MigrationSimulator
 from .policy import PlacementPolicy
@@ -211,8 +221,14 @@ class FabricSession(EngineClient):
     components, full port visibility), since the fabric layout itself is
     host-count independent.  ``device`` is where the analyzer runs:
     ``"cuda"`` (the default; raises when no card is present) or ``"cpu"``
-    (the plain PyTorch versions).
+    (the plain PyTorch versions).  ``async_analysis=True`` or ``engine=``
+    overlaps the rounds through ``engine`` (the process-wide
+    :meth:`AnalysisEngine.default` when None).
     """
+
+    # overlapped rounds fold from the engine's dispatcher thread while the
+    # submitting thread accumulates native clocks — every touch locks
+    _simlint_guards = guarded_by("_report_lock", "_report")
 
     def __init__(
         self,
@@ -227,12 +243,10 @@ class FabricSession(EngineClient):
         check_capacity: bool = True,
         max_events_per_access: int = 64,
         async_analysis: bool = False,
-        engine=None,
+        engine: Optional[AnalysisEngine] = None,
         pipeline: bool = False,
         device="cuda",
     ):
-        if async_analysis or engine is not None:
-            raise _unsupported("overlapped rounds (the shared engine)", "slice 4")
         if not tenants:
             raise ValueError("need at least one tenant")
         self.tenants = list(tenants)
@@ -324,11 +338,21 @@ class FabricSession(EngineClient):
             per_switch_bandwidth_ns=np.zeros((self.flat.n_switches,)),
             per_class_congestion_ns=np.zeros((self.flat.n_qos_classes,)),
         )
+        self._report_lock = threading.Lock()
+        if async_analysis or engine is not None:
+            eng = engine if engine is not None else AnalysisEngine.default()
+            self._handle: Optional[EngineHandle] = eng.register(self._analyzer)
+        else:
+            self._handle = None
 
     @property
     def report(self) -> FabricReport:
-        """The accumulated fabric report."""
-        return self._report
+        """The accumulated fabric report; flushes in-flight overlapped
+        rounds first, so reads never observe partially folded totals
+        (``flush``/``close``/context-manager semantics come from
+        :class:`~repro_torch.core.engine.EngineClient`)."""
+        self.flush()
+        return self._report  # simlint: ignore[lock-discipline] -- post-flush read: no in-flight fold can race the caller's view
 
     # ------------------------------------------------------------------ #
 
@@ -476,50 +500,76 @@ class FabricSession(EngineClient):
 
     # ------------------------------------------------------------------ #
 
+    def _round_stats(self) -> Tuple:
+        """Snapshot of the stateful models' running totals, captured on the
+        submitting thread right after :meth:`_merged_round` advanced them —
+        the dispatcher folds the *captured* values, so a later round's
+        mutation can never leak into an earlier round's fold."""
+        return (
+            self._coherency.bi_messages_total if self._coherency is not None else None,
+            sum(s.moved_bytes_total for s in self._migration if s is not None)
+            if self._has_migration
+            else None,
+            self._cache.hit_fraction if self._cache is not None else None,
+        )
+
     def _fold_round(
         self,
         bd: DelayBreakdown,
         miss_ns: np.ndarray,
         analyzer_s: float,
         n_epochs: int,
+        stats: Tuple,
     ) -> None:
-        """Fold one analyzed round into the report."""
-        r = self._report
-        r.rounds += 1
-        r.epochs += n_epochs
-        r.analyzer_s += analyzer_s
-        r.latency_s += ns_to_s(bd.latency_ns)
-        r.congestion_s += ns_to_s(bd.congestion_ns)
-        r.bandwidth_s += ns_to_s(bd.bandwidth_ns)
-        r.coherency_s += ns_to_s(float(miss_ns.sum()))
-        if self._coherency is not None:
-            r.bi_messages = self._coherency.bi_messages_total
-        if self._has_migration:
-            r.migration_moved_bytes = sum(
-                s.moved_bytes_total for s in self._migration if s is not None
-            )
-        if self._cache is not None:
-            r.cache_hit_fraction = self._cache.hit_fraction
-        r.per_pool_latency_ns += bd.per_pool_latency_ns
-        r.per_switch_congestion_ns += bd.per_switch_congestion_ns
-        r.per_switch_bandwidth_ns += bd.per_switch_bandwidth_ns
-        if bd.per_class_congestion_ns is not None:
-            pcc = np.asarray(bd.per_class_congestion_ns, np.float64)
-            if len(pcc) == len(r.per_class_congestion_ns):
-                r.per_class_congestion_ns += pcc
-            else:  # qos-off breakdown on a multi-class fabric: all class 0
-                r.per_class_congestion_ns[0] += float(pcc.sum())
-        fold_dispatch_stats(r, self._analyzer.last_dispatch, 1)
-        for h, hc in enumerate(r.hosts):
-            hc.latency_s += ns_to_s(float(bd.per_host_latency_ns[h]))
-            hc.congestion_s += ns_to_s(float(bd.per_host_congestion_ns[h]))
-            hc.bandwidth_s += ns_to_s(float(bd.per_host_bandwidth_ns[h]))
-            hc.coherency_s += ns_to_s(float(miss_ns[h]))
+        """Fold one analyzed round into the report (any thread; locks)."""
+        bi_messages, moved_bytes, hit_fraction = stats
+        with self._report_lock:
+            r = self._report
+            r.rounds += 1
+            r.epochs += n_epochs
+            r.analyzer_s += analyzer_s
+            r.latency_s += ns_to_s(bd.latency_ns)
+            r.congestion_s += ns_to_s(bd.congestion_ns)
+            r.bandwidth_s += ns_to_s(bd.bandwidth_ns)
+            r.coherency_s += ns_to_s(float(miss_ns.sum()))
+            if bi_messages is not None:
+                r.bi_messages = bi_messages
+            if moved_bytes is not None:
+                r.migration_moved_bytes = moved_bytes
+            if hit_fraction is not None:
+                r.cache_hit_fraction = hit_fraction
+            r.per_pool_latency_ns += bd.per_pool_latency_ns
+            r.per_switch_congestion_ns += bd.per_switch_congestion_ns
+            r.per_switch_bandwidth_ns += bd.per_switch_bandwidth_ns
+            if bd.per_class_congestion_ns is not None:
+                pcc = np.asarray(bd.per_class_congestion_ns, np.float64)
+                if len(pcc) == len(r.per_class_congestion_ns):
+                    r.per_class_congestion_ns += pcc
+                else:  # qos-off breakdown on a multi-class fabric: all class 0
+                    r.per_class_congestion_ns[0] += float(pcc.sum())
+            if self._handle is not None:
+                fold_dispatch_stats(
+                    r, self._handle.last_dispatch, self._handle.last_group_size
+                )
+            else:
+                fold_dispatch_stats(
+                    r, getattr(self._analyzer, "last_dispatch", None), 1
+                )
+            for h, hc in enumerate(r.hosts):
+                hc.latency_s += ns_to_s(float(bd.per_host_latency_ns[h]))
+                hc.congestion_s += ns_to_s(float(bd.per_host_congestion_ns[h]))
+                hc.bandwidth_s += ns_to_s(float(bd.per_host_bandwidth_ns[h]))
+                hc.coherency_s += ns_to_s(float(miss_ns[h]))
 
-    def round(self) -> DelayBreakdown:
-        """Run one co-scheduled round: analyze the merged shared timeline,
-        fold it into :attr:`report`, then run the tenants' native steps;
-        returns the round's breakdown.
+    def round(self) -> Optional[DelayBreakdown]:
+        """Run one co-scheduled round.  Overlapped, the merged shared
+        timeline is **submitted to the engine before any tenant's native
+        step**, so the analyzer's device work hides behind the tenants' own
+        execution; the round's breakdown folds into :attr:`report` when the
+        dispatcher finishes (``flush()``/``run()`` synchronize) and the
+        return value is ``None``.  Synchronously (the default) the analysis
+        runs inline, before the native steps, and the breakdown is
+        returned.
 
         The analyzer intentionally re-runs every round even though the
         merged timelines are cached: per-round analyzer overhead is a
@@ -527,29 +577,46 @@ class FabricSession(EngineClient):
         ``CXLMemSim.attach`` re-analyzes its cached trace each step."""
         merged, miss_ns, scales = self._merged_round()
         n_epochs = len(merged)
-        a0 = time.perf_counter()
-        try:
-            bd = self._analyzer.analyze_batch(merged, scales)
-        except BaseException:
-            self._report.dropped_batches += 1
-            self._report.dropped_epochs += n_epochs
-            raise
-        self._fold_round(bd, miss_ns, time.perf_counter() - a0, n_epochs)
+        stats = self._round_stats()
 
+        bd: Optional[DelayBreakdown] = None
+        if self._handle is not None:
+            self._handle.submit(
+                merged,
+                scales,
+                fold=lambda b, elapsed: self._fold_round(
+                    b, miss_ns, elapsed, n_epochs, stats
+                ),
+            )
+        else:
+            a0 = time.perf_counter()
+            try:
+                bd = self._analyzer.analyze_batch(merged, scales)
+            except BaseException:
+                with self._report_lock:
+                    self._report.dropped_batches += 1
+                    self._report.dropped_epochs += n_epochs
+                raise
+            self._fold_round(bd, miss_ns, time.perf_counter() - a0, n_epochs, stats)
+
+        # the tenants' native steps run AFTER the submission: the analyzer's
+        # device work overlaps the attached programs' own execution
+        natives: List[float] = []
         for h, tenant in enumerate(self.tenants):
             if tenant.step_fn is not None:
                 t0 = time.perf_counter()
                 out = tenant.step_fn(*tenant.step_args)
                 _synchronize_outputs(out)
-                native = time.perf_counter() - t0
+                natives.append(time.perf_counter() - t0)
             else:
-                native = self._tenant_epochs(h)[1]
-            hc = self._report.hosts[h]
-            hc.steps += 1
-            hc.native_s += native
+                natives.append(self._tenant_epochs(h)[1])
+        with self._report_lock:
+            for hc, native in zip(self._report.hosts, natives):
+                hc.steps += 1
+                hc.native_s += native
         return bd
 
     def run(self, n_rounds: int) -> FabricReport:
         for _ in range(n_rounds):
             self.round()
-        return self.report
+        return self.report  # the property flushes

@@ -154,8 +154,18 @@ def test_unported_options_name_their_slice():
     for kw, slice_name in cases:
         with pytest.raises(NotImplementedError, match=slice_name):
             t_an.EpochAnalyzer(device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        t_an.EpochAnalyzer(fig, device="cpu").analyze_batch_multi([])
+    # the stacked multi-session dispatch is ported (slice 4): it runs and
+    # matches the reference's; only its mesh= still raises
+    r_fig = r_topo.figure1_topology().flatten()
+    groups = [_traces(r_fig, 0.8, 20)[:2], [], _traces(r_fig, 0.5, 30)[:1]]
+    want = r_an.EpochAnalyzer(r_fig).analyze_batch_multi(groups)
+    an = t_an.EpochAnalyzer(fig, device="cpu")
+    got = an.analyze_batch_multi([_port(r_fig, g)[1] for g in groups])
+    assert an.analyze_batch_multi([]) == [] and got[1].total_ns == want[1].total_ns == 0.0
+    for g, w in zip(got, want):
+        _assert_breakdown_close(g, w)
+    with pytest.raises(NotImplementedError, match="slice 6"):
+        an.analyze_batch_multi(groups, mesh=object())
 
 
 def test_default_device_is_cuda():

@@ -104,14 +104,52 @@ def test_default_device_is_cuda():
         T.CXLMemSim(T.figure1_topology(), T.ClassMapPolicy(POLICY))
 
 
-# migration= and cache= are ported (tests/test_torch_migration_cache.py);
-# asynchronous analysis still raises, with them as without them
+# migration= and cache= (tests/test_torch_migration_cache.py) and
+# asynchronous analysis (slice 4, tests/test_torch_engine.py) are ported.
+# The test keeps its name and cases: each case now runs asynchronously, with
+# the option it names, and matches the reference's asynchronous attach (the
+# reference's default) at this file's bars
 @pytest.mark.parametrize("kw, slice_name", [
-    (dict(async_analysis=True, migration=T.MigrationSimulator(
-        T.MigrationConfig(), T.RegionMap(), T.figure1_topology().flatten())), "slice 4"),
-    (dict(async_analysis=True, cache=T.DeviceCacheConfig(capacity_bytes=1 << 20)), "slice 4"),
+    (dict(async_analysis=True, migration=True), "slice 4"),
+    (dict(async_analysis=True, cache=1 << 20), "slice 4"),
     (dict(async_analysis=True), "slice 4"),
 ])
 def test_unported_options_name_their_slice(kw, slice_name):
-    with pytest.raises(NotImplementedError, match=slice_name):
-        T.CXLMemSim(T.figure1_topology(), T.LocalOnlyPolicy(), device="cpu", **kw)
+    reports = {}
+    for pkg, build in ((R, r_build), (T, t_build)):
+        regions, phases = build((r_qwen if pkg is R else t_qwen).SMOKE, "train", batch=2, seq=64)
+        opts = dict(async_analysis=kw["async_analysis"])
+        if "migration" in kw:
+            opts["migration"] = pkg.MigrationSimulator(
+                pkg.MigrationConfig(mode="software", promote_threshold=1,
+                                    local_budget_bytes=1 << 30),
+                regions, pkg.figure1_topology().flatten())
+        if "cache" in kw:
+            opts["cache"] = pkg.DeviceCacheConfig(capacity_bytes=kw["cache"])
+        if pkg is T:
+            opts["device"] = "cpu"
+            step, x = (lambda a: (a @ a.T).sum()), torch.ones(16, 16)
+        else:
+            step, x = jax.jit(lambda a: (a @ a.T).sum()), jnp.ones((16, 16))
+        with pkg.AnalysisEngine() as eng:
+            sim = pkg.CXLMemSim(
+                pkg.figure1_topology(), pkg.ClassMapPolicy(POLICY),
+                epoch=pkg.EpochSchedule(KW["epoch"]), hw=pkg.TPU_V5E,
+                max_events_per_access=KW["max_events_per_access"],
+                check_capacity=KW["check_capacity"], engine=eng, **opts,
+            )
+            with sim.attach(step, phases, regions) as prog:
+                assert prog._handle is not None and prog._handle.engine is eng
+                reports[pkg] = prog.run(2, x)
+    got, want = reports[T], reports[R]
+    assert got.steps == want.steps == 2 and got.epochs == want.epochs
+    for f in ("latency_s", "congestion_s", "bandwidth_s"):
+        assert getattr(got, f) == pytest.approx(getattr(want, f), rel=1e-5), f
+    for f in ("per_pool_latency_ns", "per_switch_congestion_ns", "per_switch_bandwidth_ns"):
+        np.testing.assert_allclose(getattr(got, f), getattr(want, f), rtol=1e-5, atol=1e-2)
+    assert got.migration_moved_bytes == want.migration_moved_bytes
+    if "migration" in kw:
+        assert got.migration_moved_bytes > 0
+    if "cache" in kw:
+        assert got.cache_hit_fraction == want.cache_hit_fraction
+    assert got.dropped_batches == want.dropped_batches == 0

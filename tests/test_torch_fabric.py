@@ -374,20 +374,54 @@ def test_fabric_session_configuration_errors():
                     coherency=T.CoherencyConfig(shared_classes=("kvcache",)))
 
 
+# the overlapped rounds (slice 4, tests/test_torch_engine.py) are ported,
+# beside migration=, cache= and pipeline= (tests/test_torch_migration_cache.py,
+# tests/test_torch_pipeline.py).  The test keeps its name and cases: each
+# case now runs overlapped rounds with the options it names (``engine=True``:
+# a private engine) and matches the reference's overlapped rounds (its
+# default) at this file's bars
 @pytest.mark.parametrize("kw, slice_name", [
     (dict(async_analysis=True), "slice 4"),
-    (dict(engine=object()), "slice 4"),
-    # migration=, cache= and pipeline= are ported (tests/test_torch_migration_cache.py,
-    # tests/test_torch_pipeline.py); the overlapped rounds still raise beside them
+    (dict(engine=True), "slice 4"),
     (dict(pipeline=True, async_analysis=True), "slice 4"),
-    (dict(async_analysis=True, migration=T.MigrationConfig()), "slice 4"),
-    (dict(pipeline=True, engine=object(),
-          cache=T.DeviceCacheConfig(capacity_bytes=1 << 20)), "slice 4"),
+    (dict(async_analysis=True, migration=True), "slice 4"),
+    (dict(pipeline=True, engine=True, cache=1 << 20), "slice 4"),
 ])
 def test_unported_fabric_options_name_their_slice(kw, slice_name):
-    with pytest.raises(NotImplementedError, match=slice_name):
-        T.FabricSession(T.pooled_topology(n_hosts=2), [_tenant(T, "a"), _tenant(T, "b")],
-                        device="cpu", **kw)
+    reports = {}
+    for pkg in (R, T):
+        opts = dict(kw)
+        if opts.get("migration"):
+            opts["migration"] = pkg.MigrationConfig(
+                mode="software", promote_threshold=1, local_budget_bytes=1 << 30)
+        if "cache" in opts:
+            opts["cache"] = pkg.DeviceCacheConfig(capacity_bytes=opts["cache"])
+        if pkg is T:
+            opts["device"] = "cpu"
+        with pkg.AnalysisEngine() as eng:
+            if opts.pop("engine", False):
+                opts["engine"] = eng
+            sess = pkg.FabricSession(
+                pkg.pooled_topology(n_hosts=2, cxl_bandwidth_gbps=8.0),
+                [_tenant(pkg, "a"), _tenant(pkg, "b", traffic_mult=4)],
+                hw=pkg.TPU_V5E, max_events_per_access=128, **opts,
+            )
+            with sess:
+                assert sess._handle is not None
+                assert sess.round() is None  # overlapped: folded later
+                reports[pkg] = sess.run(1)
+    got, want = reports[T], reports[R]
+    assert (got.rounds, got.epochs) == (want.rounds, want.epochs) == (2, got.epochs)
+    assert got.latency_s == pytest.approx(want.latency_s, rel=1e-5)
+    assert got.congestion_s == pytest.approx(want.congestion_s, rel=1e-4, abs=1e-12)
+    assert got.bandwidth_s == pytest.approx(want.bandwidth_s, rel=1e-5, abs=1e-12)
+    for g, w in zip(got.hosts, want.hosts):
+        assert g.native_s == w.native_s and g.steps == w.steps == 2
+        assert g.latency_s == pytest.approx(w.latency_s, rel=1e-5)
+        assert g.congestion_s == pytest.approx(w.congestion_s, rel=1e-4, abs=1e-12)
+    assert got.migration_moved_bytes == want.migration_moved_bytes
+    assert got.cache_hit_fraction == want.cache_hit_fraction or (
+        np.isnan(got.cache_hit_fraction) and np.isnan(want.cache_hit_fraction))
 
 
 def test_fabric_default_device_is_cuda():

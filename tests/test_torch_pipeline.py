@@ -730,11 +730,34 @@ def test_fabric_session_pipeline_matches_the_default_path(variant):
 
 
 def test_pipeline_options_still_unported_beside_it():
+    """The stacked dispatch and asynchronous analysis (slice 4) now run
+    beside the pipeline (the test keeps its name): a pipeline analyzer's
+    ``analyze_batch_multi`` takes the full-plane stacked path, as the
+    reference's does, and matches the reference's; an asynchronous
+    pipeline attach equals the synchronous one.  ``mesh=`` (slice 6) still
+    raises."""
     fig = T.figure1_topology()
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        T.EpochAnalyzer(fig.flatten(), device="cpu", pipeline=True).analyze_batch_multi([])
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        T.CXLMemSim(fig, T.ClassMapPolicy({}), device="cpu", pipeline=True,
-                    async_analysis=True)
+    pipe = T.EpochAnalyzer(fig.flatten(), device="cpu", pipeline=True)
+    assert pipe.analyze_batch_multi([]) == []
+    epochs = _attached(T, False).epoch_traces()
+    r_epochs = [r_ev.MemEvents(**{c: getattr(tr, c).copy() for c in COLUMNS})
+                for tr in epochs]
+    got = pipe.analyze_batch_multi([epochs, epochs[:1]])
+    want = r_an.EpochAnalyzer(r_topo.figure1_topology().flatten(), pipeline=True
+                              ).analyze_batch_multi([r_epochs, r_epochs[:1]])
+    for g, w in zip(got, want):
+        _close(g, w, 1e-5)
+    with T.AnalysisEngine() as eng:
+        reps = {}
+        for asy in (False, True):
+            sim = T.CXLMemSim(fig, T.ClassMapPolicy({"kvcache": "cxl_pool2"}), device="cpu",
+                              pipeline=True, warmup=True, async_analysis=asy, engine=eng)
+            prog = _attached(T, False)
+            with sim.attach(prog.step_fn, prog.phases, prog.regions) as run:
+                assert (run._handle is not None) == asy
+                reps[asy] = run.run(3, torch.ones(32))
+        for f in ("latency_s", "congestion_s", "bandwidth_s"):
+            assert getattr(reps[True], f) == getattr(reps[False], f), f
+        assert reps[True].aot_cache_hits == reps[False].aot_cache_hits == 3
     with pytest.raises(NotImplementedError, match="slice 6"):
         T.EpochAnalyzer(fig.flatten(), device="cpu", pipeline=True, mesh=object())
