@@ -27,6 +27,7 @@ script needs a card and prints no result line.
 
 from __future__ import annotations
 
+import subprocess
 import sys
 import threading
 import time
@@ -124,7 +125,12 @@ def main() -> int:
         print("chip_engine_probe: no card", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
-    print(f"[env] torch {torch.__version__} device {torch.cuda.get_device_name(0)}")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    print(f"[env] torch {torch.__version__} device {torch.cuda.get_device_name(0)}; "
+          f"nvidia-smi: {smi}")
     step, x = cs.main_step("cuda")
     prog = cs.attach_main(figure1_topology(), step)
     traces = prog.epoch_traces()

@@ -206,7 +206,10 @@ Phases (any failure exits non-zero and prints no result):
    a step, every cascade on the engine's own CUDA stream, the asynchronous
    totals against phase 4's (latency and bandwidth to rel 1e-6,
    congestion 1e-4), and the native, analyzer and wall seconds of the
-   measured steps printed for both modes; engine-pipeline-main, phase
+   measured steps printed for both modes, with each dispatch's launch and
+   finish on the host clock; then 3 more steps of each run timed alike
+   (the first measured step of an asynchronous run fills the engine's
+   second ring slot for the first time); engine-pipeline-main, phase
    14's pipeline-main through an engine (1 + 3 steps): 3 scan launches a
    step, no build after attach, staging through the engine's pinned
    2-slot ring, totals against phase 14's at the same bars;
@@ -2500,18 +2503,16 @@ def check_equal_phase(tag, rep, want, phase):
 
 def engine_main_path(step, x, main_rep):
     """engine-main: phase 4's program, synchronous and with
-    async_analysis=True on a private engine whose stream has the default
-    priority (async) or a high one (async-high), in one process, in turns,
-    1 + 3 steps each (checked), then 3 more steps timed: the first 3 pay
-    the first fill of the engine's second ring slot; the dispatch
-    timelines printed."""
+    async_analysis=True on a private engine, in one process, in turns
+    (sync, async, async, sync), 1 + 3 steps each (checked), then 3 more
+    steps timed: the first 3 pay the first fill of the engine's second ring
+    slot; the dispatch timelines printed."""
     cascade = 0
-    order = ("sync", "async", "async-high", "async-high", "async", "sync")
+    order = ("sync", "async", "async", "sync")
     runs = {mode: [] for mode in order}
     steady = {mode: [] for mode in order}
     for mode in order:
-        eng = None if mode == "sync" else AnalysisEngine(
-            stream_priority=-1 if mode == "async-high" else 0)
+        eng = None if mode == "sync" else AnalysisEngine()
         prog = attach_main(figure1_topology(), step, async_analysis=eng is not None, engine=eng)
         records, restore = recording_streams()
         marks = []
@@ -2555,13 +2556,12 @@ def engine_main_path(step, x, main_rep):
     for window, rs in (("measured", runs), ("steady", steady)):
         sync_sum = np.mean([n + a for n, a, _ in rs["sync"]])
         sync_native = np.mean([n for n, _, _ in rs["sync"]])
-        for mode in ("async", "async-high"):
-            native = np.mean([n for n, _, _ in rs[mode]])
-            wall = np.mean([w for _, _, w in rs[mode]])
-            print(f"[engine-main] {window} 3 steps, mean of two runs each: {mode} wall "
-                  f"{wall:.6f} s against sync native + analyzer {sync_sum:.6f} s (ratio "
-                  f"{wall / sync_sum:.3f}); {mode} native {native:.6f} s against sync "
-                  f"native {sync_native:.6f} s (ratio {native / sync_native:.3f})")
+        native = np.mean([n for n, _, _ in rs["async"]])
+        wall = np.mean([w for _, _, w in rs["async"]])
+        print(f"[engine-main] {window} 3 steps, mean of two runs each: async wall "
+              f"{wall:.6f} s against sync native + analyzer {sync_sum:.6f} s (ratio "
+              f"{wall / sync_sum:.3f}); async native {native:.6f} s against sync "
+              f"native {sync_native:.6f} s (ratio {native / sync_native:.3f})")
     return cascade
 
 

@@ -98,8 +98,8 @@ __all__ = [
     "DelayBreakdown",
     "DeviceCacheConfig",
     "DeviceCacheModel",
-    "EpochAnalyzer",
     "EngineHandle",
+    "EpochAnalyzer",
     "EpochSchedule",
     "EventStager",
     "FabricReport",

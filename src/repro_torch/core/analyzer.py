@@ -644,7 +644,7 @@ def _stage_index(stage_order: Tuple[int, ...], device: torch.device) -> torch.Te
     return torch.tensor(stage_order, dtype=torch.int64, device=device)
 
 
-def _analyze_rows(
+def _analyze_batch(
     t: torch.Tensor,  # [B, N] f32 epoch-relative ns, each row TIME-SORTED
     pool: torch.Tensor,  # [B, N] i32 physical pool (padded entries: 0)
     nbytes: torch.Tensor,  # [B, N] f32 (padded entries: 0)
@@ -685,7 +685,9 @@ def _analyze_rows(
     tensor ``[latency, congestion, bandwidth, per_pool_latency (P),
     per_switch_congestion (S), per_switch_bandwidth (S), per_host_latency
     (H), per_host_congestion (H), per_host_bandwidth (H),
-    per_class_congestion (C, or 1 without ``qos``)]`` per row, ``[B, M]``.
+    per_class_congestion (C, or 1 without ``qos``)]`` per row, ``[B, M]``;
+    its callers sum the rows on the device, so the host needs one transfer
+    per batch.
     """
     n_rows = t.shape[0]
     V = pool_latency_ns.shape[0]
@@ -805,12 +807,6 @@ def _analyze_rows(
     return rows
 
 
-def _analyze_batch(*args, **kwargs) -> torch.Tensor:
-    """:func:`_analyze_rows` summed over the batch on the device: one flat
-    ``[M]`` tensor, so the host needs one transfer per batch."""
-    return _analyze_rows(*args, **kwargs).sum(dim=0)
-
-
 def _analyze_pipeline(
     t_pack: torch.Tensor,  # [B, W] f32 per-stage packed sorted runs (+inf pads)
     idx_pack: torch.Tensor,  # [B, W] i32 positions into the staged row (-1 pads)
@@ -839,9 +835,9 @@ def _analyze_pipeline(
     argsorts.  Bandwidth windows come straight off the compact array:
     local-DRAM route rows are all zero, so unrouted events could only ever
     contribute zero bytes to every switch — skipping them is exact.
-    Latency stays the full-plane gather.  Returns the flat totals of
-    :func:`_analyze_batch` (this path is FIFO and single-host, so the
-    per-host and per-class leaves are the totals).
+    Latency stays the full-plane gather.  Returns the summed totals in
+    :func:`_analyze_batch`'s layout (this path is FIFO and single-host, so
+    the per-host and per-class leaves are the totals).
     """
     n_rows = t_pack.shape[0]
     V, S = route.shape
@@ -1031,7 +1027,7 @@ class PendingBatch:
 
 
 def _unpack(tot: np.ndarray, P: int, S: int, H: int) -> DelayBreakdown:
-    """One flat f64 row of :func:`_analyze_batch`'s totals as a
+    """One f64 row of summed totals (:func:`_analyze_batch`'s layout) as a
     :class:`DelayBreakdown`."""
     lat, cong, bw = (float(x) for x in tot[:3])
     parts = np.split(tot[3:], np.cumsum([P, S, S, H, H, H]))
@@ -1182,11 +1178,10 @@ class EpochAnalyzer:
             _check_reachable(self.flat, tr)
         return pairs
 
-    def _run_batch(self, t, pool, nbytes, weight, host, valid, window, scale, qos,
-                   per_row=False):
-        """:func:`_analyze_batch` (:func:`_analyze_rows` with ``per_row``) on
-        device planes with this analyzer's topology tensors."""
-        return (_analyze_rows if per_row else _analyze_batch)(
+    def _run_batch(self, t, pool, nbytes, weight, host, valid, window, scale, qos):
+        """:func:`_analyze_batch`'s ``[B, M]`` rows on device planes with this
+        analyzer's topology tensors."""
+        return _analyze_batch(
             t,
             pool,
             nbytes,
@@ -1307,7 +1302,7 @@ class EpochAnalyzer:
                 put(bw_window),
                 put(scale_buf),
                 put(buf["qos"]) if self.qos_on else None,  # FIFO: no plane to move
-            )
+            ).sum(dim=0)
             return PendingBatch(self, out, stats)
         t1 = time.perf_counter()
 
@@ -1338,7 +1333,7 @@ class EpochAnalyzer:
             out = self._run_batch(
                 d["t"], d["pool"], d["bytes"], d["weight"], d.get("host"), d["valid"],
                 d["window"], d["scale"], d.get("qos"),
-            )
+            ).sum(dim=0)
         ring.release()
         stats = dataclasses.replace(
             stats,
@@ -1396,7 +1391,7 @@ class EpochAnalyzer:
         :class:`DelayBreakdown`.  The K batches are staged into one
         ``[K, B, N]`` stack (:meth:`EventStager.stage_stack`; every axis a
         :func:`bucket_pow2` bucket, as in the reference) and analyzed as the
-        ``[K·B, N]`` rows of **one** :func:`_analyze_rows` — on the card one
+        ``[K·B, N]`` rows of **one** :func:`_analyze_batch` — on the card one
         cascade launch over all K·B rows (the host-segmented cascade on
         fabrics, the QoS cascade on QoS topologies), whose per-row host bins
         keep every row's per-host sums apart.  The rows are reduced to
@@ -1471,7 +1466,6 @@ class EpochAnalyzer:
             put(bw_window),
             put(scale_buf),
             put(buf["qos"]) if self.qos_on else None,  # FIFO: no plane to move
-            per_row=True,
         )
         per_session = res.view(k_bucket, b_bucket, -1).sum(dim=1)[: len(rows)]
         # one [K, M] transfer for every coalesced session

@@ -16,9 +16,10 @@ Wraps any PyTorch step function.  Per step:
      "execution of the attached program"), waiting for the card only on
      the streams the step's outputs were produced on (the caller's current
      stream), never on the engine's;
-  4. synchronously, analyze the step's epoch batch with the Timing Analyzer
-     — one :meth:`EpochAnalyzer.analyze_batch` call with the scale rows,
-     one host transfer per step — and fold the delays into the report;
+  4. without an engine, analyze the step's epoch batch now with the Timing
+     Analyzer — one :meth:`EpochAnalyzer.analyze_batch` call with the scale
+     rows, one host transfer per step — and fold the delays into the report
+     (the engine folds them from its thread);
   5. optionally ``time.sleep`` the computed delay — the paper's delay
      injection, making the host observe simulated-topology speed (this
      forces synchronous analysis: the delay must exist before it can be

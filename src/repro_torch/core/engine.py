@@ -356,11 +356,8 @@ class EngineClient:
 class AnalysisEngine:
     """One dispatcher thread serving any number of attached sessions; see
     the module docstring.  ``coalesce=False`` disables cross-session
-    stacking (every batch dispatches solo).  ``stream_priority`` is the
-    priority of the dispatcher's CUDA streams (``torch.cuda.Stream``'s:
-    0, the default, is the attached programs' own; lower is higher, so the
-    analyzer's kernels are scheduled ahead of a step's waiting blocks).
-    ``mesh=`` (slice 6) raises ``NotImplementedError``."""
+    stacking (every batch dispatches solo).  ``mesh=`` (slice 6) raises
+    ``NotImplementedError``."""
 
     _simlint_guards = guarded_by(
         "_cv",
@@ -382,13 +379,11 @@ class AnalysisEngine:
         name: str = "cxlmemsim-engine",
         coalesce: bool = True,
         mesh=None,
-        stream_priority: int = 0,
     ):
         if mesh is not None:
             raise NotImplementedError("sharded dispatch (mesh=) comes with slice 6 of the port")
         self.name = name
         self.coalesce = bool(coalesce)
-        self.stream_priority = int(stream_priority)
         self._cv = threading.Condition(threading.Lock())
         self._pending: Deque[_Submission] = deque()
         self._thread: Optional[threading.Thread] = None
@@ -505,9 +500,10 @@ class AnalysisEngine:
         with self._cv:
             stream = self._streams.get(dev)
             if stream is None:
-                stream = self._streams[dev] = torch.cuda.Stream(
-                    dev, priority=self.stream_priority
-                )
+                # the default priority, the attached programs' own: a higher
+                # one moved neither the step's native time nor the wall
+                # time beyond the spread on the card (PERF.md, PR 22)
+                stream = self._streams[dev] = torch.cuda.Stream(dev)
         if torch.cuda.current_stream(dev) != stream:
             torch.cuda.set_stream(stream)
 
