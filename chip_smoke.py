@@ -3,8 +3,7 @@
 
 Run from the repository root:  python3 chip_smoke.py
 (``python3 chip_smoke.py --cascades`` runs phases 1-3 and the two fabric
-round batches' cascade comparisons only; ``--engine`` runs phases 1-2, 4, 5,
-14's pipeline-main and 15; neither prints a result line.)
+round batches' cascade comparisons only, and prints no result line.)
 
 Phases (any failure exits non-zero and prints no result):
 
@@ -216,12 +215,14 @@ Phases (any failure exits non-zero and prints no result):
    engine-fabric8, phase 5's fabric with overlapped rounds (1 + 3): one
    hosts launch a round, totals and per-host latency and congestion
    against phase 5's at the fabric bars; engine-coalesced, 4 sessions of
-   phase 4's program on one engine whose steps' submissions queue behind
-   a held dispatcher: 4 sessions coalesced, exactly one cascade launch,
-   over ``[128, 131072]``, each session's step against its solo analysis
-   (latency rel 1e-6, congestion and bandwidth rel 1e-5); the stacked
-   batch's cascade against its plain version and timed beside 4 solo
-   batches;
+   phase 4's program cut to 28, 24, 20 and 12 layers (31, 27, 23 and 15
+   epochs a step) on one engine whose steps' submissions queue behind a
+   held dispatcher: 4 sessions coalesced, exactly one cascade launch, over
+   ``[128, 131072]``, each session's step against its own solo analysis
+   (latency rel 1e-6, congestion and bandwidth rel 1e-5; the four solo
+   analyses differ pairwise by more than those bars, so a mix-up of
+   sessions fails); the stacked batch's cascade against its plain version
+   and timed beside the 4 solo batches;
 16. a JSON ``kernels`` line, then the card's nvidia-smi line, then the result
    line ``{"ok": true, "device": {...}}``.
 
@@ -885,12 +886,13 @@ def qos_hosts_kernel_phase(dev):
     return rows
 
 
-def staged_batch(traces, flat, dev):
+def staged_batch(traces, flat, dev, b_bucket=None, n_bucket=None):
     """A batch's cascade inputs, staged exactly as the analyzer stages them
     (time-sorted rows, pads at finfo.max/4 with no route), with each
-    event's virtual pool and host."""
-    n_bucket = bucket_pow2(max(tr.n for tr in traces))
-    b_bucket = bucket_pow2(len(traces), floor=1)
+    event's virtual pool and host; ``b_bucket`` rows of ``n_bucket`` events
+    (default: the analyzer's buckets of this batch)."""
+    n_bucket = n_bucket or bucket_pow2(max(tr.n for tr in traces))
+    b_bucket = b_bucket or bucket_pow2(len(traces), floor=1)
     buf = EventStager(np.float32).stage(traces, b_bucket, n_bucket)
     valid = torch.from_numpy(buf["valid"]).to(dev)
     pool = torch.from_numpy(buf["pool"]).to(dev).long()
@@ -1045,10 +1047,11 @@ def main_step(dev):
     return step, x
 
 
-def attach_main(topology, step, **sim_kw):
-    """CXLMemSim attached to ``step`` with the qwen3-0.6b layer-epoch trace
-    (8 x 4096 tokens) on ``topology``, with ``sim_kw`` given to it."""
-    regions, phases = build_regions_and_phases(CONFIG, "train", batch=8, seq=4096)
+def attach_main(topology, step, cfg=CONFIG, **sim_kw):
+    """CXLMemSim attached to ``step`` with ``cfg``'s (qwen3-0.6b's)
+    layer-epoch trace (8 x 4096 tokens) on ``topology``, with ``sim_kw``
+    given to it."""
+    regions, phases = build_regions_and_phases(cfg, "train", batch=8, seq=4096)
     sim = CXLMemSim(
         topology, ClassMapPolicy(POLICY), epoch=EpochSchedule("layer"),
         hw=H100_SXM, max_events_per_access=1024, check_capacity=False, device="cuda", **sim_kw,
@@ -2615,13 +2618,19 @@ def engine_fabric_path(fabric_rep):
     return c["hosts"]
 
 
-def engine_coalesced_path(dev, step, x, sessions=4, park_s=2.0):
-    """engine-coalesced: ``sessions`` programs of phase 4 on one engine;
-    their steps' submissions queue behind a parked dispatcher and go out
-    as one stacked dispatch: one cascade launch over all rows."""
+COALESCED_LAYERS = (28, 24, 20, 12)  # engine-coalesced's sessions: qwen3-0.6b cut in depth
+
+
+def engine_coalesced_path(dev, step, x, layers=COALESCED_LAYERS, park_s=2.0):
+    """engine-coalesced: phase 4's program cut to each of ``layers`` layers,
+    one session each on one engine; their steps' submissions queue behind a
+    parked dispatcher and go out as one stacked dispatch: one cascade launch
+    over all rows, each session held to its own solo analysis."""
+    sessions = len(layers)
     with AnalysisEngine() as eng:
-        progs = [attach_main(figure1_topology(), step, engine=eng) for _ in range(sessions)]
-        for p in progs:  # warm-up: solo dispatches
+        progs = [attach_main(figure1_topology(), step, engine=eng,
+                             cfg=dataclasses.replace(CONFIG, n_layers=n)) for n in layers]
+        for p in progs:  # warm-up (the steps may coalesce already)
             p.step(x)
         before = [totals(p.report) for p in progs]
         an_before = [p.report.analyzer_s for p in progs]
@@ -2644,43 +2653,56 @@ def engine_coalesced_path(dev, step, x, sessions=4, park_s=2.0):
         check(stats["max_coalesced_sessions"] == sessions
               and stats["coalesced_dispatches"] == stats0["coalesced_dispatches"] + 1,
               f"engine-coalesced: engine stats {stats}, before {stats0}")
-        traces = progs[0].epoch_traces()
-        rows = bucket_pow2(sessions, floor=1) * bucket_pow2(len(traces), floor=1)
-        shape = [rows, bucket_pow2(max(tr.n for tr in traces))]
+        traces = [p.epoch_traces() for p in progs]
+        b_rows = bucket_pow2(max(len(tr) for tr in traces), floor=1)
+        n_max = bucket_pow2(max(t.n for tr in traces for t in tr))
+        shape = [bucket_pow2(sessions, floor=1) * b_rows, n_max]
         check([r[1] for r in records] == [shape],
               f"engine-coalesced: cascade calls {[r[1] for r in records]}, want one of {shape}")
         check_on_engine_stream("engine-coalesced", records, eng)
-        # each session's coalesced step against its solo analysis of the same
-        # epochs, at tests/test_engine.py's coalescing bars
-        solo = progs[0]._analyzer.analyze_batch(traces)
-        for i, (p, b) in enumerate(zip(progs, before)):
+        # each session's coalesced step against its own solo analysis of the
+        # same epochs, at tests/test_engine.py's coalescing bars; the solo
+        # latencies differ pairwise by more than the bar, so rows summed
+        # into the wrong session, or one session's totals given to all, fail
+        solo = [p._analyzer.analyze_batch(tr) for p, tr in zip(progs, traces)]
+        lat = [v.latency_ns for v in solo]
+        check(all(abs(lat[i] - lat[j]) > 1e-3 * lat[j] for i in range(sessions) for j in range(i)),
+              f"engine-coalesced: the sessions' solo latencies {lat} do not tell them apart")
+        for i, (p, b, want) in enumerate(zip(progs, before, solo)):
             d = delta(totals(p.report), b)
             check(p.report.coalesced_group_size == sessions,
                   f"session {i}: group size {p.report.coalesced_group_size}")
-            for k, want, rel in (("latency_s", solo.latency_ns, 1e-6),
-                                 ("congestion_s", solo.congestion_ns, 1e-5),
-                                 ("bandwidth_s", solo.bandwidth_ns, 1e-5)):
+            for k, w, rel in (("latency_s", want.latency_ns, 1e-6),
+                              ("congestion_s", want.congestion_ns, 1e-5),
+                              ("bandwidth_s", want.bandwidth_ns, 1e-5)):
                 g = s_to_ns(getattr(d, k))
-                check(abs(g - want) <= rel * abs(want),
-                      f"engine-coalesced session {i} {k}: {g!r} ns vs solo {want!r} ns")
-            print(f"[engine-coalesced] session {i}: latency {s_to_ns(d.latency_s)!r} ns, "
-                  f"congestion {s_to_ns(d.congestion_s)!r} ns, bandwidth "
-                  f"{s_to_ns(d.bandwidth_s)!r} ns; solo {solo.latency_ns!r}, "
-                  f"{solo.congestion_ns!r}, {solo.bandwidth_ns!r}")
+                check(abs(g - w) <= rel * abs(w),
+                      f"engine-coalesced session {i} {k}: {g!r} ns vs solo {w!r} ns")
+            print(f"[engine-coalesced] session {i} ({layers[i]} layers, {len(traces[i])} "
+                  f"epochs): latency {s_to_ns(d.latency_s)!r} ns, congestion "
+                  f"{s_to_ns(d.congestion_s)!r} ns, bandwidth {s_to_ns(d.bandwidth_s)!r} ns; "
+                  f"solo {want.latency_ns!r}, {want.congestion_ns!r}, {want.bandwidth_ns!r}")
         shares = [p.report.analyzer_s - a for p, a in zip(progs, an_before)]
         print(f"[engine-coalesced] the stacked dispatch {sum(shares):.6f} s (shares "
               f"{[round(v, 6) for v in shares]}); solo analyzer steps before it "
               f"{[round(a, 6) for a in an_before]} s")
         for p in progs:
             p.close()
-    # the group's cascade against 4 solo batches' on the same rows
-    b = staged_batch(traces, progs[0].sim.flat, dev)
-    t4, bits4 = b["t"].repeat(sessions, 1), b["bits"].repeat(sessions, 1)
-    row = compare("coalesced_batch", t4, bits4, b["stts"], reps=10)
-    solo_ms = median_ms(lambda: kcong.congestion_cascade(b["t"], b["bits"], b["stts"]), 10)
+    # the group's cascade, on the rows the stacked dispatch built, against
+    # the sessions' solo batches
+    flat = progs[0].sim.flat
+    parts = [staged_batch(tr, flat, dev, b_rows, n_max) for tr in traces]
+    t4 = torch.cat([b["t"] for b in parts])
+    bits4 = torch.cat([b["bits"] for b in parts])
+    row = compare("coalesced_batch", t4, bits4, parts[0]["stts"], reps=10)
+    solo_ms = []
+    for tr in traces:
+        b = staged_batch(tr, flat, dev)
+        solo_ms.append(median_ms(lambda: kcong.congestion_cascade(b["t"], b["bits"], b["stts"]),
+                                 10))
     print(f"[engine-coalesced] cascade over {list(t4.shape)}: {row['ms']:.6f} ms, against "
-          f"{sessions} solo {list(b['t'].shape)} batches: {sessions * solo_ms:.6f} ms "
-          f"({solo_ms:.6f} ms each)")
+          f"{sessions} solo batches: {sum(solo_ms):.6f} ms "
+          f"({[round(v, 6) for v in solo_ms]} ms)")
     return row, c["cascade"]
 
 
@@ -2729,19 +2751,8 @@ def cascade_batches(dev):
                       w, sess.flat.n_hosts)
 
 
-def engine_only_paths(dev):
-    """``--engine``: phase 15 and the phases it is held to (4, 5 and 14's
-    pipeline-main); prints no result line."""
-    step, x = main_step(dev)
-    _, _, main_rep, main_ref = slice1_main_path(dev, step, x)
-    _, _, fabric_rep = fabric_main_path(dev)
-    _, pipe_rep = pipeline_main_path(dev, step, x, main_rep, main_ref)
-    engine_path(dev, step, x, main_rep, pipe_rep, fabric_rep)
-
-
 def main(argv) -> int:
     cascades_only = "--cascades" in argv
-    engine_only = "--engine" in argv
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script needs a card",
               file=sys.stderr)
@@ -2770,11 +2781,6 @@ def main(argv) -> int:
                 print(f"[build] {line.strip()}")
         if name in ("congestion_cascade", "qos_cascade"):
             print(f"[build] {name} SASS: {sass_counts(res.path)}")
-
-    if engine_only:
-        engine_only_paths(dev)
-        print(f"[done] chip_smoke --engine ran {time.perf_counter() - t_start:.1f} s")
-        return 0
 
     # -- 3. kernels vs plain at synthetic shapes ---------------------------- #
     fig = figure1_topology().flatten()

@@ -1487,7 +1487,11 @@ def analyze_any(
     The single dispatch point shared by the synchronous sessions and the
     engine's solo submissions."""
     if isinstance(analyzer, EpochAnalyzer):
-        if stager is None:  # the caller's thread: the analyzer's own stager
+        if stager is None:
+            # the caller's thread, the analyzer's own stager: called with two
+            # arguments, so an ``analyze_batch`` replaced on the instance by
+            # a ``(traces, lat_scales)`` wrapper (one that records the
+            # batches) keeps working on the synchronous path
             return analyzer.analyze_batch(traces, lat_scales)
         return analyzer.analyze_batch(traces, lat_scales, stager=stager)
     flat = analyzer.flat

@@ -64,7 +64,13 @@ import numpy as np
 import torch
 
 from ..annotations import guarded_by, single_threaded
-from .analyzer import DelayBreakdown, EpochAnalyzer, PendingBatch, analyze_any
+from .analyzer import (
+    DelayBreakdown,
+    DispatchStats,
+    EpochAnalyzer,
+    PendingBatch,
+    analyze_any,
+)
 from .events import EventStager, MemEvents
 
 __all__ = [
@@ -158,7 +164,9 @@ class _Launched:
     """One launched-but-unresolved dispatch in the worker's depth-1
     pipeline.  Exactly one of ``pending`` (overlapped solo launch) or
     ``bds`` (synchronously computed results) is set when ``error`` is
-    None."""
+    None.  ``stats`` is the dispatch's own record, taken when ``bds`` is
+    computed: by the time the group is finished, the analyzer's
+    ``last_dispatch`` may belong to a later dispatch of the same analyzer."""
 
     group: List[_Submission]
     live: List[_Submission]
@@ -166,6 +174,7 @@ class _Launched:
     bds: Optional[List[DelayBreakdown]]
     launch_s: float
     error: Optional[BaseException]
+    stats: Optional[DispatchStats] = None
 
 
 class EngineHandle:
@@ -355,8 +364,7 @@ class EngineClient:
 
 class AnalysisEngine:
     """One dispatcher thread serving any number of attached sessions; see
-    the module docstring.  ``coalesce=False`` disables cross-session
-    stacking (every batch dispatches solo).  ``mesh=`` (slice 6) raises
+    the module docstring.  ``mesh=`` (slice 6) raises
     ``NotImplementedError``."""
 
     _simlint_guards = guarded_by(
@@ -377,13 +385,11 @@ class AnalysisEngine:
     def __init__(
         self,
         name: str = "cxlmemsim-engine",
-        coalesce: bool = True,
         mesh=None,
     ):
         if mesh is not None:
             raise NotImplementedError("sharded dispatch (mesh=) comes with slice 6 of the port")
         self.name = name
-        self.coalesce = bool(coalesce)
         self._cv = threading.Condition(threading.Lock())
         self._pending: Deque[_Submission] = deque()
         self._thread: Optional[threading.Thread] = None
@@ -508,12 +514,12 @@ class AnalysisEngine:
             torch.cuda.set_stream(stream)
 
     def _pop_group_locked(self) -> List[_Submission]:
-        """FIFO head plus, when coalescing, the first pending submission of
-        every *other* same-key handle.  Same-handle batches never share a
+        """FIFO head plus the first pending submission of every *other*
+        same-key handle.  Same-handle batches never share a
         dispatch (bit-stability of the solo path; per-handle FIFO order)."""
         first = self._pending.popleft()
         group = [first]
-        if self.coalesce and first.handle.key is not None:
+        if first.handle.key is not None:
             taken = {id(first.handle)}
             kept: Deque[_Submission] = deque()
             while self._pending:
@@ -589,6 +595,7 @@ class AnalysisEngine:
                         live.append(sub)
             pending: Optional[PendingBatch] = None
             bds: Optional[List[DelayBreakdown]] = None
+            analyzer = live[0].handle.analyzer if live else None
             if not live:
                 bds = []
             elif (
@@ -613,8 +620,11 @@ class AnalysisEngine:
                     [s.scales for s in live],
                     stager=stager,
                 )
+            # a coalesced or synchronous dispatch's record, read before the
+            # next launch (or the pending batch's finish) overwrites it
+            stats = None if pending is not None else getattr(analyzer, "last_dispatch", None)
             return _Launched(
-                group, live, pending, bds, time.perf_counter() - t0, None
+                group, live, pending, bds, time.perf_counter() - t0, None, stats
             )
         except BaseException as e:
             return _Launched(group, live, None, None, time.perf_counter() - t0, e)
@@ -628,8 +638,10 @@ class AnalysisEngine:
             if launched.error is not None:
                 raise launched.error
             t0 = time.perf_counter()
+            stats = launched.stats
             if launched.pending is not None:
                 bds: List[DelayBreakdown] = [launched.pending.finish()]
+                stats = launched.pending.stats  # final once finished
             else:
                 bds = launched.bds
             # launch work + exposed finish wait; the overlap gap (spent
@@ -639,7 +651,6 @@ class AnalysisEngine:
                 # written before the fold loop so fold callbacks see this
                 # dispatch's stats on their own handle, even when a peer's
                 # analyzer ran the stacked dispatch
-                stats = getattr(live[0].handle.analyzer, "last_dispatch", None)
                 for sub in live:
                     sub.handle.last_dispatch = stats
                     sub.handle.last_group_size = len(live)

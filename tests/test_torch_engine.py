@@ -21,7 +21,7 @@ from repro.core import events as r_ev
 from repro.core.engine import dispatch_key as r_dispatch_key
 from repro_torch import core as T
 from repro_torch.core import events as t_ev
-from repro_torch.core.engine import dispatch_key
+from repro_torch.core.engine import dispatch_key, fold_dispatch_stats
 from repro_torch.interop import flat_topology_from_arrays, mem_events_from_arrays
 
 torch.set_num_threads(2)
@@ -202,6 +202,67 @@ def test_engine_coalesces_cross_session_not_same_session():
     for ref, got in zip(solo + [solo[0]], results):
         _close_to(got, ref)
     _bitwise(results[-1], solo[0])  # the same-handle batch ran solo
+
+
+class _GatedLaunch(T.EpochAnalyzer):
+    """Holds its first ``launch_batch`` until ``gate`` is set, and keeps
+    the batches it launched, so a test can queue a coalescible group
+    behind its pending solo batch."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, device="cpu", **kwargs)
+        self.entered, self.gate, self.launched = threading.Event(), threading.Event(), []
+
+    def launch_batch(self, traces, lat_scales=None, stager=None):
+        if not self.launched:
+            self.entered.set()
+            assert self.gate.wait(60)
+        pending = super().launch_batch(traces, lat_scales, stager=stager)
+        self.launched.append(pending)
+        return pending
+
+
+def test_coalesced_fold_sees_its_own_dispatch_stats():
+    """Session A's solo batch is still pending when A's next batch
+    coalesces with B's; finishing the solo batch rewrites A's analyzer's
+    ``last_dispatch``.  Each report must fold the split of its own
+    dispatches only: A the solo batch's, B none but the stacked one's
+    (which carries no timing)."""
+    flat = T.pooled_topology(n_hosts=1).flatten()
+    # pipeline analyzers: their solo dispatches time the split on the CPU too
+    a, b = _GatedLaunch(flat, pipeline=True), T.EpochAnalyzer(flat, pipeline=True, device="cpu")
+    assert dispatch_key(a) == dispatch_key(b)
+    tr = [T.synthetic_trace(300 + 50 * i, flat.n_pools, seed=i) for i in range(3)]
+    reps = {"a": T.SimReport(), "b": T.SimReport()}
+    seen = {"a": [], "b": []}
+    with T.AnalysisEngine() as eng:
+        handles = {"a": eng.register(a), "b": eng.register(b)}
+
+        def fold(name):
+            def run(bd, analyzer_s):
+                h = handles[name]
+                seen[name].append((h.last_dispatch, h.last_group_size))
+                fold_dispatch_stats(reps[name], h.last_dispatch, h.last_group_size)
+            return run
+
+        fut = handles["a"].submit([tr[0]], fold=fold("a"))
+        assert a.entered.wait(60)  # the dispatcher holds A's solo launch
+        futs = [handles["a"].submit([tr[1]], fold=fold("a")),
+                handles["b"].submit([tr[2]], fold=fold("b"))]
+        a.gate.set()
+        for f in [fut] + futs:
+            f.result(timeout=60)
+        assert eng.stats()["max_coalesced_sessions"] == 2
+    solo = a.launched[0].stats
+    assert solo.rows == 1 and solo.stage_s > 0
+    assert [s for s, _ in seen["a"]] == [solo, seen["b"][0][0]]
+    stacked, size = seen["b"][0]
+    assert size == 2 and stacked is not solo
+    assert stacked.rows == 2 and stacked.stage_s == 0.0 and stacked.compute_s == 0.0
+    assert reps["a"].stage_s == solo.stage_s and reps["a"].compute_s == solo.compute_s
+    assert reps["a"].transfer_s == solo.transfer_s
+    assert reps["b"].stage_s == 0.0 and reps["b"].compute_s == 0.0
+    assert reps["a"].coalesced_group_size == reps["b"].coalesced_group_size == 2
 
 
 def _multi_groups(pkg, flat):

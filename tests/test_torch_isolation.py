@@ -28,8 +28,7 @@ OK_LINE = '"ok": true'
 
 def _port_files():
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
-    return files + [REPO / "chip_smoke.py", REPO / "chip_scan_variants.py",
-                    REPO / "chip_engine_probe.py"]
+    return files + [REPO / "chip_smoke.py", REPO / "chip_scan_variants.py"]
 
 
 def _imported_roots(path):
