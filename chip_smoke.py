@@ -223,7 +223,29 @@ Phases (any failure exits non-zero and prints no result):
    analyses differ pairwise by more than those bars, so a mix-up of
    sessions fails); the stacked batch's cascade against its plain version
    and timed beside the 4 solo batches;
-16. a JSON ``kernels`` line, then the card's nvidia-smi line, then the result
+16. scenario sweeps and the fleet: sweep-main, phase 4's program on Figure 1
+   through ``ScenarioSuite`` with 64 scenarios (4 policies x 4 overrides x
+   2 granularities x 2 caches, benchmarks/scenario_sweep.py's axes): one
+   dispatch, 16 unique cascades in 2 FIFO cascade launches (one per STT
+   row), the tag simulations, the stage / transfer / compute split, the
+   cascades' device ms and the peak device memory printed, a warm second
+   run, every scenario against its own solo analysis on the card (rel
+   1e-6) and 8 (between them every policy, override, granularity and
+   cache) against ``analyze_ref`` at the main path's bars; sweep-qos, the
+   same program with the optimizer state and gradients in class 1 under
+   FIFO, priority, WFQ 4:1 and WFQ 1:4 (4 single-host QoS launches; FIFO
+   equal to QoS off at tests/test_qos_cascade.py:470's bars, class 0 never
+   queuing, priority equal to FIFO, WFQ ordering class 1's congestion by
+   its weight); fleet-frontier, 32 racks of ``pooled_topology(n_hosts=4)``
+   and 192 synthetic 10 GiB tenants over 8 offload fractions (one dispatch
+   over 256 rack planes, one host-segmented cascade launch, every plane
+   against its solo analysis, stranded GB non-decreasing from 0);
+   fleet-hetero-qos, the tenants in alternating classes on racks
+   alternating between the base and a slow expander and between WFQ 4:1
+   and priority (2 host-segmented QoS launches, every rack against the
+   same fleet run on the CPU); each cell's launch batch against its
+   kernel's plain version;
+17. a JSON ``kernels`` line, then the card's nvidia-smi line, then the result
    line ``{"ok": true, "device": {...}}``.
 
 The earlier phases (4-6) must show no QoS launch, no phase before 9 an SSD
@@ -253,32 +275,47 @@ from repro_torch.configs import ARCH_IDS, get_config  # noqa: E402
 from repro_torch.configs.mamba2_2_7b import CONFIG as M2_CONFIG  # noqa: E402
 from repro_torch.configs.qwen3_0_6b import CONFIG  # noqa: E402
 from repro_torch.core import (  # noqa: E402
+    CACHELINE_BYTES,
     H100_SXM,
+    PAGE_BYTES,
     AnalysisEngine,
     ClassMapPolicy,
     CoherencyConfig,
     CXLMemSim,
     DelayBreakdown,
     DeviceCacheConfig,
+    DeviceCacheModel,
     EpochAnalyzer,
     EpochSchedule,
     EventStager,
     FabricSession,
+    FleetSim,
+    HotnessTieredPolicy,
+    InterleavePolicy,
+    LocalOnlyPolicy,
     MemEvents,
     MigrationConfig,
     MigrationSimulator,
     Pool,
+    QosSpec,
+    Scenario,
+    ScenarioSuite,
     Switch,
     Tenant,
     Topology,
+    TopologyOverride,
     analyze_ref,
     bucket_pow2,
     chained_topology,
     figure1_topology,
+    flatten_stack,
     plan_cascade,
     plan_chain,
     pooled_topology,
+    synthesize_step_trace,
+    synthetic_tenant,
 )
+from repro_torch.core import scenario as tscenario  # noqa: E402
 from repro_torch.core.units import s_to_ms, s_to_ns  # noqa: E402
 from repro_torch.kernels import congestion as kcong  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
@@ -2719,6 +2756,455 @@ def engine_path(dev, step, x, main_rep, pipe_rep, fabric_rep):
     return row, cascade + coalesced, scan, hosts
 
 
+# --------------------------------------------------------------------------- #
+# Phase 16: scenario sweeps and the fleet
+# --------------------------------------------------------------------------- #
+
+SWEEP_EVENTS_PER_ACCESS = 1024  # phase 4's program
+FLEET_RACKS, FLEET_HOSTS, FLEET_TENANTS = 32, 4, 192  # benchmarks/fleet_scaling.py's full scale
+FLEET_FRACTIONS = np.linspace(0.0, 1.0, 8)
+FLEET_SLOW = dict(pools={"shared_pool": {"latency_ns": 400.0}},
+                  switches={"fabric_sw": {"stt_ns": 4.0}})
+
+
+def sweep_program():
+    """Phase 4's program: qwen3-0.6b's training regions and phases at batch
+    8, seq 4096."""
+    return build_regions_and_phases(CONFIG, "train", batch=8, seq=4096)
+
+
+def sweep_suite(regions, phases, dev="cuda", **kw):
+    """A ScenarioSuite on Figure 1 over phase 4's program, layer epochs."""
+    return ScenarioSuite(figure1_topology(), regions, phases, hw=H100_SXM,
+                         max_events_per_access=SWEEP_EVENTS_PER_ACCESS, epoch_mode="layer",
+                         device=dev, **kw)
+
+
+def sweep_scenarios(regions):
+    """benchmarks/scenario_sweep.py's axes: 4 policies x 4 overrides x 2
+    granularities x 2 caches = 64 scenarios."""
+    total = int(sum(r.nbytes for r in regions))
+    policies = {
+        "local": LocalOnlyPolicy(),
+        "classmap": ClassMapPolicy(POLICY),
+        "interleave": InterleavePolicy(["cxl_pool2", "cxl_pool3"], weights=[1, 2]),
+        "hot": HotnessTieredPolicy("cxl_pool1", local_budget_bytes=total // 2),
+    }
+    overrides = {
+        "base": None,
+        "far420": TopologyOverride(pools={"cxl_pool2": {"latency_ns": 420.0},
+                                          "cxl_pool3": {"latency_ns": 420.0}}),
+        "stt30": TopologyOverride(switches={"switch1": {"stt_ns": 30.0}}),
+        "thin": TopologyOverride(switches={"switch0": {"bandwidth_gbps": 1.0},
+                                           "switch1": {"bandwidth_gbps": 0.5}}),
+    }
+    caches = {"nocache": None, "cache": CACHE}
+    return ScenarioSuite.cartesian(policies, overrides, caches,
+                                   granularities=[CACHELINE_BYTES, PAGE_BYTES])
+
+
+def timed_cascades(name):
+    """Wrap the ops entry point ``name`` so each call on the card is timed
+    by CUDA events around it and its inputs kept (the first call's); the
+    kernels' launch counts are untouched.  Returns (records, restore)."""
+    inner = getattr(kops, name)
+    records = []
+
+    def timed(t, *args, **kwargs):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = inner(t, *args, **kwargs)
+        b.record()
+        keep = None if records else (t.clone(), [x.clone() if torch.is_tensor(x) else x
+                                                 for x in args], dict(kwargs))
+        records.append((list(t.shape), a, b, keep))
+        return out
+
+    def restore():
+        setattr(kops, name, inner)
+
+    setattr(kops, name, timed)
+    return records, restore
+
+
+def cascade_ms(records) -> list:
+    torch.cuda.synchronize()
+    return [a.elapsed_time(b) for _, a, b, _ in records]
+
+
+class CountedCacheModel(tscenario.DeviceCacheModel):
+    """The sweep's device-cache model, counting its tag simulations (one
+    model a distinct key) and their host seconds."""
+
+    made = 0
+    seconds = 0.0
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        CountedCacheModel.made += 1
+
+    def observe_scale(self, trace):
+        t0 = time.perf_counter()
+        out = super().observe_scale(trace)
+        CountedCacheModel.seconds += time.perf_counter() - t0
+        return out
+
+
+def counted_tag_runs(fn):
+    """Run ``fn`` with the sweep's cache model counted; returns (fn's
+    result, tag simulations, their host seconds)."""
+    CountedCacheModel.made, CountedCacheModel.seconds = 0, 0.0
+    plain, tscenario.DeviceCacheModel = tscenario.DeviceCacheModel, CountedCacheModel
+    try:
+        out = fn()
+    finally:
+        tscenario.DeviceCacheModel = plain
+    return out, CountedCacheModel.made, CountedCacheModel.seconds
+
+
+def solo_sweep(regions, phases, scens, stack):
+    """Each scenario through the port's own solo path on the card: place,
+    synthesize, the cache's scale rows (one tag simulation a distinct
+    granule, placement, cache and latency leaves, as the suite keys them),
+    then EpochAnalyzer(stack.member(k)).analyze_batch.  Returns the
+    breakdowns, the seconds of the K analyze_batch calls, the tag
+    simulations and their seconds."""
+    out, analyze_s, scales, tag_s = [], 0.0, {}, 0.0
+    for k, s in enumerate(scens):
+        flat_k = stack.member(k)
+        s.policy.place(regions, flat_k)
+        g = s.policy.granularity_bytes
+        traces, _, _ = synthesize_step_trace(
+            phases, regions, hw=H100_SXM, granularity_bytes=g,
+            max_events_per_access=SWEEP_EVENTS_PER_ACCESS, epoch_mode="layer")
+        rows = None
+        if s.cache is not None:
+            key = (g, regions.pool_vector().tobytes(), s.cache,
+                   stack.pool_latency_ns[k].tobytes(), stack.pool_media_latency_ns[k].tobytes(),
+                   float(stack.local_latency_ns[k]))
+            if key not in scales:
+                t0 = time.perf_counter()
+                model = DeviceCacheModel(s.cache, flat_k, [regions])
+                scales[key] = [model.observe_scale(tr) for tr in traces]
+                tag_s += time.perf_counter() - t0
+            rows = scales[key]
+        an = EpochAnalyzer(flat_k, device="cuda")
+        t0 = time.perf_counter()
+        out.append(an.analyze_batch(traces, rows))
+        analyze_s += time.perf_counter() - t0
+    return out, analyze_s, len(scales), tag_s
+
+
+def oracle_of(regions, phases, scenario, flat_k):
+    """analyze_ref (f64) over one scenario's placed epochs with its cache
+    scale rows."""
+    scenario.policy.place(regions, flat_k)
+    traces, _, _ = synthesize_step_trace(
+        phases, regions, hw=H100_SXM, granularity_bytes=scenario.policy.granularity_bytes,
+        max_events_per_access=SWEEP_EVENTS_PER_ACCESS, epoch_mode="layer")
+    scales = None
+    if scenario.cache is not None:
+        model = DeviceCacheModel(scenario.cache, flat_k, [regions])
+        scales = [model.observe_scale(tr) for tr in traces]
+    return oracle(flat_k, traces, scales=scales)
+
+
+def check_rel(tag, got, want, bars):
+    """Each of ``bars`` (field -> (rel, abs ns)) of two breakdowns."""
+    for f, (rel, absol) in bars.items():
+        g, w = getattr(got, f), getattr(want, f)
+        check(np.isfinite(g) and abs(g - w) <= max(rel * abs(w), absol),
+              f"{tag} {f}: {g!r} vs {w!r}")
+
+
+def sweep_main_path(dev):
+    """sweep-main: 64 scenarios of phase 4's program in one dispatch, two
+    cascade launches (one per STT row); every scenario against its solo
+    analysis on the card, 8 against analyze_ref."""
+    t0 = time.perf_counter()
+    regions, phases = sweep_program()
+    suite = sweep_suite(regions, phases)
+    scens = sweep_scenarios(regions)
+    records, restore = timed_cascades("congestion_cascade")
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        reset_counts()
+        t1 = time.perf_counter()
+        res, tags, tag_s = counted_tag_runs(lambda: suite.run(scens))
+        wall = time.perf_counter() - t1
+        c = counts()
+    finally:
+        restore()
+    peak = torch.cuda.max_memory_allocated()
+    check_launches("sweep-main", c, "cascade", 2)
+    check(suite.dispatch_count == 1, f"sweep-main: {suite.dispatch_count} dispatches")
+    check(len(records) == 2, f"sweep-main: {len(records)} cascade calls")
+    ms = cascade_ms(records)
+    print(f"[sweep-main] {len(scens)} scenarios, 1 dispatch, {suite.last_unique_cascades} unique "
+          f"cascades in {c['cascade']} launches over {[r[0] for r in records]}; "
+          f"{tags} tag simulations, {tag_s:.6f} s on the host; stage {res.stage_s:.6f} s, "
+          f"transfer {res.transfer_s:.6f} s, compute {res.compute_s:.6f} s; cascades "
+          f"{[round(m, 6) for m in ms]} ms on the card; peak device memory "
+          f"{peak / 2**30:.3f} GiB; wall {wall:.6f} s")
+    reset_counts()
+    t1 = time.perf_counter()
+    res2 = suite.run(scens)
+    wall2 = time.perf_counter() - t1
+    c2 = counts()
+    check_launches("sweep-main warm", c2, "cascade", 2)
+    for a, b in zip(res.breakdowns, res2.breakdowns):
+        check_rel("sweep-main warm run", b, a, {f: (1e-6, 0.0) for f in
+                  ("latency_ns", "congestion_ns", "bandwidth_ns")})
+    print(f"[sweep-main] warm second run: wall {wall2:.6f} s (stage {res2.stage_s:.6f}, "
+          f"transfer {res2.transfer_s:.6f}, compute {res2.compute_s:.6f})")
+
+    # every scenario against the port's own solo path on the card
+    stack = flatten_stack(suite.topology, [s.topology for s in scens])
+    solo_regions, _ = sweep_program()
+    solo, solo_s, solo_tags, solo_tag_s = solo_sweep(solo_regions, phases, scens, stack)
+    bitwise = 0
+    for k, (g, w) in enumerate(zip(res.breakdowns, solo)):
+        check_rel(f"sweep-main {scens[k].name} vs solo", g, w,
+                  {f: (1e-6, 0.0) for f in ("latency_ns", "congestion_ns", "bandwidth_ns")})
+        bitwise += g.congestion_ns == w.congestion_ns
+    worst = {f: max(abs(getattr(g, f) - getattr(w, f)) / max(abs(getattr(w, f)), 1e-30)
+                    for g, w in zip(res.breakdowns, solo))
+             for f in ("latency_ns", "congestion_ns", "bandwidth_ns")}
+    print(f"[sweep-main] every scenario within rel 1e-6 of its solo analysis (largest "
+          f"{json.dumps(worst)}); congestion bitwise in {bitwise} of {len(scens)}; the K solo "
+          f"analyze_batch calls {solo_s:.6f} s, their {solo_tags} tag simulations "
+          f"{solo_tag_s:.6f} s")
+    # 8 scenarios against analyze_ref at the main path's bars; between them
+    # every policy, override, granularity and cache
+    pols, ovs = ("local", "classmap", "interleave", "hot"), ("base", "far420", "stt30", "thin")
+    grans, caches = (CACHELINE_BYTES, PAGE_BYTES), ("nocache", "cache")
+    picks = [f"{ovs[(i + i // 4) % 4]}/{pols[i % 4]}/g{grans[i % 2]}/{caches[(i // 2) % 2]}"
+             for i in range(8)]
+    names = [s.name for s in scens]
+    bars = {"latency_ns": (1e-4, 1e-3), "congestion_ns": (1e-3, 1e-2),
+            "bandwidth_ns": (1e-2, 1.0)}
+    for name in picks:
+        k = names.index(name)
+        want = oracle_of(solo_regions, phases, scens[k], stack.member(k))
+        check_rel(f"sweep-main {name} vs analyze_ref", res.breakdowns[k], want, bars)
+        g = res.breakdowns[k]
+        print(f"[sweep-main] {name}: latency {g.latency_ns!r}, congestion {g.congestion_ns!r}, "
+              f"bandwidth {g.bandwidth_ns!r} ns; analyze_ref {want.latency_ns!r}, "
+              f"{want.congestion_ns!r}, {want.bandwidth_ns!r}")
+    best = res.best()
+    print(f"[sweep-main] best feasible {names[best]} (slowdown "
+          f"{float(res.slowdowns()[best])!r}); phase {time.perf_counter() - t0:.1f} s")
+    t, args, kw = records[0][3]
+    row = compare("sweep_group", t, args[0], args[1], reps=10)
+    return row, c["cascade"] + c2["cascade"], res, scens
+
+
+def sweep_qos_path(dev, main_res, main_scens):
+    """sweep-qos: phase 4's policy under FIFO, priority, WFQ 4:1 and WFQ 1:4
+    with the optimizer state and gradients in class 1: one dispatch, one
+    single-host QoS launch per discipline and weight row."""
+    regions, phases = sweep_program()
+    rq = {r.name: 1 for r in regions if r.tensor_class in ("opt_state", "grad")}
+    suite = sweep_suite(regions, phases, region_qos=rq)
+    specs = [QosSpec(discipline="fifo"), QosSpec(discipline="priority"),
+             QosSpec(discipline="wfq", class_weights=(4.0, 1.0)),
+             QosSpec(discipline="wfq", class_weights=(1.0, 4.0))]
+    scens = [Scenario(ClassMapPolicy(POLICY), qos=q, name=q.describe()) for q in specs]
+    records, restore = timed_cascades("qos_congestion_cascade")
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        res = suite.run(scens)
+        wall = time.perf_counter() - t0
+        c = counts()
+    finally:
+        restore()
+    check_launches("sweep-qos", c, "qos", 4)
+    check(suite.dispatch_count == 1 and res.qos_classes == 2,
+          f"sweep-qos: {suite.dispatch_count} dispatches, {res.qos_classes} classes")
+    ms = cascade_ms(records)
+    fifo, prio, wfq41, wfq14 = res.breakdowns
+    off = main_res.breakdowns[[s.name for s in main_scens].index(
+        f"base/classmap/g{CACHELINE_BYTES}/nocache")]
+    # tests/test_qos_cascade.py:470's bars
+    qos_bars = {"congestion_ns": (1e-5, 4.0), "latency_ns": (1e-5, 0.0),
+                "bandwidth_ns": (1e-4, 1.0)}
+    check_rel("sweep-qos FIFO vs QoS off", fifo, off, qos_bars)
+    # class 0 (params, activations) stays in local DRAM under phase 4's
+    # policy and never queues: class 1 holds all the congestion, priority
+    # equals FIFO, and WFQ stretches class 1's service by W / w_1
+    for b, name in zip(res.breakdowns, ("fifo", "priority", "wfq 4:1", "wfq 1:4")):
+        check(b.per_class_congestion_ns[0] == 0.0,
+              f"sweep-qos {name}: class 0 queued {b.per_class_congestion_ns.tolist()}")
+    check_rel("sweep-qos priority vs FIFO", prio, fifo, qos_bars)
+    check(fifo.congestion_ns < wfq14.congestion_ns < wfq41.congestion_ns,
+          f"sweep-qos: congestion FIFO {fifo.congestion_ns}, WFQ 1:4 {wfq14.congestion_ns}, "
+          f"WFQ 4:1 {wfq41.congestion_ns}")
+    for row in res.table():
+        print(f"[sweep-qos] {row['scenario']}: congestion {row['congestion_ms']!r} ms, shares "
+              f"{row['qos_delay_shares']}")
+    print(f"[sweep-qos] 1 dispatch, {c['qos']} QoS launches over {[r[0] for r in records]} "
+          f"({[round(m, 6) for m in ms]} ms on the card), wall {wall:.6f} s; FIFO against "
+          f"QoS off: congestion {fifo.congestion_ns!r} / {off.congestion_ns!r}, latency "
+          f"{fifo.latency_ns!r} / {off.latency_ns!r}, bandwidth {fifo.bandwidth_ns!r} / "
+          f"{off.bandwidth_ns!r} ns")
+    t, args, kw = records[0][3]
+    row, _ = compare_qos("sweep_qos_group", t, args[0], args[2], args[1], args[3], args[4],
+                         reps=10)
+    return row, c["qos"]
+
+
+def fleet_tenants():
+    return [synthetic_tenant(f"t{i}", seed=i, gib=10.0) for i in range(FLEET_TENANTS)]
+
+
+def check_planes(tag, reports, fleet, placements_of):
+    """Every rack plane of ``reports`` against a solo analyze_batch of its
+    rack's rows on the card (fleet_scaling.py's sequential_eval): totals at
+    the main path's bars, per-host latency and congestion at rtol 1e-4 /
+    5e-3."""
+    an = EpochAnalyzer(fleet.flat, bw_window_ns=fleet.bw_window_ns, n_windows=fleet.n_windows,
+                       device="cuda")
+    bars = {"latency_ns": (1e-4, 1e-3), "congestion_ns": (1e-3, 1e-2),
+            "bandwidth_ns": (1e-2, 1.0)}
+    t0 = time.perf_counter()
+    n = 0
+    for rep, placements in zip(reports, placements_of):
+        traces, _ = fleet._rack_timelines(placements)
+        for r, rows in enumerate(traces):
+            solo = an.analyze_batch(rows)
+            got = rep.breakdowns[r]
+            check_rel(f"{tag} rack {r} at {rep.offload_fraction}", got, solo, bars)
+            np.testing.assert_allclose(got.per_host_latency_ns, solo.per_host_latency_ns,
+                                       rtol=1e-4, atol=1e-3)
+            np.testing.assert_allclose(got.per_host_congestion_ns,
+                                       solo.per_host_congestion_ns, rtol=5e-3, atol=1e-2)
+            n += 1
+    return n, time.perf_counter() - t0
+
+
+def fleet_frontier_path(dev):
+    """fleet-frontier: 32 racks of 4 hosts, 192 tenants, 8 offload
+    fractions in one dispatch over 256 rack planes: one host-segmented
+    cascade launch."""
+    tenants = fleet_tenants()
+    fleet = FleetSim(FLEET_RACKS, hosts_per_rack=FLEET_HOSTS, hw=H100_SXM, device="cuda")
+    records, restore = timed_cascades("congestion_cascade")
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        pts = fleet.frontier(tenants, offload_fractions=FLEET_FRACTIONS)
+        wall = time.perf_counter() - t0
+        c = counts()
+    finally:
+        restore()
+    check_launches("fleet-frontier", c, "hosts", 1)
+    check(fleet.dispatch_count == 1, f"fleet-frontier: {fleet.dispatch_count} dispatches")
+    ms = cascade_ms(records)
+    st = fleet.last_dispatch
+    print(f"[fleet-frontier] {FLEET_RACKS * FLEET_HOSTS} hosts, {FLEET_TENANTS} tenants, "
+          f"{len(pts)} fractions: 1 dispatch over {st.rows} rack planes, {c['hosts']} hosts "
+          f"launch over {[r[0] for r in records]} ({[round(m, 6) for m in ms]} ms on the "
+          f"card); stage {st.stage_s:.6f} s, transfer {st.transfer_s:.6f} s, compute "
+          f"{st.compute_s:.6f} s; wall {wall:.6f} s")
+    gb = [p.stranded_recovered_gb for p in pts]
+    check(gb[0] == 0.0 and all(b >= a for a, b in zip(gb, gb[1:])),
+          f"fleet-frontier: stranded GB {gb}")
+    for p in pts:
+        print(f"[fleet-frontier] offload {p.offload_fraction:.4f}: stranded "
+              f"{p.stranded_recovered_gb!r} GB, p99 slowdown {p.p99_slowdown!r}, mean "
+              f"{p.mean_slowdown!r}")
+    n, solo_s = check_planes("fleet-frontier", [p.report for p in pts], fleet,
+                             [p.report.placements for p in pts])
+    print(f"[fleet-frontier] all {n} planes within the bars of their solo analyses "
+          f"({solo_s:.6f} s for the {n} solo analyze_batch calls)")
+    t, args, kw = records[0][3]
+    row = compare_hosts("fleet_frontier_batch", t, args[0], kw["hosts"], args[1],
+                        kw["n_hosts"], reps=10)
+    return row, c["hosts"]
+
+
+def fleet_hetero_qos_path(dev):
+    """fleet-hetero-qos: the same tenants alternating between QoS classes 0
+    and 1, racks alternating between the base and a slow expander (400 ns,
+    STT 4 ns) and between WFQ 4:1 and priority: two host-segmented QoS
+    launches, every rack held to the same fleet on the CPU."""
+    tenants = [dataclasses.replace(t, qos_class=i % 2) for i, t in enumerate(fleet_tenants())]
+    kw = dict(
+        hosts_per_rack=FLEET_HOSTS, hw=H100_SXM,
+        rack_overrides=[None if r % 2 == 0 else TopologyOverride(**FLEET_SLOW)
+                        for r in range(FLEET_RACKS)],
+        rack_qos=[QosSpec(discipline="wfq", class_weights=(4.0, 1.0)) if r % 2 == 0
+                  else QosSpec(discipline="priority") for r in range(FLEET_RACKS)],
+    )
+    fleet = FleetSim(FLEET_RACKS, device="cuda", **kw)
+    records, restore = timed_cascades("qos_congestion_cascade")
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        rep = fleet.simulate(tenants, policy="round_robin", offload_fraction=1.0)
+        wall = time.perf_counter() - t0
+        c = counts()
+    finally:
+        restore()
+    check_launches("fleet-hetero-qos", c, "qos_hosts", 2)
+    ms = cascade_ms(records)
+    t0 = time.perf_counter()
+    twin = FleetSim(FLEET_RACKS, device="cpu", **kw).simulate(
+        tenants, policy="round_robin", offload_fraction=1.0)
+    cpu_s = time.perf_counter() - t0
+    bars = {"latency_ns": (1e-4, 1e-3), "congestion_ns": (1e-3, 1e-2),
+            "bandwidth_ns": (1e-2, 1.0)}
+    for r, (g, w) in enumerate(zip(rep.breakdowns, twin.breakdowns)):
+        check_rel(f"fleet-hetero-qos rack {r} vs CPU", g, w, bars)
+        np.testing.assert_allclose(g.per_host_latency_ns, w.per_host_latency_ns, rtol=1e-4,
+                                   atol=1e-3)
+        np.testing.assert_allclose(g.per_host_congestion_ns, w.per_host_congestion_ns,
+                                   rtol=5e-3, atol=1e-2)
+        np.testing.assert_allclose(g.per_class_congestion_ns, w.per_class_congestion_ns,
+                                   rtol=5e-3, atol=1e-2)
+    check(rep.stranded_recovered_bytes == twin.stranded_recovered_bytes,
+          "fleet-hetero-qos: stranded bytes differ from the CPU run")
+    # latency per event, slow racks over base racks (the delays themselves
+    # are bandwidth-led, and the racks hold different tenants)
+    lat = [sum(b.latency_ns for b in rep.breakdowns[i::2]) for i in (0, 1)]
+    n_ev = [sum(tr.n for rows in fleet._rack_timelines(rep.placements)[0][i::2] for tr in rows)
+            for i in (0, 1)]
+    slow = (lat[1] / n_ev[1]) / (lat[0] / n_ev[0])
+    check(slow > 1.0, f"fleet-hetero-qos: the slow racks' latency per event {slow}x the base's")
+    print(f"[fleet-hetero-qos] {c['qos_hosts']} host-segmented QoS launches over "
+          f"{[r[0] for r in records]} ({[round(m, 6) for m in ms]} ms on the card), wall "
+          f"{wall:.6f} s (the CPU twin {cpu_s:.6f} s); every rack within the fabric bars of "
+          f"the CPU run; p99 slowdown {rep.p99_slowdown()!r}, mean {rep.mean_slowdown()!r}; "
+          f"the slow racks' latency per event {slow:.4f}x the base racks'; per-class congestion "
+          f"{np.sum([b.per_class_congestion_ns for b in rep.breakdowns], axis=0).tolist()} ns")
+    t, args, kw_ = records[0][3]
+    row = compare_qos_hosts("fleet_hetero_qos_batch", t, args[0], args[2], kw_["hosts"],
+                            args[1], args[3], args[4], kw_["n_hosts"], reps=10)
+    return row, c["qos_hosts"]
+
+
+def sweep_fleet_path(dev):
+    """Phase 16: scenario sweeps and the fleet on the card.  Returns the
+    cells' kernel rows and their launches by kernel."""
+    t0 = time.perf_counter()
+    sweep_row, cascade, res, scens = sweep_main_path(dev)
+    t1 = time.perf_counter()
+    qos_row, qos = sweep_qos_path(dev, res, scens)
+    del res
+    torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    fleet_row, hosts = fleet_frontier_path(dev)
+    t3 = time.perf_counter()
+    hetero_row, qos_hosts = fleet_hetero_qos_path(dev)
+    print(f"[sweep-fleet] phase 16 ran {time.perf_counter() - t0:.1f} s: sweep-main "
+          f"{t1 - t0:.1f}, sweep-qos {t2 - t1:.1f}, fleet-frontier {t3 - t2:.1f}, "
+          f"fleet-hetero-qos {time.perf_counter() - t3:.1f}")
+    return (sweep_row, qos_row, fleet_row, hetero_row), dict(
+        cascade=cascade, qos=qos, hosts=hosts, qos_hosts=qos_hosts)
+
+
 def sass_counts(path) -> str:
     """How many atomic, double-add and match instructions a built library's
     SASS holds (cuobjdump), or why it could not be read."""
@@ -2818,7 +3304,7 @@ def main(argv) -> int:
         print(f"[done] chip_smoke --cascades ran {time.perf_counter() - t_start:.1f} s")
         return 0
 
-    # -- 4-15. the main paths ----------------------------------------------- #
+    # -- 4-16. the main paths ----------------------------------------------- #
     step, x = main_step(dev)
     main_row, cascade_launches, main_rep, main_ref = slice1_main_path(dev, step, x)
     fabric_row, hosts_launches, fabric_rep = fabric_main_path(dev)
@@ -2848,8 +3334,18 @@ def main(argv) -> int:
     cascade_launches += cascade15
     scan_launches += scan15
     hosts_launches += hosts15
+    torch.cuda.empty_cache()
+    (sweep_row, sweep_qos_row, fleet_row, hetero_row), c16 = sweep_fleet_path(dev)
+    rows.append(sweep_row)
+    qos_rows.append(sweep_qos_row)
+    host_rows.append(fleet_row)
+    qos_host_rows.append(hetero_row)
+    cascade_launches += c16["cascade"]
+    qos_launches += c16["qos"]
+    hosts_launches += c16["hosts"]
+    qos_hosts_launches += c16["qos_hosts"]
 
-    # -- 16. the kernels line and the result -------------------------------- #
+    # -- 17. the kernels line and the result -------------------------------- #
     src = "src/repro_torch/kernels/csrc/"
     kernels = []
     for name, source, replaces, launches, comps, row in (

@@ -1,7 +1,8 @@
 """CXLMemSim core, ported to PyTorch: the Timing Analyzer, attach, the
 shared multi-host fabric, migration, the expander-side device cache, the
-device-resident pipeline and the shared analysis engine (slices 1-5 of the
-port of :mod:`repro.core`; the sweeps and the fleet are still to come).
+device-resident pipeline, the shared analysis engine, scenario sweeps and
+the rack-scale fleet (the port of :mod:`repro.core`; the split of a
+sweep's or a fleet's leading axis over several devices is still to come).
 
 Components (paper Figure 2):
   Tracer  -> :mod:`repro_torch.core.tracer` (+ :mod:`.events` region map)
@@ -18,6 +19,10 @@ Components (paper Figure 2):
   :mod:`repro_torch.core.cache` (host numpy, like the reference's)
   Asynchronous analysis -> :mod:`repro_torch.core.engine` (one dispatcher
   thread on its own CUDA stream, cross-session coalescing)
+  Exploration -> :mod:`repro_torch.core.scenario` (K placement, topology,
+  cache, granularity and QoS scenarios in one stacked dispatch) and
+  :mod:`repro_torch.core.fleet` (tenants scheduled over R pooled racks, the
+  stranding frontier)
 """
 
 from .analyzer import (
@@ -49,6 +54,15 @@ from .events import (
     synthetic_trace,
 )
 from .fabric import FabricReport, FabricSession, HostClock, Tenant
+from .fleet import (
+    FleetPoint,
+    FleetReport,
+    FleetSim,
+    TenantPlacement,
+    TenantSpec,
+    model_zoo_tenant,
+    synthetic_tenant,
+)
 from .migration import LocalBudget, MigrationConfig, MigrationSimulator
 from .policy import (
     ClassMapPolicy,
@@ -57,17 +71,23 @@ from .policy import (
     LocalOnlyPolicy,
     PlacementPolicy,
     RegionArrays,
+    assign_batch,
+    bytes_per_pool_batch,
     capacity_check,
 )
+from .scenario import Scenario, ScenarioSuite, SweepResult
 from .timer import EpochSchedule, slice_by_quantum
 from .topology import (
     FlatTopology,
+    FlatTopologyStack,
     Pool,
     QosSpec,
     Switch,
     Topology,
+    TopologyOverride,
     chained_topology,
     figure1_topology,
+    flatten_stack,
     local_only_topology,
     pooled_topology,
     two_tier_topology,
@@ -106,6 +126,10 @@ __all__ = [
     "FabricSession",
     "FineGrainedSimulator",
     "FlatTopology",
+    "FlatTopologyStack",
+    "FleetPoint",
+    "FleetReport",
+    "FleetSim",
     "H100_SXM",
     "HardwareModel",
     "HostClock",
@@ -125,21 +149,31 @@ __all__ = [
     "Region",
     "RegionArrays",
     "RegionMap",
+    "Scenario",
+    "ScenarioSuite",
     "SimReport",
+    "SweepResult",
     "Switch",
     "TPU_V5E",
     "Tenant",
+    "TenantPlacement",
+    "TenantSpec",
     "Topology",
+    "TopologyOverride",
     "TraceSkeleton",
     "analyze_ref",
+    "assign_batch",
     "bucket_pow2",
+    "bytes_per_pool_batch",
     "capacity_check",
     "chained_topology",
     "concat_events",
     "dispatch_key",
     "figure1_topology",
+    "flatten_stack",
     "local_only_topology",
     "merge_host_traces",
+    "model_zoo_tenant",
     "plan_cascade",
     "plan_chain",
     "pooled_topology",
@@ -148,6 +182,7 @@ __all__ = [
     "split_by_host",
     "synthesize_skeleton",
     "synthesize_step_trace",
+    "synthetic_tenant",
     "synthetic_trace",
     "two_tier_topology",
 ]

@@ -559,15 +559,24 @@ def _latency(
     weight: torch.Tensor,  # [B, N] f32
     valid: torch.Tensor,  # [B, N] bool
     lat_scale: torch.Tensor,  # [B, V] f32
-    pool_latency_ns: torch.Tensor,  # [V] f32
-    local_latency_ns: torch.Tensor,  # [] f32
+    pool_latency_ns: torch.Tensor,  # [V] f32, or [B, V]: one row of leaves a row
+    local_latency_ns: torch.Tensor,  # [] f32, or [B]
     n_pools: int,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Latency delay: a gather plus a one-hot contraction.  Returns the
     per-event delays ``[B, N]`` (0 on invalid events), their sums per
-    physical pool ``[B, P]`` and their totals ``[B]``."""
+    physical pool ``[B, P]`` and their totals ``[B]``.  The topology's
+    leaves are shared by every row, or given per row (a sweep's or a
+    fleet's rows, each priced against its own topology); rows that repeat
+    one set of leaves price bitwise as the shared form."""
+    if pool_latency_ns.dim() == 1:
+        pool_lat = pool_latency_ns[vp]
+    else:
+        pool_lat = torch.gather(pool_latency_ns, 1, vp)
+    if local_latency_ns.dim() == 1:
+        local_latency_ns = local_latency_ns[:, None]
     per_event_lat = (
-        torch.clamp(pool_latency_ns[vp] - local_latency_ns, min=0.0)
+        torch.clamp(pool_lat - local_latency_ns, min=0.0)
         * torch.gather(lat_scale, 1, vp)
         * weight
     )
@@ -588,14 +597,15 @@ def _bandwidth(
     valid_e: torch.Tensor,  # [B, M] bool
     bw_window_ns: torch.Tensor,  # [B] f32
     route: torch.Tensor,  # [V, S] f32
-    switch_bw: torch.Tensor,  # [S] f32 bytes/ns
+    switch_bw: torch.Tensor,  # [S] f32 bytes/ns, or [B, S]: one row a row
     n_windows: int,
     n_hosts: int,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Bandwidth delay: one scatter-add over (window, virtual pool) keys,
     then a tiny ``[W, V] @ [V, S]`` product distributes pools onto
     switches.  Returns per-switch ``[B, S]``, total ``[B]`` and per-host
-    ``[B, H]`` stretch."""
+    ``[B, H]`` stretch.  Per-row switch bandwidths that repeat one row
+    stretch bitwise as the shared form."""
     n_rows = t_end.shape[0]
     V, S = route.shape
     P = V // n_hosts
@@ -617,6 +627,8 @@ def _bandwidth(
             route.view(n_hosts, P, S),
         )
         wbytes = wbytes_h.sum(dim=2)
+    if switch_bw.dim() == 2:
+        switch_bw = switch_bw[:, None, :]  # [B, 1, S] against [B, W, S]
     # bw <= 0 means an unconstrained component (analyze_ref skips it)
     bw_ok = switch_bw > 0
     bw_safe = torch.where(bw_ok, switch_bw, 1.0)
@@ -644,6 +656,13 @@ def _stage_index(stage_order: Tuple[int, ...], device: torch.device) -> torch.Te
     return torch.tensor(stage_order, dtype=torch.int64, device=device)
 
 
+def _has_merges(dev: torch.device, merge_plan) -> bool:
+    """Whether a FIFO cascade's slot order may differ from its input order:
+    always on the card (the kernels run the conservative merge schedule, as
+    the TPU kernels did), on the CPU when the plan schedules a merge."""
+    return dev.type != "cpu" or merge_plan is None or any(len(ops) for ops in merge_plan)
+
+
 def _analyze_batch(
     t: torch.Tensor,  # [B, N] f32 epoch-relative ns, each row TIME-SORTED
     pool: torch.Tensor,  # [B, N] i32 physical pool (padded entries: 0)
@@ -654,11 +673,11 @@ def _analyze_batch(
     bw_window_ns: torch.Tensor,  # [B] f32 per-epoch window length
     lat_scale: torch.Tensor,  # [B, V] f32 latency scale (ones: no cache)
     bits_table: torch.Tensor,  # [V] i32 per-virtual-pool route word (plan_cascade)
-    pool_latency_ns: torch.Tensor,  # [V] f32 (V = n_hosts * n_pools)
-    local_latency_ns: torch.Tensor,  # [] f32
+    pool_latency_ns: torch.Tensor,  # [V] f32 (V = n_hosts * n_pools), or [B, V]
+    local_latency_ns: torch.Tensor,  # [] f32, or [B]
     route: torch.Tensor,  # [V, S] f32
     switch_stt_ns: torch.Tensor,  # [S] f32
-    switch_bw: torch.Tensor,  # [S] f32 bytes/ns
+    switch_bw: torch.Tensor,  # [S] f32 bytes/ns, or [B, S]
     stage_order: Tuple[int, ...],
     n_windows: int,
     n_hosts: int = 1,
@@ -679,7 +698,10 @@ def _analyze_batch(
     congestion stage is the fused cascade, or with ``stage_stt_ns`` given
     the unfused per-stage loop (a stable sort of each row, then one switch's
     queue scan, per stage) that fabrics wider than the 31-bit route word
-    take.  With ``qos`` (and the stages' ``disc_code`` / ``class_weights``)
+    take.  The latency and bandwidth leaves may be given per row (the
+    fleet's racks, each on its own numeric topology); the service times
+    and arbitration are one set for all rows, as the cascade kernels take
+    them.  With ``qos`` (and the stages' ``disc_code`` / ``class_weights``)
     the congestion stage is the QoS cascade instead, whose ``[B, S, H, C]``
     delays also give the congestion per QoS class.  Returns one flat f32
     tensor ``[latency, congestion, bandwidth, per_pool_latency (P),
@@ -690,7 +712,7 @@ def _analyze_batch(
     per batch.
     """
     n_rows = t.shape[0]
-    V = pool_latency_ns.shape[0]
+    V = pool_latency_ns.shape[-1]
     P = V // n_hosts  # physical pools
     S = switch_stt_ns.shape[0]
     dtype = t.dtype
@@ -698,14 +720,6 @@ def _analyze_batch(
     pool64 = pool.to(torch.int64)
     host64 = None if n_hosts == 1 else host.to(torch.int64)
     vp = pool64 if n_hosts == 1 else host64 * P + pool64
-
-    per_event_lat, per_pool_lat, latency = _latency(
-        pool64, vp, weight, valid, lat_scale, pool_latency_ns, local_latency_ns, P
-    )
-    if n_hosts == 1:
-        per_host_lat = latency[:, None]
-    else:
-        per_host_lat = _host_sums(per_event_lat, host64, n_hosts).to(dtype)
 
     big = torch.finfo(dtype).max / 4
     t_cur = torch.where(valid, t, big)
@@ -729,7 +743,6 @@ def _analyze_batch(
         per_host_cong = None if n_hosts == 1 else psd.sum(dim=(1, 3))
         # the QoS cascade's fold is data-driven, so slot order never
         # matches input order
-        has_merges = True
     elif stage_stt_ns is None:
         # -- congestion: the fused cascade (a kernel on the card) ----------- #
         t_end, slot_idx, psd = kops.congestion_cascade(
@@ -748,11 +761,8 @@ def _analyze_batch(
         # the kernels always run the conservative merge schedule, so their
         # slot order never matches input order; the plain path skips the
         # gathers when its plan schedules no merge at all
-        has_merges = (
-            dev.type != "cpu"
-            or merge_plan is None
-            or any(len(ops) for ops in merge_plan)
-        )
+        if not _has_merges(dev, merge_plan):
+            slot_idx = None
     else:
         # -- congestion: the unfused per-stage loop (a kernel per stage) ---- #
         routed = route > 0  # [V, S]
@@ -772,15 +782,55 @@ def _analyze_batch(
                 )
         if per_host_cong is not None:
             per_host_cong = per_host_cong.to(dtype)
-        t_end = t_cur
-        has_merges = False  # t_cur stays in input order
+        t_end, slot_idx = t_cur, None  # t_cur stays in input order
+    return _price(
+        t_end, slot_idx, pool64, vp, host64, nbytes, weight,
+        valid, bw_window_ns, lat_scale, pool_latency_ns, local_latency_ns, route,
+        switch_bw, per_switch_cong, per_host_cong, per_class_cong, n_windows, n_hosts,
+    )
+
+
+def _price(
+    t_end: torch.Tensor,  # [B, N] post-congestion times, slot order
+    slot_idx: Optional[torch.Tensor],  # [B, N] input event of each slot; None: input order
+    pool64: torch.Tensor,  # [B, N] i64 physical pool, input order
+    vp: torch.Tensor,  # [B, N] i64 virtual pool, input order
+    host64: Optional[torch.Tensor],  # [B, N] i64 host (None if n_hosts == 1)
+    nbytes: torch.Tensor,  # [B, N] f32, input order
+    weight: torch.Tensor,  # [B, N] f32, input order
+    valid: torch.Tensor,  # [B, N] bool, input order
+    bw_window_ns: torch.Tensor,  # [B] f32
+    lat_scale: torch.Tensor,  # [B, V] f32
+    pool_latency_ns: torch.Tensor,  # [V] or [B, V] f32
+    local_latency_ns: torch.Tensor,  # [] or [B] f32
+    route: torch.Tensor,  # [V, S] f32
+    switch_bw: torch.Tensor,  # [S] or [B, S] f32 bytes/ns
+    per_switch_cong: torch.Tensor,  # [B, S]
+    per_host_cong: Optional[torch.Tensor],  # [B, H]; None: the row's congestion
+    per_class_cong: Optional[torch.Tensor],  # [B, C]; None: the row's congestion
+    n_windows: int,
+    n_hosts: int,
+) -> torch.Tensor:
+    """Price a congestion cascade's outcome: latency in input order,
+    bandwidth on the post-congestion times in slot order, and every delay
+    class in :func:`_analyze_batch`'s ``[B, M]`` row layout.  The sweep
+    prices one cascade's outcome under every scenario that shares it."""
+    dtype = t_end.dtype
+    P = pool_latency_ns.shape[-1] // n_hosts
+    per_event_lat, per_pool_lat, latency = _latency(
+        pool64, vp, weight, valid, lat_scale, pool_latency_ns, local_latency_ns, P
+    )
+    if n_hosts == 1:
+        per_host_lat = latency[:, None]
+    else:
+        per_host_lat = _host_sums(per_event_lat, host64, n_hosts).to(dtype)
     congestion = per_switch_cong.sum(dim=1)
     if per_host_cong is None:
         per_host_cong = congestion[:, None]
     if per_class_cong is None:
         per_class_cong = congestion[:, None]
 
-    if has_merges:
+    if slot_idx is not None:
         # bandwidth runs in final slot order: gather the payloads through
         # the cascade's permutation (slot k held input event slot_idx[k])
         sl = slot_idx.to(torch.int64)
@@ -796,7 +846,7 @@ def _analyze_batch(
         n_windows, n_hosts,
     )
 
-    rows = torch.cat(
+    return torch.cat(
         [
             latency[:, None], congestion[:, None], bandwidth[:, None],
             per_pool_lat, per_switch_cong, per_switch_bw,
@@ -804,7 +854,256 @@ def _analyze_batch(
         ],
         dim=1,
     )
-    return rows
+
+
+# phase 2 of a sweep prices this many events at once (16 scenarios of a
+# [32, 131072] batch): a chunk's working set stays within a few GB on the card
+SWEEP_CHUNK_EVENTS = 1 << 26
+
+
+def _launch_groups(
+    stt: torch.Tensor,  # [U, S] service times of each row
+    disc: Optional[torch.Tensor],  # [U, S] discipline codes (QoS only)
+    weights: Optional[torch.Tensor],  # [U, S, C] class weights (QoS only)
+) -> List[torch.Tensor]:
+    """Rows that share their service times (and, under QoS, their
+    disciplines and class weights) in first-seen order: each group is one
+    cascade launch, since a cascade kernel takes one set a launch.  Returns
+    each group's row indices on the rows' device."""
+    keys = [stt]
+    if disc is not None:
+        keys += [disc.to(stt.dtype), weights.flatten(1).to(stt.dtype)]
+    table = torch.cat(keys, dim=1).cpu().numpy()
+    groups: Dict[bytes, List[int]] = {}
+    for u, row in enumerate(table):
+        groups.setdefault(row.tobytes(), []).append(u)
+    return [
+        torch.tensor(rows, dtype=torch.int64).to(stt.device) for rows in groups.values()
+    ]
+
+
+def _analyze_sweep(
+    t: torch.Tensor,  # [G, B, N] f32 time-sorted epochs per granularity group
+    nbytes: torch.Tensor,  # [G, B, N] f32
+    weight: torch.Tensor,  # [G, B, N] f32
+    host: torch.Tensor,  # [G, B, N] i32
+    valid: torch.Tensor,  # [G, B, N] bool
+    region: torch.Tensor,  # [G, B, N] i64 region ids (the skeleton's payload)
+    bw_window: torch.Tensor,  # [G, B] f32 per-epoch window lengths
+    cas_group: torch.Tensor,  # [U] i64 cascade -> skeleton group
+    cas_assign: torch.Tensor,  # [U, R] i64 placement rows of the unique cascades
+    cas_stt: torch.Tensor,  # [U, S] f32 STT rows of the unique cascades
+    cas_disc: torch.Tensor,  # [U, S] i32 discipline rows of the unique cascades
+    cas_weights: torch.Tensor,  # [U, S, C] f32 class-weight rows of the unique cascades
+    qos_of_region: torch.Tensor,  # [R] i32 QoS class of each region
+    group_of: torch.Tensor,  # [K] i64 scenario -> skeleton group
+    cascade_of: torch.Tensor,  # [K] i64 scenario -> unique cascade
+    assign: torch.Tensor,  # [K, R] i64 placement matrix
+    lat_scale: torch.Tensor,  # [K, B, V] f32 per-scenario device-cache scales
+    pool_latency_ns: torch.Tensor,  # [K, V] f32 stacked topology leaves
+    local_latency_ns: torch.Tensor,  # [K] f32
+    switch_bw: torch.Tensor,  # [K, S] f32
+    bits_table: torch.Tensor,  # [V] i32 shared (structure)
+    route: torch.Tensor,  # [V, S] f32 shared (structure)
+    stage_order: Tuple[int, ...],
+    n_windows: int,
+    n_hosts: int,
+    merge_plan=None,
+    qos_on: bool = False,
+) -> torch.Tensor:
+    """K scenarios × B epochs, per-scenario totals reduced on the device
+    (port of the reference's ``_analyze_sweep_jax``).  Returns ``[K, M]``
+    rows in :func:`_analyze_batch`'s layout, summed over epochs.
+
+    1. **U unique cascades.**  Congestion, and the post-queue times the
+       bandwidth windows see, depend only on a scenario's granularity
+       group, placement row and STT row (and under QoS its discipline and
+       weight rows); the caller dedups scenarios onto U cascades.  Each
+       cascade's route words are built on the device from its placement
+       row (``bits_table[vp]``, ``pool = cas_assign[u][region]``), its QoS
+       classes from ``qos_of_region``.  The cascades that share their
+       service times (and arbitration) stack as the ``[U_g·B, N]`` rows of
+       one cascade call (:func:`_launch_groups`): a sweep over policies,
+       granularities, latencies, bandwidths and caches on one STT row is
+       one launch.
+    2. **K scenario reductions**, in chunks of about
+       :data:`SWEEP_CHUNK_EVENTS` events: each scenario takes its
+       cascade's final times and slot permutation, derives its events'
+       pools from its own placement row, and is priced (:func:`_price`)
+       against its own row of topology leaves and cache scales.  Each
+       scenario's reduction is independent, so the chunking changes no
+       number.
+    """
+    G, B, N = t.shape
+    K = int(cascade_of.shape[0])
+    U = int(cas_group.shape[0])
+    V = pool_latency_ns.shape[1]
+    P = V // n_hosts
+    S = switch_bw.shape[1]
+    dev, dtype = t.device, t.dtype
+    stage_idx = _stage_index(tuple(stage_order), dev)
+    big = torch.finfo(dtype).max / 4
+    R = cas_assign.shape[1]
+    C = cas_weights.shape[2] if qos_on else 1
+    launches = _launch_groups(cas_stt, cas_disc if qos_on else None,
+                              cas_weights if qos_on else None)
+    multi = n_hosts > 1
+
+    # -- phase 1: the U unique cascades, one launch per STT group ---------- #
+    slot_order = qos_on or _has_merges(dev, merge_plan)
+    t_fin_u = torch.empty((U, B, N), dtype=dtype, device=dev)
+    slot_u = torch.empty((U, B, N), dtype=torch.int32, device=dev) if slot_order else None
+    cong_u = torch.zeros((U, B, S), dtype=dtype, device=dev)
+    host_cong_u = torch.empty((U, B, n_hosts), dtype=dtype, device=dev) if multi else None
+    class_cong_u = torch.empty((U, B, C), dtype=dtype, device=dev) if qos_on else None
+    for us in launches:
+        n_u = int(us.shape[0])
+        g = cas_group[us]
+        valid_g = valid[g]  # [U_g, B, N]
+        region_g = region[g]
+        host_g = host[g] if multi else None
+        pool_g = torch.gather(
+            cas_assign[us][:, None, :].expand(n_u, B, R), 2, region_g
+        )
+        vp_g = host_g.to(torch.int64) * P + pool_g if multi else pool_g
+        rows = (n_u * B, N)
+        t_cur = torch.where(valid_g, t[g], big).view(rows)
+        bits = torch.where(valid_g, bits_table[vp_g], 0).view(rows)
+        hosts = host_g.view(rows) if multi else None
+        stt = cas_stt[us[0]][stage_idx].contiguous()
+        if qos_on:
+            q = torch.where(valid_g, qos_of_region[region_g], 0).view(rows)
+            t_end, slot_idx, psd = kops.qos_congestion_cascade(
+                t_cur, bits, stt, q,
+                cas_disc[us[0]][stage_idx].contiguous(),
+                cas_weights[us[0]][stage_idx].contiguous(),
+                hosts=hosts, n_hosts=n_hosts,
+            )
+            psd = psd.view(n_u, B, *psd.shape[1:])  # [U_g, B, S_st, H, C]
+            cong_u[us.view(-1, 1), :, stage_idx] = psd.sum(dim=(3, 4)).permute(0, 2, 1)
+            class_cong_u[us] = psd.sum(dim=(2, 3))
+            if multi:
+                host_cong_u[us] = psd.sum(dim=(2, 4))
+        else:
+            t_end, slot_idx, psd = kops.congestion_cascade(
+                t_cur, bits, stt, merge_plan=merge_plan, hosts=hosts, n_hosts=n_hosts,
+            )
+            psd = psd.view(n_u, B, *psd.shape[1:])  # [U_g, B, S_st(, H)]
+            if multi:
+                cong_u[us.view(-1, 1), :, stage_idx] = psd.sum(dim=3).permute(0, 2, 1)
+                host_cong_u[us] = psd.sum(dim=2)
+            else:
+                cong_u[us.view(-1, 1), :, stage_idx] = psd.permute(0, 2, 1)
+        t_fin_u[us] = t_end.view(n_u, B, N)
+        if slot_u is not None:
+            slot_u[us] = slot_idx.view(n_u, B, N)
+
+    # -- phase 2: the K scenario reductions, in chunks ---------------------- #
+    M = 3 + P + 2 * S + 3 * n_hosts + C
+    out = torch.empty((K, M), dtype=dtype, device=dev)
+    chunk = max(1, SWEEP_CHUNK_EVENTS // max(B * N, 1))
+
+    def per_row(x: torch.Tensor) -> torch.Tensor:  # [n_k, ...] -> [n_k·B, ...]
+        return x.repeat_interleave(B, dim=0)
+
+    for k0 in range(0, K, chunk):
+        ks = slice(k0, min(K, k0 + chunk))
+        n_k = ks.stop - ks.start
+        u, g = cascade_of[ks], group_of[ks]
+        rows = (n_k * B, N)
+        valid_k = valid[g]
+        pool64 = torch.where(
+            valid_k,
+            torch.gather(assign[ks][:, None, :].expand(n_k, B, R), 2, region[g]),
+            0,
+        ).view(rows)
+        host64 = host[g].view(rows).to(torch.int64) if multi else None
+        vp = host64 * P + pool64 if multi else pool64
+        priced = _price(
+            t_fin_u[u].view(rows),
+            None if slot_u is None else slot_u[u].view(rows),
+            pool64, vp, host64,
+            nbytes[g].view(rows), weight[g].view(rows), valid_k.view(rows),
+            bw_window[g].view(-1),
+            lat_scale[ks].reshape(n_k * B, V),
+            per_row(pool_latency_ns[ks]), per_row(local_latency_ns[ks]),
+            route, per_row(switch_bw[ks]),
+            cong_u[u].view(n_k * B, S),
+            host_cong_u[u].view(n_k * B, n_hosts) if multi else None,
+            class_cong_u[u].view(n_k * B, C) if qos_on else None,
+            n_windows, n_hosts,
+        )
+        out[ks] = priced.view(n_k, B, M).sum(dim=1)
+    return out
+
+
+def _analyze_fleet(
+    t: torch.Tensor,  # [K, B, N] f32 K racks' stacked epoch batches
+    pool: torch.Tensor,  # [K, B, N] i32
+    nbytes: torch.Tensor,  # [K, B, N] f32
+    weight: torch.Tensor,  # [K, B, N] f32
+    host: Optional[torch.Tensor],  # [K, B, N] i32 (None if n_hosts == 1)
+    qos: Optional[torch.Tensor],  # [K, B, N] i32 (None unless qos_on)
+    valid: torch.Tensor,  # [K, B, N] bool
+    bw_window_ns: torch.Tensor,  # [K, B] f32
+    lat_scale: torch.Tensor,  # [K, B, V] f32
+    bits_table: torch.Tensor,  # [V] i32 shared (one rack structure)
+    pool_latency_ns: torch.Tensor,  # [K, V] f32 per-rack numeric leaves
+    local_latency_ns: torch.Tensor,  # [K] f32
+    route: torch.Tensor,  # [V, S] f32 shared (structure)
+    switch_stt_ns: torch.Tensor,  # [K, S] f32
+    switch_bw: torch.Tensor,  # [K, S] f32
+    disc_code: torch.Tensor,  # [K, S] i32 per-rack QoS policies
+    class_weights: torch.Tensor,  # [K, S, C] f32
+    stage_order: Tuple[int, ...],
+    n_windows: int,
+    n_hosts: int,
+    merge_plan=None,
+    qos_on: bool = False,
+) -> torch.Tensor:
+    """K racks × B epochs with per-rack numeric topologies, per-rack
+    totals reduced on the device (port of the reference's
+    ``_analyze_fleet_jax``).  Returns ``[K, M]`` rows in
+    :func:`_analyze_batch`'s layout, summed over epochs.
+
+    The racks that share their service times (and, with ``qos_on``, their
+    disciplines and class weights) run as the ``[K_g·B, N]`` rows of one
+    :func:`_analyze_batch`, so one cascade launch; their latency and
+    bandwidth leaves go in per row.  A homogeneous fleet is one launch."""
+    K, B, N = t.shape
+    stage_idx = _stage_index(tuple(stage_order), t.device)
+    out = None
+    groups = _launch_groups(switch_stt_ns, disc_code if qos_on else None,
+                            class_weights if qos_on else None)
+    whole = len(groups) == 1  # every rack, in order: no gather
+    for racks in groups:
+        n_k = int(racks.shape[0])
+
+        def rows(x: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+            if x is None:
+                return None
+            x = x if whole else x.index_select(0, racks)
+            return x.reshape((n_k * B,) + tuple(x.shape[2:]))
+
+        def per_row(x: torch.Tensor) -> torch.Tensor:  # [K_g, ...] -> [K_g·B, ...]
+            return x.index_select(0, racks).repeat_interleave(B, dim=0)
+
+        r0 = racks[0]
+        res = _analyze_batch(
+            rows(t), rows(pool), rows(nbytes), rows(weight), rows(host), rows(valid),
+            rows(bw_window_ns), rows(lat_scale), bits_table,
+            per_row(pool_latency_ns), per_row(local_latency_ns), route,
+            switch_stt_ns[r0], per_row(switch_bw),
+            stage_order=stage_order, n_windows=n_windows, n_hosts=n_hosts,
+            merge_plan=merge_plan, qos=rows(qos),
+            disc_code=disc_code[r0][stage_idx].contiguous() if qos_on else None,
+            class_weights=class_weights[r0][stage_idx].contiguous() if qos_on else None,
+        )
+        per_rack = res.view(n_k, B, -1).sum(dim=1)
+        if out is None:
+            out = torch.empty((K, per_rack.shape[1]), dtype=t.dtype, device=t.device)
+        out[racks] = per_rack
+    return out
 
 
 def _analyze_pipeline(

@@ -17,8 +17,8 @@ Two assignment surfaces per policy:
     regression-tested against (the reference's ``tests/test_scenario.py``).
   * :meth:`PlacementPolicy.assign` — vectorized assignment over a
     :class:`RegionArrays` snapshot, returning a ``[R]`` pool vector without
-    touching any ``Region`` object.  Stacking K policies into a ``[K, R]``
-    placement matrix (``assign_batch``) comes with the scenario sweep.
+    touching any ``Region`` object; :func:`assign_batch` stacks K policies
+    into the ``[K, R]`` placement matrix a scenario sweep places with.
 """
 
 from __future__ import annotations
@@ -44,6 +44,8 @@ __all__ = [
     "InterleavePolicy",
     "HotnessTieredPolicy",
     "RegionArrays",
+    "assign_batch",
+    "bytes_per_pool_batch",
     "capacity_check",
 ]
 
@@ -385,8 +387,43 @@ class HotnessTieredPolicy(PlacementPolicy):
 
 
 # --------------------------------------------------------------------------- #
-# Capacity accounting
+# Batched placement + capacity accounting (the sweep engine's feed path)
 # --------------------------------------------------------------------------- #
+
+
+def assign_batch(
+    policies: Sequence[PlacementPolicy],
+    ra: RegionArrays,
+    flat: FlatTopology,
+) -> np.ndarray:
+    """``[K, R]`` placement matrix: row k is ``policies[k].assign(ra, flat)``.
+
+    Rows dedup on :meth:`PlacementPolicy.assign_key` (falling back to
+    object identity when a policy returns None), so a cartesian sweep that
+    reuses one policy across every topology/cache/granularity variant —
+    including ``with_granularity`` copies, whose placement is identical by
+    construction — computes each distinct placement once and broadcasts.
+    """
+    out = np.empty((len(policies), ra.n), np.int32)
+    computed: Dict[object, np.ndarray] = {}
+    for k, p in enumerate(policies):
+        key = p.assign_key()
+        if key is None:
+            key = id(p)
+        row = computed.get(key)
+        if row is None:
+            row = p.assign(ra, flat)
+            computed[key] = row
+        out[k] = row
+    return out
+
+
+def bytes_per_pool_batch(assign: np.ndarray, nbytes: np.ndarray, n_pools: int) -> np.ndarray:
+    """``[K, P]`` bytes placed per pool for a ``[K, R]`` placement matrix."""
+    K = assign.shape[0]
+    out = np.zeros((K, n_pools), np.float64)
+    np.add.at(out, (np.arange(K)[:, None], assign), nbytes[None, :])
+    return out
 
 
 def capacity_check(regions: RegionMap, flat: FlatTopology) -> Dict[str, float]:

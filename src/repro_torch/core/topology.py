@@ -14,9 +14,9 @@ component is annotated with the paper's three quantities:
 (:mod:`repro_torch.core.analyzer`) can run as batched tensor ops.
 
 Port of ``repro/core/topology.py`` (numpy only, arrays bitwise equal to the
-reference's).  The stacked parameter lowering (``TopologyOverride``,
-``FlatTopologyStack``, ``flatten_stack``) belongs to a later slice of the
-port.  Switches may arbitrate by QoS class (``Switch.discipline``,
+reference's), the stacked parameter lowering of a sweep's or a fleet's
+numeric variants (:class:`TopologyOverride`, :func:`flatten_stack`)
+included.  Switches may arbitrate by QoS class (``Switch.discipline``,
 ``class_weights``); :class:`QosSpec` re-disciplines a flattened topology's
 stages by name, as a sweep's ``qos`` axis does.
 
@@ -47,7 +47,10 @@ __all__ = [
     "QosSpec",
     "Switch",
     "Topology",
+    "TopologyOverride",
     "FlatTopology",
+    "FlatTopologyStack",
+    "flatten_stack",
     "chained_topology",
     "figure1_topology",
     "local_only_topology",
@@ -329,6 +332,13 @@ class Topology:
     def flatten(self) -> "FlatTopology":
         return FlatTopology.from_topology(self)
 
+    def flatten_stack(
+        self, overrides: Sequence[Optional["TopologyOverride"]]
+    ) -> "FlatTopologyStack":
+        """Lower K numeric parameter variants in one pass; see
+        :func:`flatten_stack`."""
+        return flatten_stack(self, overrides)
+
     def describe(self) -> str:
         hosts = "" if self.n_hosts == 1 else f", {self.n_hosts} hosts"
         lines = [
@@ -522,13 +532,225 @@ class FlatTopology:
 def _multipath_columns(switches: Sequence[Switch]) -> List[int]:
     """Expanded-column -> original-switch index for the ECMP lowering.
 
-    Replicas of switch ``i`` occupy consecutive columns, so per-column
-    numeric leaves always line up with the route matrix.
+    Replicas of switch ``i`` occupy consecutive columns; the same layout is
+    used by :meth:`FlatTopology.from_topology` and :func:`flatten_stack`, so
+    per-column numeric leaves always line up with the route matrix.
     """
     src: List[int] = []
     for i, s in enumerate(switches):
         src.extend([i] * max(1, int(s.multipath)))
     return src
+
+
+# --------------------------------------------------------------------------- #
+# Parameterized stacked lowering (the scenario sweep's topology axis)
+# --------------------------------------------------------------------------- #
+
+_POOL_FIELDS = ("latency_ns", "bandwidth_gbps")
+_SWITCH_FIELDS = ("latency_ns", "bandwidth_gbps", "stt_ns")
+
+
+@dataclasses.dataclass(frozen=True)
+class TopologyOverride:
+    """Numeric parameter overrides against a base :class:`Topology`.
+
+    Overrides never change *structure* (which components exist, who parents
+    whom, pool capacities): a whole override stack shares the base
+    topology's route matrix, stage order and cascade merge plan, which is
+    what lets :func:`flatten_stack` lower K scenarios to ``[K, ...]`` leaf
+    arrays under one analyzer dispatch.  Structural variation (pool
+    count, switch depth, capacity) is a different base topology — sweep it
+    as an outer loop of suites.
+
+    ``pools``/``switches`` map component name -> field -> value; pool
+    fields: ``latency_ns``/``bandwidth_gbps``, switch fields those plus
+    ``stt_ns``.  Scalar fields override the RC / local-DRAM constants.
+
+    Bandwidth semantics: the three-delay model prices bandwidth at
+    *switch* rows (windowed stretch) — a pool's ``bandwidth_gbps`` feeds
+    only the reported path-bottleneck figure
+    (``FlatTopology.pool_bandwidth_gbps``), never a delay.  To sweep an
+    expander's link rate, override the switch it hangs off; sweeping pool
+    bandwidth alone yields identical delay totals by design.  A bandwidth of 0
+    means "unconstrained" — every analyzer skips the component's
+    bandwidth charge (no division happens).
+    """
+
+    pools: Mapping[str, Mapping[str, float]] = dataclasses.field(default_factory=dict)
+    switches: Mapping[str, Mapping[str, float]] = dataclasses.field(default_factory=dict)
+    rc_latency_ns: Optional[float] = None
+    rc_bandwidth_gbps: Optional[float] = None
+    rc_stt_ns: Optional[float] = None
+    local_dram_latency_ns: Optional[float] = None
+
+    def validate_against(self, t: "Topology") -> None:
+        pool_names = {p.name for p in t.pools}
+        switch_names = {s.name for s in t.switches}
+        for name, fields in self.pools.items():
+            if name not in pool_names:
+                raise ValueError(f"override names unknown pool {name!r}")
+            for f, v in fields.items():
+                if f not in _POOL_FIELDS:
+                    raise ValueError(f"pool {name}: unknown field {f!r}")
+                if v < 0:
+                    raise ValueError(f"pool {name}.{f} must be >= 0")
+        for name, fields in self.switches.items():
+            if name not in switch_names:
+                raise ValueError(f"override names unknown switch {name!r}")
+            for f, v in fields.items():
+                if f not in _SWITCH_FIELDS:
+                    raise ValueError(f"switch {name}: unknown field {f!r}")
+                if v < 0:
+                    raise ValueError(f"switch {name}.{f} must be >= 0")
+
+    def describe(self) -> str:
+        parts = []
+        for name, fields in self.pools.items():
+            parts += [f"{name}.{f}={v:g}" for f, v in fields.items()]
+        for name, fields in self.switches.items():
+            parts += [f"{name}.{f}={v:g}" for f, v in fields.items()]
+        for f in ("rc_latency_ns", "rc_bandwidth_gbps", "rc_stt_ns", "local_dram_latency_ns"):
+            v = getattr(self, f)
+            if v is not None:
+                parts.append(f"{f}={v:g}")
+        return ",".join(parts) or "base"
+
+
+@dataclasses.dataclass(frozen=True)
+class FlatTopologyStack:
+    """K parameter variants of one topology, lowered to stacked leaves.
+
+    ``base`` carries everything structural — route matrix, switch depths,
+    names, capacities, reachability — shared by every scenario (so
+    :func:`~repro_torch.core.analyzer.plan_cascade` runs once for the
+    stack).  The numeric leaves get a leading scenario axis: the per-row
+    leaves of the sweep's and the fleet's analyses.
+    """
+
+    base: FlatTopology
+    pool_latency_ns: np.ndarray  # [K, H*P]
+    pool_bandwidth_gbps: np.ndarray  # [K, H*P]
+    pool_media_latency_ns: np.ndarray  # [K, P]
+    local_latency_ns: np.ndarray  # [K]
+    switch_stt_ns: np.ndarray  # [K, S]
+    switch_bandwidth_gbps: np.ndarray  # [K, S]
+
+    @property
+    def k(self) -> int:
+        return int(self.pool_latency_ns.shape[0])
+
+    def member(self, k: int) -> FlatTopology:
+        """Materialize scenario ``k`` as a plain :class:`FlatTopology`
+        (sequential oracles, cache models, and spot-checks run on this)."""
+        return dataclasses.replace(
+            self.base,
+            pool_latency_ns=self.pool_latency_ns[k],
+            pool_bandwidth_gbps=self.pool_bandwidth_gbps[k],
+            pool_media_latency_ns=self.pool_media_latency_ns[k],
+            local_latency_ns=float(self.local_latency_ns[k]),
+            switch_stt_ns=self.switch_stt_ns[k],
+            switch_bandwidth_gbps=self.switch_bandwidth_gbps[k],
+        )
+
+
+def flatten_stack(
+    t: Topology, overrides: Sequence[Optional[TopologyOverride]]
+) -> FlatTopologyStack:
+    """Lower ``len(overrides)`` parameter variants of ``t`` in one pass.
+
+    Per-component leaf values are overridden per scenario, then the
+    path-derived aggregates (total pool latency, bottleneck bandwidth) are
+    recomputed vectorized across the whole stack; ``None`` entries are the
+    unmodified base.  Row k agrees with ``Topology``-level lowering of the
+    same parameters (``member(k)`` vs a rebuilt tree) to float tolerance.
+    """
+    base_flat = t.flatten()
+    P, H, n_sw = len(t.pools), t.n_hosts, len(t.switches)
+    K = len(overrides)
+    if K == 0:
+        raise ValueError("empty override stack")
+
+    pool_media = np.tile([p.latency_ns for p in t.pools], (K, 1))
+    pool_leaf_bw = np.tile([p.bandwidth_gbps for p in t.pools], (K, 1))
+    sw_lat = np.tile([s.latency_ns for s in t.switches], (K, 1)).reshape(K, n_sw)
+    sw_bw = np.tile([s.bandwidth_gbps for s in t.switches], (K, 1)).reshape(K, n_sw)
+    sw_stt = np.tile([s.stt_ns for s in t.switches], (K, 1)).reshape(K, n_sw)
+    rc_lat = np.full((K,), t.rc_latency_ns)
+    rc_bw = np.full((K,), t.rc_bandwidth_gbps)
+    rc_stt = np.full((K,), t.rc_stt_ns)
+    local_lat = np.full((K,), t.local_dram_latency_ns)
+
+    pool_idx = {p.name: i for i, p in enumerate(t.pools)}
+    sw_idx = {s.name: i for i, s in enumerate(t.switches)}
+    leaf = {
+        ("pool", "latency_ns"): pool_media,
+        ("pool", "bandwidth_gbps"): pool_leaf_bw,
+        ("switch", "latency_ns"): sw_lat,
+        ("switch", "bandwidth_gbps"): sw_bw,
+        ("switch", "stt_ns"): sw_stt,
+    }
+    for k, ov in enumerate(overrides):
+        if ov is None:
+            continue
+        ov.validate_against(t)
+        for name, fields in ov.pools.items():
+            for f, v in fields.items():
+                leaf[("pool", f)][k, pool_idx[name]] = v
+        for name, fields in ov.switches.items():
+            for f, v in fields.items():
+                leaf[("switch", f)][k, sw_idx[name]] = v
+        if ov.rc_latency_ns is not None:
+            rc_lat[k] = ov.rc_latency_ns
+        if ov.rc_bandwidth_gbps is not None:
+            rc_bw[k] = ov.rc_bandwidth_gbps
+        if ov.rc_stt_ns is not None:
+            rc_stt[k] = ov.rc_stt_ns
+        if ov.local_dram_latency_ns is not None:
+            local_lat[k] = ov.local_dram_latency_ns
+
+    # path membership from the tree (structure: shared by the whole stack)
+    pathm = np.zeros((P, n_sw), np.float64)
+    nonlocal_ = np.zeros((P,), bool)
+    for i, p in enumerate(t.pools):
+        if p.is_local:
+            continue
+        nonlocal_[i] = True
+        for sw in t.switch_path(p):
+            pathm[i, sw_idx[sw.name]] = 1.0
+
+    # total added latency per (scenario, pool): media + RC + path switches
+    path_lat = sw_lat @ pathm.T if n_sw else np.zeros((K, P))
+    pool_lat = pool_media + nonlocal_[None, :] * (rc_lat[:, None] + path_lat)
+    # bottleneck bandwidth: min(leaf, RC, switches on path)
+    if n_sw:
+        masked = np.where(pathm[None, :, :] > 0, sw_bw[:, None, :], np.inf)
+        path_bw = masked.min(axis=-1)
+    else:
+        path_bw = np.full((K, P), np.inf)
+    pool_bw = np.where(
+        nonlocal_[None, :],
+        np.minimum(np.minimum(pool_leaf_bw, rc_bw[:, None]), path_bw),
+        pool_leaf_bw,
+    )
+
+    # expand to virtual (host, pool) rows, duplicate multipath replica
+    # columns (replicas share their switch's numbers, so overriding the
+    # switch overrides every replica), and append per-host RC columns —
+    # the same layout FlatTopology.from_topology emits
+    rep_src = _multipath_columns(t.switches)
+    return FlatTopologyStack(
+        base=base_flat,
+        pool_latency_ns=np.tile(pool_lat, (1, H)),
+        pool_bandwidth_gbps=np.tile(pool_bw, (1, H)),
+        pool_media_latency_ns=pool_media,
+        local_latency_ns=local_lat,
+        switch_stt_ns=np.concatenate(
+            [sw_stt[:, rep_src], np.repeat(rc_stt[:, None], H, axis=1)], axis=1
+        ),
+        switch_bandwidth_gbps=np.concatenate(
+            [sw_bw[:, rep_src], np.repeat(rc_bw[:, None], H, axis=1)], axis=1
+        ),
+    )
 
 
 # --------------------------------------------------------------------------- #

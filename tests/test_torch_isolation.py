@@ -44,14 +44,15 @@ def _imported_roots(path):
                 yield str(node.args[0].value).split(".")[0]
 
 
-# the model zoo's modules, migration and the device cache, checked by name
-# so a move cannot drop them
+# the model zoo's modules, migration, the device cache, the sweep and the
+# fleet, checked by name so a move cannot drop them
 ZOO_FILES = (
     "configs/mamba2_2_7b.py", "configs/qwen3_0_6b.py", "interop.py", "kernels/build.py",
     "kernels/flash_attention.py", "kernels/ssd_scan.py", "launch/steps.py",
     "models/attention.py", "models/config.py", "models/layers.py", "models/mamba2.py",
     "models/model.py", "models/phases.py", "models/transformer.py",
-    "core/cache.py", "core/migration.py", "core/aot.py", "configs/__init__.py",
+    "core/cache.py", "core/migration.py", "core/aot.py", "core/scenario.py",
+    "core/fleet.py", "configs/__init__.py",
     "configs/mistral_large_123b.py", "configs/chatglm3_6b.py", "configs/starcoder2_3b.py",
     "configs/granite_moe_3b_a800m.py", "configs/llama4_maverick_400b_a17b.py",
     "configs/jamba_v0_1_52b.py", "configs/qwen2_vl_72b.py", "configs/hubert_xlarge.py",
@@ -71,8 +72,9 @@ def test_port_imports_neither_jax_nor_the_reference():
 
 
 def test_new_modules_load_without_the_reference():
-    """The port's migration, cache and config registry import and run in a
-    process where neither JAX nor the reference can be imported."""
+    """The port's migration, cache, config registry, sweep and fleet import
+    and run in a process where neither JAX nor the reference can be
+    imported."""
     code = (
         "import sys\n"
         "class Block:\n"
@@ -81,17 +83,24 @@ def test_new_modules_load_without_the_reference():
         "            raise ImportError(name)\n"
         "sys.meta_path.insert(0, Block())\n"
         "import repro_torch.configs as C\n"
-        "from repro_torch.core import cache, migration\n"
+        "from repro_torch.core import cache, fleet, migration, scenario\n"
         "assert len(C.ARCH_IDS) == 10 and len(C.cells()) == 40\n"
         "for a in C.ARCH_IDS:\n"
         "    C.get_config(a).param_counts()\n"
         "print(cache.DeviceCacheConfig(1 << 20).ways, migration.MigrationConfig().mode)\n"
+        "t = fleet.model_zoo_tenant('z')\n"
+        "f = fleet.FleetSim(1, hosts_per_rack=2, device='cpu')\n"
+        "rep = f.simulate([fleet.synthetic_tenant('a', gib=0.5), t], policy='round_robin')\n"
+        "s = scenario.ScenarioSuite(f.topology, t.regions, t.phases, device='cpu')\n"
+        "from repro_torch.core import ClassMapPolicy\n"
+        "res = s.run([scenario.Scenario(ClassMapPolicy({'opt_state': 'shared_pool'}))])\n"
+        "print(rep.n_tenants, res.k, s.dispatch_count + f.dispatch_count)\n"
     )
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
     proc = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.split() == ["4", "software"]
+    assert proc.stdout.split() == ["4", "software", "2", "1", "2"]
 
 
 def test_cpu_tensors_take_the_plain_path():
@@ -145,6 +154,21 @@ def test_model_entry_points_default_to_the_card():
         model_params_from_arrays(t_m2cfg.SMOKE, {})
     with pytest.raises(RuntimeError, match="no CUDA device"):
         init_mamba2_cache(1, 2, 4, 8)
+
+
+def test_sweep_and_fleet_default_to_the_card():
+    import inspect
+
+    from repro_torch.core import FleetSim, RegionMap, ScenarioSuite, figure1_topology
+
+    for fn in (ScenarioSuite.__init__, FleetSim.__init__):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ScenarioSuite(figure1_topology(), RegionMap(), [])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        FleetSim(2)
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():
