@@ -245,7 +245,23 @@ Phases (any failure exits non-zero and prints no result):
    and priority (2 host-segmented QoS launches, every rack against the
    same fleet run on the CPU); each cell's launch batch against its
    kernel's plain version;
-17. a JSON ``kernels`` line, then the card's nvidia-smi line, then the result
+17. training: train-small, qwen3-0.6b's SMOKE at f32 with one seeded
+   model's weights on the card and the CPU, 3 train steps each from the
+   same SyntheticPipeline batches (losses to rel 1e-5, parameters within 2
+   x the sum of the steps' lr); train-main, qwen3-0.6b's own train step at
+   its published widths (bf16 compute over f32 master parameters and AdamW
+   moments, remat, the head in 4096-token chunks) on 8 x 4096-token
+   batches, attached to phase 4's program, policy and topology: one
+   warm-up step, then 3 measured; the cascade's launch count must rise by
+   exactly 3 and nothing else launch, the totals must equal phase 4's
+   (congestion and latency bitwise, bandwidth to rel 1e-6) and meet its
+   bars against ``analyze_ref``, every loss must be finite and the first
+   within 1.0 of ln(151936); the native and analyzer seconds per step
+   printed beside phase 4's stand-in, the peak device memory, and a
+   torch.profiler table of one more step; then the refusals: ``ops.ssd``
+   and ``ops.attention`` on CUDA tensors that require grad, and a train
+   step for mamba2 on the card, raise NotImplementedError without a launch;
+18. a JSON ``kernels`` line, then the card's nvidia-smi line, then the result
    line ``{"ok": true, "device": {...}}``.
 
 The earlier phases (4-6) must show no QoS launch, no phase before 9 an SSD
@@ -274,6 +290,7 @@ sys.path.insert(0, str(ROOT / "src"))
 from repro_torch.configs import ARCH_IDS, get_config  # noqa: E402
 from repro_torch.configs.mamba2_2_7b import CONFIG as M2_CONFIG  # noqa: E402
 from repro_torch.configs.qwen3_0_6b import CONFIG  # noqa: E402
+from repro_torch.configs.qwen3_0_6b import SMOKE as Q3_SMOKE  # noqa: E402
 from repro_torch.core import (  # noqa: E402
     CACHELINE_BYTES,
     H100_SXM,
@@ -323,8 +340,15 @@ from repro_torch.kernels import build as kbuild  # noqa: E402
 from repro_torch.kernels import flash_attention as kflash  # noqa: E402
 from repro_torch.kernels import ref as kref  # noqa: E402
 from repro_torch.kernels import ssd_scan as kssd  # noqa: E402
-from repro_torch.launch.steps import make_decode_step, make_prefill_step  # noqa: E402
+from repro_torch.data.pipeline import SyntheticPipeline  # noqa: E402
+from repro_torch.interop import model_params_from_arrays, params_to_arrays  # noqa: E402
+from repro_torch.launch.steps import (  # noqa: E402
+    make_decode_step,
+    make_prefill_step,
+    make_train_step,
+)
 from repro_torch.models import Model, build_regions_and_phases  # noqa: E402
+from repro_torch.optim.adamw import AdamWConfig, adamw_init  # noqa: E402
 from repro_torch.models import attention as mattn  # noqa: E402
 from repro_torch.models.layers import rms_norm  # noqa: E402
 
@@ -1129,7 +1153,9 @@ def slice1_main_path(dev, step, x):
           f"measured steps; warm-up step analyzer {warm_analyzer_s:.6f} s, "
           f"native {warm_native_s:.6f} s")
     profile_batch("profile", prog._analyzer, traces)
-    return main_row, c["cascade"], rep, want
+    per_step = dict(native_s=(rep.native_s - warm_native_s) / 3,
+                    analyzer_s=(rep.analyzer_s - warm_analyzer_s) / 3)
+    return main_row, c["cascade"], rep, want, per_step
 
 
 def fabric_main_path(dev):
@@ -3205,6 +3231,169 @@ def sweep_fleet_path(dev):
         cascade=cascade, qos=qos, hosts=hosts, qos_hosts=qos_hosts)
 
 
+# --------------------------------------------------------------------------- #
+# Training: the model's own qwen3-0.6b train step
+# --------------------------------------------------------------------------- #
+
+TRAIN_SMALL = dict(batch=8, seq=128, steps=3)  # card against CPU, qwen3-0.6b's SMOKE at f32
+TRAIN_OPT = dict(lr=3e-4, warmup_steps=1, total_steps=10)  # the small run's schedule
+# the same f32 loss on the same weights and batches, reduced in another
+# order on the card (the head's chunks, cuBLAS' sums)
+TRAIN_LOSS_REL = 1e-5
+TRAIN_MAIN = dict(batch=8, seq=4096, steps=3)  # main's program: 1 warm-up + 3 measured steps
+
+
+def expect_refusal(tag, fn, match):
+    """``fn()`` must raise NotImplementedError naming ``match``."""
+    try:
+        fn()
+    except NotImplementedError as e:
+        check(match in str(e), f"{tag}: refused, but not for {match!r}: {e}")
+        print(f"[train-refusals] {tag}: {e}")
+        return
+    check(False, f"{tag}: ran, want NotImplementedError ({match})")
+
+
+def train_small_path(dev):
+    """Phase 17a: qwen3-0.6b's SMOKE at f32, one seeded model's weights
+    carried to the card and kept on the CPU, 3 train steps on each from the
+    same SyntheticPipeline batches: losses to rel 1e-5, and the parameters
+    after the steps within 2 x the sum of the steps' lr (AdamW's first
+    update is about lr·sign(g): an element whose gradient is near 0 and
+    changes sign between the two devices moves by up to 2·lr)."""
+    cfg = dataclasses.replace(Q3_SMOKE, dtype=torch.float32, cache_dtype=torch.float32)
+    opt = AdamWConfig(**TRAIN_OPT)
+    cpu = Model(cfg, device="cpu", seed=0)
+    card = model_params_from_arrays(cfg, params_to_arrays(cpu), device=dev)
+    runs = {}
+    for tag, model, d in (("card", card, dev), ("cpu", cpu, torch.device("cpu"))):
+        step = make_train_step(cfg, opt, device=d)
+        pipe = SyntheticPipeline(cfg, TRAIN_SMALL["batch"], TRAIN_SMALL["seq"], seed=0, device=d)
+        state = {"adam": adamw_init(model, opt), "ef": {}}
+        metrics = []
+        for s in range(TRAIN_SMALL["steps"]):
+            model, state, m = step(model, state, pipe.device_batch(s))
+            metrics.append({k: float(v) for k, v in m.items()})
+        runs[tag] = (model, metrics)
+    lrs = []
+    for s, (a, b) in enumerate(zip(runs["card"][1], runs["cpu"][1])):
+        rel = abs(a["loss"] - b["loss"]) / abs(b["loss"])
+        check(rel <= TRAIN_LOSS_REL, f"train-small step {s}: loss {a['loss']!r} on the card, "
+              f"{b['loss']!r} on the CPU, rel {rel:.3e}")
+        print(f"[train-small] step {s}: loss {a['loss']!r} card, {b['loss']!r} cpu (rel "
+              f"{rel:.3e}); grad_norm {a['grad_norm']!r} / {b['grad_norm']!r}; lr {a['lr']!r}")
+        lrs.append(b["lr"])
+    atol = 2 * sum(lrs) + 1e-6
+    worst, over = 0.0, 0
+    cpu_params = dict(runs["cpu"][0].named_parameters())
+    for name, p in runs["card"][0].named_parameters():
+        diff = (p.detach().cpu() - cpu_params[name].detach()).abs()
+        worst = max(worst, float(diff.max()))
+        over += int((diff > 1e-3 * lrs[0]).sum())
+    check(worst <= atol, f"train-small: parameters part by {worst!r}, over {atol!r}")
+    n = sum(p.numel() for p in cpu_params.values())
+    print(f"[train-small] parameters after {len(lrs)} steps within {worst!r} (bar {atol!r}); "
+          f"{over} of {n} elements part by more than 1e-3·lr")
+
+
+def train_main_path(dev, main_rep, main_ref, stand_in):
+    """Phase 17b, train-main: qwen3-0.6b's own train step at its published
+    widths (bf16 compute, f32 master parameters and AdamW moments, remat),
+    8 x 4096-token SyntheticPipeline batches, attached to main's program,
+    policy and Figure 1 topology: 1 warm-up step and 3 measured.  One
+    cascade launch a step and nothing else; the trace is the program's, so
+    the totals are phase 4's (congestion and latency bitwise, bandwidth to
+    rel 1e-6) and within phase 4's bars of analyze_ref; every loss finite,
+    the first within 1.0 of ln(vocab).  Returns the cascade's launches."""
+    check(CONFIG.remat and CONFIG.dtype == torch.bfloat16, "train-main: want bf16 with remat")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Model(CONFIG, device=dev, seed=0)
+    opt = AdamWConfig()
+    state = {"adam": adamw_init(model, opt), "ef": {}}
+    train_step = make_train_step(CONFIG, opt, device=dev)
+    pipe = SyntheticPipeline(CONFIG, TRAIN_MAIN["batch"], TRAIN_MAIN["seq"], seed=0, device=dev)
+    prog = attach_main(figure1_topology(), train_step)
+    print(f"[train-main] {sum(p.numel() for p in model.parameters())} parameters, "
+          f"{len(prog.epoch_traces())} epochs a step, set-up {time.perf_counter() - t0:.3f} s")
+    losses = []
+    model, state, m = prog.step(model, state, pipe.device_batch(0))
+    losses.append(float(m["loss"]))
+    warm_native, warm_analyzer = prog.report.native_s, prog.report.analyzer_s
+    reset_counts()
+    for s in range(1, 1 + TRAIN_MAIN["steps"]):
+        model, state, m = prog.step(model, state, pipe.device_batch(s))
+        losses.append(float(m["loss"]))
+    c = counts()
+    check_launches("train-main", c, "cascade", TRAIN_MAIN["steps"])
+    rep = prog.report
+    peak = torch.cuda.max_memory_allocated()
+    check(rep.steps == main_rep.steps, f"train-main {rep.steps} steps, phase 4 {main_rep.steps}")
+    check_totals("train-main", rep, main_ref, rep.steps)
+    check_like("train-main vs phase 4", totals(rep), totals(main_rep))
+    check(all(np.isfinite(losses)), f"train-main: a loss is not finite: {losses}")
+    ln_v = float(np.log(CONFIG.vocab_size))
+    check(abs(losses[0] - ln_v) <= 1.0, f"train-main: first loss {losses[0]!r}, ln V {ln_v!r}")
+    native = (rep.native_s - warm_native) / TRAIN_MAIN["steps"]
+    analyzer = (rep.analyzer_s - warm_analyzer) / TRAIN_MAIN["steps"]
+    print(f"[train-main] losses {losses} (ln V = {ln_v!r}); lr {float(m['lr'])!r}, grad_norm "
+          f"{float(m['grad_norm'])!r}")
+    print(f"[train-main] native {native:.6f} s/step and analyzer {analyzer:.6f} s/step over "
+          f"the {TRAIN_MAIN['steps']} measured steps (warm-up step native {warm_native:.6f} s, "
+          f"analyzer {warm_analyzer:.6f} s); phase 4's stand-in native "
+          f"{stand_in['native_s']:.6f} s/step, analyzer {stand_in['analyzer_s']:.6f} s/step; "
+          f"simulated slowdown {rep.slowdown!r}")
+    print(f"[train-main] peak device memory {peak} bytes ({peak / 2**30:.3f} GiB) over the "
+          f"model, optimizer state and 4 steps")
+    # one more step, unattached, under the profiler: the device time by op
+    batch = pipe.device_batch(1 + TRAIN_MAIN["steps"])
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        model, state, m = train_step(model, state, batch)
+        torch.cuda.synchronize()
+        prof_s = time.perf_counter() - t1
+    check(np.isfinite(float(m["loss"])), "train-main: the profiled step's loss is not finite")
+    print(f"[train-main] one step under torch.profiler {prof_s:.6f} s")
+    print(prof.key_averages().table(sort_by="device_time_total", row_limit=20))
+    return c["cascade"]
+
+
+def train_refusals(dev):
+    """Phase 17c: the kernels have no backward: ops.ssd and ops.attention on
+    CUDA tensors that require grad raise before any launch, and so does
+    building a train step for mamba2 on the card."""
+    before = counts()
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn(1, 128, 2, 64, generator=g, device=dev, requires_grad=True)
+    dt = torch.full((1, 128, 2), 0.1, device=dev)
+    bm = torch.randn(1, 128, 16, generator=g, device=dev)
+    A = -torch.ones(2, device=dev)
+    q = torch.randn(1, 4, 128, 64, generator=g, device=dev, requires_grad=True)
+    kv = torch.randn(1, 2, 128, 64, generator=g, device=dev)
+    expect_refusal("ops.ssd", lambda: kops.ssd(x, dt, A, bm, bm, chunk=64),
+                   "SSD backward kernel")
+    expect_refusal("ops.attention", lambda: kops.attention(q, kv, kv),
+                   "flash attention backward kernel")
+    expect_refusal("make_train_step(mamba2-2.7b)",
+                   lambda: make_train_step(M2_CONFIG, AdamWConfig(), device=dev),
+                   "SSD backward kernel")
+    check(counts() == before, f"train-refusals launched: {before} -> {counts()}")
+
+
+def train_path(dev, main_rep, main_ref, stand_in):
+    """Phase 17: training.  Returns the cascade's launches in train-main."""
+    t0 = time.perf_counter()
+    train_small_path(dev)
+    t1 = time.perf_counter()
+    launches = train_main_path(dev, main_rep, main_ref, stand_in)
+    torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    train_refusals(dev)
+    print(f"[train] phase 17 ran {time.perf_counter() - t0:.1f} s: train-small {t1 - t0:.1f}, "
+          f"train-main {t2 - t1:.1f}")
+    return launches
+
+
 def sass_counts(path) -> str:
     """How many atomic, double-add and match instructions a built library's
     SASS holds (cuobjdump), or why it could not be read."""
@@ -3306,7 +3495,7 @@ def main(argv) -> int:
 
     # -- 4-16. the main paths ----------------------------------------------- #
     step, x = main_step(dev)
-    main_row, cascade_launches, main_rep, main_ref = slice1_main_path(dev, step, x)
+    main_row, cascade_launches, main_rep, main_ref, stand_in = slice1_main_path(dev, step, x)
     fabric_row, hosts_launches, fabric_rep = fabric_main_path(dev)
     wide_row, scan_launches, wide_rep = wide_fabric_path(dev)
     qos_main_row, qos_launches, qos_rep = qos_main_path(dev, step, x, main_rep)
@@ -3344,8 +3533,11 @@ def main(argv) -> int:
     qos_launches += c16["qos"]
     hosts_launches += c16["hosts"]
     qos_hosts_launches += c16["qos_hosts"]
+    del step, x
+    torch.cuda.empty_cache()
+    cascade_launches += train_path(dev, main_rep, main_ref, stand_in)
 
-    # -- 17. the kernels line and the result -------------------------------- #
+    # -- 18. the kernels line and the result -------------------------------- #
     src = "src/repro_torch/kernels/csrc/"
     kernels = []
     for name, source, replaces, launches, comps, row in (

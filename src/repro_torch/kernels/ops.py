@@ -34,6 +34,21 @@ __all__ = [
 plain_launches = 0  # calls of this module's entry points that ran the plain version
 
 
+def _refuse_backward(name: str, backward: str, *tensors: torch.Tensor) -> None:
+    """A kernel's output has no ``grad_fn``: with autograd recording and an
+    input that requires grad, a backward pass through it would give zero
+    gradients upstream without a word.  The plain versions (CPU tensors)
+    stay differentiable through autograd, as the reference's are through
+    ``jax.grad``; on the card there is no backward kernel, and no plain
+    backward runs in its place."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{name} on {tensors[0].device.type} tensors that require grad: {backward} is "
+            "not ported (the reference defines no backward kernel either); train on the "
+            "CPU, or run this call under torch.no_grad() / torch.inference_mode()"
+        )
+
+
 def congestion_cascade(
     t: torch.Tensor,  # [B, N] f32, each row time-sorted
     bits: torch.Tensor,  # [B, N] i32 route words
@@ -147,11 +162,15 @@ def ssd(
 ) -> torch.Tensor:
     """Mamba2 SSD mixer: ``x [B, L, H, P] -> y [B, L, H, P]`` in x's dtype,
     at chunk ``min(chunk, L)`` (L a multiple of it); see
-    :func:`repro_torch.kernels.ref.ssd_chunked`."""
+    :func:`repro_torch.kernels.ref.ssd_chunked`.  Off the CPU an input that
+    requires grad, with grad enabled, raises ``NotImplementedError``
+    (:func:`_refuse_backward`)."""
     global plain_launches
     if x.device.type == "cpu":
         plain_launches += 1
         return ref.ssd_chunked(x, dt, A, Bm, Cm, chunk=min(chunk, x.shape[1]))
+    _refuse_backward("ops.ssd", "the SSD backward kernel (an autograd.Function around "
+                     "ssd_scan.cu)", x, dt, A, Bm, Cm)
     if x.device.type == "cuda":
         return _ssd.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
     raise ValueError(f"no ssd for tensors on {x.device}")
@@ -169,11 +188,13 @@ def attention(
     Sq, D]`` in q's dtype, causal on absolute positions (q[0] at
     ``q_offset``); see :func:`repro_torch.kernels.ref.mha_attention`.  The
     kernel picks its own tiles: the reference's ``block_q`` / ``block_k``
-    were the TPU kernel's."""
+    were the TPU kernel's.  Off the CPU an input that requires grad, with
+    grad enabled, raises ``NotImplementedError`` (:func:`_refuse_backward`)."""
     global plain_launches
     if q.device.type == "cpu":
         plain_launches += 1
         return ref.mha_attention(q, k, v, causal=causal, scale=scale, q_offset=q_offset)
+    _refuse_backward("ops.attention", "the flash attention backward kernel", q, k, v)
     if q.device.type == "cuda":
         return _flash.flash_attention(q, k, v, q_offset=q_offset, causal=causal, scale=scale)
     raise ValueError(f"no attention for tensors on {q.device}")

@@ -1,1 +1,1 @@
-"""Step-function builders (serving so far; training waits for its slice)."""
+"""Step-function builders: training, prefill and decode."""

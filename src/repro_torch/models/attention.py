@@ -147,19 +147,21 @@ def chunked_attention(
 
 def init_attention(
     gen: torch.Generator, d_model: int, n_heads: int, n_kv_heads: int, d_head: int,
-    qk_norm: bool = False,
+    qk_norm: bool = False, device=None,
 ) -> Dict[str, torch.Tensor]:
-    """The reference's initial distributions, drawn from ``gen`` on its
-    device, f32; matrices ``[d_in, d_out]``."""
+    """The reference's initial distributions, drawn from ``gen`` on
+    ``device`` (default: its own), f32; matrices ``[d_in, d_out]``."""
+    dev = device or gen.device
+    hd = n_heads * d_head
     p = {
-        "wq": init_linear(gen, d_model, n_heads * d_head),
-        "wk": init_linear(gen, d_model, n_kv_heads * d_head),
-        "wv": init_linear(gen, d_model, n_kv_heads * d_head),
-        "wo": init_linear(gen, n_heads * d_head, d_model, scale=(n_heads * d_head) ** -0.5),
+        "wq": init_linear(gen, d_model, hd, device=dev),
+        "wk": init_linear(gen, d_model, n_kv_heads * d_head, device=dev),
+        "wv": init_linear(gen, d_model, n_kv_heads * d_head, device=dev),
+        "wo": init_linear(gen, hd, d_model, scale=hd ** -0.5, device=dev),
     }
     if qk_norm:
-        p["q_norm"] = torch.ones(d_head, device=gen.device)
-        p["k_norm"] = torch.ones(d_head, device=gen.device)
+        p["q_norm"] = torch.ones(d_head, device=dev)
+        p["k_norm"] = torch.ones(d_head, device=dev)
     return p
 
 

@@ -11,10 +11,14 @@ with later cuts of the model zoo (slice 7 of the port).
 
 The reference's TPU- and XLA-only fields stay out: ``cast_params_at_step``
 and ``fsdp_gather_at_layer`` (where the parameter all-gather casts under
-FSDP sharding), ``remat`` and ``remat_policy_name`` (XLA rematerialization)
-and ``scan_layers`` (a ``lax.scan`` over stacked groups; the port loops
-over an ``nn.ModuleList``).  None of them changes a parameter count or a
-memory program.
+FSDP sharding) and ``scan_layers`` (a ``lax.scan`` over stacked groups; the
+port loops over an ``nn.ModuleList``).  None of them changes a parameter
+count or a memory program.  ``remat`` and ``remat_policy_name`` are the
+reference's: with ``remat`` the training forward keeps only each group's
+input and recomputes the group in the backward pass
+(``torch.utils.checkpoint``, as ``jax.checkpoint`` around the reference's
+scan body), which is what lets an 8 x 4096-token qwen3-0.6b step fit on one
+card.
 """
 
 from __future__ import annotations
@@ -75,12 +79,22 @@ class ModelConfig:
     pad_vocab_to_multiple: int = 0
     dtype: torch.dtype = torch.bfloat16  # activations
     cache_dtype: torch.dtype = torch.bfloat16  # KV caches (the SSM caches stay f32)
+    remat: bool = True  # recompute each group in the backward pass
+    remat_policy_name: str = "nothing"  # 'nothing' (save nothing); 'dots' raises
 
     def __post_init__(self):
         if self.d_head == 0:
             object.__setattr__(self, "d_head", self.d_model // max(self.n_heads, 1))
         if self.family in ("moe",) and self.moe_d_ff == 0:
             object.__setattr__(self, "moe_d_ff", self.d_ff)
+        if self.remat_policy_name == "dots":
+            # the reference's dots_with_no_batch_dims_saveable (keep the
+            # matrix products); no config uses it
+            raise NotImplementedError(
+                "remat_policy_name='dots' is not ported; 'nothing' (save nothing) is"
+            )
+        if self.remat_policy_name != "nothing":
+            raise ValueError(f"unknown remat policy {self.remat_policy_name!r}")
 
     @property
     def padded_vocab(self) -> int:

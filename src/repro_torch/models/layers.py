@@ -3,7 +3,8 @@ gated (SwiGLU) MLP (port of ``repro/models/layers.py``; ``layer_norm`` and
 the plain GELU MLP come with the audio family).
 
 Initializers take an explicit ``torch.Generator`` and return f32 tensors on
-its device; the compute dtype (bf16) is handled by callers casting
+its device, or on ``device`` when given (``"meta"``: shapes only, drawn
+from a CPU generator); the compute dtype (bf16) is handled by callers casting
 activations and weights at use, as the reference does.
 """
 
@@ -16,20 +17,21 @@ import torch
 __all__ = ["gated_mlp", "init_gated_mlp", "init_linear", "rms_norm", "truncated_normal"]
 
 
-def truncated_normal(gen: torch.Generator, shape: Sequence[int]) -> torch.Tensor:
-    """Standard normal truncated to [-3, 3], f32 on the generator's device."""
-    out = torch.empty(tuple(shape), dtype=torch.float32, device=gen.device)
+def truncated_normal(gen: torch.Generator, shape: Sequence[int], device=None) -> torch.Tensor:
+    """Standard normal truncated to [-3, 3], f32 on ``device`` (default:
+    the generator's)."""
+    out = torch.empty(tuple(shape), dtype=torch.float32, device=device or gen.device)
     return torch.nn.init.trunc_normal_(out, 0.0, 1.0, -3.0, 3.0, generator=gen)
 
 
 def init_linear(
-    gen: torch.Generator, d_in: int, d_out: int, scale: Optional[float] = None
+    gen: torch.Generator, d_in: int, d_out: int, scale: Optional[float] = None, device=None
 ) -> torch.Tensor:
     """Truncated-normal fan-in init (the LLaMA/PaLM convention), stored
     ``[d_in, d_out]`` and applied as ``x @ W``, the reference's layout."""
     if scale is None:
         scale = d_in ** -0.5
-    return truncated_normal(gen, (d_in, d_out)) * scale
+    return truncated_normal(gen, (d_in, d_out), device) * scale
 
 
 def rms_norm(x: torch.Tensor, gain: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -39,12 +41,14 @@ def rms_norm(x: torch.Tensor, gain: torch.Tensor, eps: float = 1e-6) -> torch.Te
     return (xf * torch.rsqrt(var + eps) * gain).to(x.dtype)
 
 
-def init_gated_mlp(gen: torch.Generator, d_model: int, d_ff: int) -> Dict[str, torch.Tensor]:
+def init_gated_mlp(
+    gen: torch.Generator, d_model: int, d_ff: int, device=None
+) -> Dict[str, torch.Tensor]:
     """The SwiGLU MLP's ``wi`` (gate), ``wu`` (up) and ``wo`` (down)."""
     return {
-        "wi": init_linear(gen, d_model, d_ff),
-        "wu": init_linear(gen, d_model, d_ff),
-        "wo": init_linear(gen, d_ff, d_model, scale=d_ff ** -0.5),
+        "wi": init_linear(gen, d_model, d_ff, device=device),
+        "wu": init_linear(gen, d_model, d_ff, device=device),
+        "wo": init_linear(gen, d_ff, d_model, scale=d_ff ** -0.5, device=device),
     }
 
 

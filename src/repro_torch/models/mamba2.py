@@ -44,20 +44,20 @@ Params = Mapping[str, torch.Tensor]
 
 
 def init_mamba2(
-    gen: torch.Generator, d_model: int, n_heads: int, d_head: int, d_state: int
+    gen: torch.Generator, d_model: int, n_heads: int, d_head: int, d_state: int, device=None
 ) -> Dict[str, torch.Tensor]:
-    """The reference's initial distributions, drawn from ``gen`` on its
-    device, f32."""
+    """The reference's initial distributions, drawn from ``gen`` on
+    ``device`` (default: its own), f32."""
     di = n_heads * d_head  # inner width
-    dev = gen.device
+    dev = device or gen.device
     return {
-        "in_proj": init_linear(gen, d_model, 2 * di + 2 * d_state + n_heads),
-        "conv_w": truncated_normal(gen, (CONV_K, di)) * 0.3,
+        "in_proj": init_linear(gen, d_model, 2 * di + 2 * d_state + n_heads, device=dev),
+        "conv_w": truncated_normal(gen, (CONV_K, di), dev) * 0.3,
         "A_log": torch.log(torch.linspace(1.0, 8.0, n_heads, device=dev)),
         "dt_bias": torch.zeros(n_heads, device=dev),
         "D": torch.ones(n_heads, device=dev),  # skip connection
         "norm": torch.ones(di, device=dev),
-        "out_proj": init_linear(gen, di, d_model, scale=di ** -0.5),
+        "out_proj": init_linear(gen, di, d_model, scale=di ** -0.5, device=dev),
     }
 
 

@@ -3,9 +3,10 @@
 
 A model is a stack of identical **groups** (``cfg.group_spec()``); the
 reference scans over stacked group parameters, the port loops over an
-``nn.ModuleList`` of groups (scan and remat are XLA devices with no role in
-serving).  A sublayer is a mixer (GQA attention or Mamba2) and an optional
-gated MLP.  Caches keep the reference's stacked decode format:
+``nn.ModuleList`` of groups.  With ``cfg.remat`` a training forward runs
+each group under activation recomputation, as the reference's
+``jax.checkpoint`` around its scan body.  A sublayer is a mixer (GQA
+attention or Mamba2) and an optional gated MLP.  Caches keep the reference's stacked decode format:
 
   {'kv': {'k': [G, n_attn, B, Hk, Smax, D], 'v': ...},
    'ssm_conv': [G, n_mamba, B, K-1, di], 'ssm_state': [G, n_mamba, B, H, N, P]}
@@ -22,6 +23,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from . import attention as attn
 from . import mamba2 as m2
@@ -43,27 +45,28 @@ class Group(nn.Module):
     ``sub{i}.mamba.{in_proj, conv_w, ...}``, and ``sub{i}.norm2``,
     ``sub{i}.mlp.{wi, wu, wo}``."""
 
-    def __init__(self, cfg, gen: torch.Generator):
+    def __init__(self, cfg, gen: torch.Generator, device=None):
         super().__init__()
+        dev = device or gen.device
         if cfg.norm != "rms":
             raise _unported(f"norm {cfg.norm!r}")
         for i, (mixer, ffn) in enumerate(cfg.group_spec()):
             sub = nn.Module()
-            sub.norm1 = nn.Parameter(torch.ones(cfg.d_model, device=gen.device))
+            sub.norm1 = nn.Parameter(torch.ones(cfg.d_model, device=dev))
             if mixer == "attn":
                 sub.attn = nn.ParameterDict(attn.init_attention(
-                    gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head, cfg.qk_norm))
+                    gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head, cfg.qk_norm,
+                    device=dev))
             elif mixer == "mamba":
-                sub.mamba = nn.ParameterDict(
-                    m2.init_mamba2(gen, cfg.d_model, cfg.ssm_heads, cfg.ssm_d_head, cfg.ssm_state)
-                )
+                sub.mamba = nn.ParameterDict(m2.init_mamba2(
+                    gen, cfg.d_model, cfg.ssm_heads, cfg.ssm_d_head, cfg.ssm_state, device=dev))
             else:
                 raise _unported(f"the {mixer!r} mixer")
             if ffn is not None:
                 if ffn != "mlp" or not cfg.mlp_gated:
                     raise _unported(f"the {ffn!r} feed-forward" if ffn != "mlp" else "the GELU MLP")
-                sub.norm2 = nn.Parameter(torch.ones(cfg.d_model, device=gen.device))
-                sub.mlp = nn.ParameterDict(init_gated_mlp(gen, cfg.d_model, cfg.d_ff))
+                sub.norm2 = nn.Parameter(torch.ones(cfg.d_model, device=dev))
+                sub.mlp = nn.ParameterDict(init_gated_mlp(gen, cfg.d_model, cfg.d_ff, dev))
             self.add_module(f"sub{i}", sub)
 
 
@@ -188,13 +191,25 @@ def apply_stack(
     collect_cache: bool = False,
     cache_pad_to: Optional[int] = None,
 ):
-    """Loop over the groups.  Returns (x, aux, stacked_caches)."""
+    """Loop over the groups.  Returns (x, aux, stacked_caches).
+
+    When autograd records (grad enabled, a training forward) and
+    ``cfg.remat`` is set, each group runs under
+    ``torch.utils.checkpoint``: only its input is kept, and the backward
+    pass runs the group again.  Nothing in the forward pass draws random
+    numbers (no dropout), so the recomputation is exact without saving and
+    restoring the RNG state (``preserve_rng_state=False``)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     caches = []
+    remat = cfg.remat and torch.is_grad_enabled() and not collect_cache
     for gp in stack:
-        x, a, cache = apply_group(
-            gp, x, positions, cfg, collect_cache=collect_cache, cache_pad_to=cache_pad_to
-        )
+        if remat:
+            x, a, cache = checkpoint(apply_group, gp, x, positions, cfg,
+                                     use_reentrant=False, preserve_rng_state=False)
+        else:
+            x, a, cache = apply_group(
+                gp, x, positions, cfg, collect_cache=collect_cache, cache_pad_to=cache_pad_to
+            )
         aux = aux + a
         caches.append(cache)
     return x, aux, _stack(caches) if collect_cache else None

@@ -103,6 +103,45 @@ def test_new_modules_load_without_the_reference():
     assert proc.stdout.split() == ["4", "software", "2", "1", "2"]
 
 
+# the training slice's modules, checked by name; msgpack is not on the
+# card's machine, so the port keeps its own manifest reader and writer
+TRAINING_FILES = (
+    "optim/__init__.py", "optim/adamw.py", "optim/compression.py", "data/__init__.py",
+    "data/pipeline.py", "checkpoint/__init__.py", "checkpoint/ckpt.py",
+    "checkpoint/manager.py", "launch/train.py", "launch/steps.py", "interop.py",
+)
+
+
+def test_training_modules_import_neither_jax_nor_the_reference_nor_msgpack():
+    port = REPO / "src" / "repro_torch"
+    files = [port / f for f in TRAINING_FILES] + [REPO / "chip_smoke.py"]
+    assert set(files) <= set(_port_files())
+    bad = {str(f.relative_to(REPO)): sorted(set(_imported_roots(f)) & {*FORBIDDEN, "msgpack"})
+           for f in files}
+    assert not {k: v for k, v in bad.items() if v}
+    code = (
+        "import sys, tempfile\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('jax', 'jaxlib', 'repro', 'msgpack'):\n"
+        "            raise ImportError(name)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "from repro_torch.configs.qwen3_0_6b import SMOKE\n"
+        "from repro_torch.launch.train import train_loop\n"
+        "d = tempfile.mkdtemp()\n"
+        "out = train_loop(SMOKE, steps=3, batch=2, seq=8, ckpt_dir=d, ckpt_interval=1,\n"
+        "                 log_every=0, device='cpu')\n"
+        "again = train_loop(SMOKE, steps=4, batch=2, seq=8, ckpt_dir=d, ckpt_interval=1,\n"
+        "                   log_every=0, device='cpu')\n"
+        "print(len(out['losses']), again['start_step'])\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split() == ["3", "3"]
+
+
 def test_cpu_tensors_take_the_plain_path():
     t = torch.sort(torch.rand(2, 64) * 100.0).values
     bits = torch.randint(0, 4, (2, 64), dtype=torch.int32)

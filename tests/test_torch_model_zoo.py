@@ -34,8 +34,8 @@ torch.set_num_threads(2)
 
 WHICH = ("CONFIG", "SMOKE", "LONG")
 # the reference's TPU- and XLA-only fields, which the port leaves out
-XLA_ONLY = ("cast_params_at_step", "fsdp_gather_at_layer", "remat", "remat_policy_name",
-            "scan_layers")
+# (remat and remat_policy_name are the port's too, compared below)
+XLA_ONLY = ("cast_params_at_step", "fsdp_gather_at_layer", "scan_layers")
 EVENT_COLUMNS = ("t_ns", "pool", "bytes_", "is_write", "region", "weight", "host", "qos")
 # tests/test_arch_smoke.py::test_param_counts_hit_targets
 TARGETS = {
