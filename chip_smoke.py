@@ -261,7 +261,41 @@ Phases (any failure exits non-zero and prints no result):
    torch.profiler table of one more step; then the refusals: ``ops.ssd``
    and ``ops.attention`` on CUDA tensors that require grad, and a train
    step for mamba2 on the card, raise NotImplementedError without a launch;
-18. a JSON ``kernels`` line, then the card's nvidia-smi line, then the result
+18. the MoE and hybrid families: moe-small, granite-moe-3b-a800m's,
+   llama4-maverick's and jamba's SMOKE (jamba also with a sliding window
+   of 16) at f32, one seeded model's weights on the card and the CPU:
+   forward logits (rtol 1e-4 of the largest logit) and aux with every MoE
+   routing compared (a token routed differently must be a near-tie, its
+   CPU probabilities within 16 ulps, and its sequence leaves the logits
+   bar), the lossless prefill S-1 plus one decode against the forward of S
+   on the card (under 5e-4), 3 train steps of granite and llama4 with and
+   without int8 compression (as phase 17's train-small), and the three
+   dispatches on one layer at granite's widths (256 tokens, lossless and
+   lossy capacity) against the CPU at 2e-5 and against each other;
+   serve-moe, granite-moe-3b-a800m at its published widths and depth
+   (3,298,793,472 parameters, bf16 compute, einsum dispatch): the f32
+   roundtrip in the dense dispatch at 32 layers (every sequence under
+   5e-4), 8 x 4096 tokens served (prefill padded to 4112, 16 decodes) with
+   the share of routes past capacity in the prefill and a decode, the
+   prefill (1 + 3) and decode (1 + 8) steps attached to granite's own
+   programs with the weights in cxl_pool1 (one cascade launch a step,
+   totals against ``analyze_ref``), and a torch.profiler table of one
+   prefill; train-moe, granite's own train step (bf16 over f32 master
+   parameters, remat) on 4 x 4096-token batches (8 x 4096 does not fit
+   the card) attached to its own train program under main's policy: 1 + 3 steps, one cascade launch a step and
+   nothing else, its layer epochs past 2**23 ns held as phase 13 holds
+   them and run again in quantum epochs (1 + 1 steps), every loss finite
+   and the first within 1.0 of ln(49155); native and analyzer seconds, the
+   peak memory, the model-FLOP rate and a torch.profiler table of one
+   step; jamba, jamba-v0.1-52b at its published widths cut to one of its 4
+   groups (7 Mamba2 sublayers through ssd_scan.cu, 1 attention, 4 MoE
+   feed-forwards): 8 x 4096 tokens served (7 SSD calls) with the routes
+   past capacity, then the prefill (1 + 3: 7 SSD calls and one cascade a
+   step) and decode (1 + 8: no SSD call) attached to the cut config's own
+   programs with the weights in cxl_pool1, held as above;
+   llama4-maverick stays at SMOKE (one MoE layer's experts are 64 GB in
+   f32);
+19. a JSON ``kernels`` line, then the card's nvidia-smi line, then the result
    line ``{"ok": true, "device": {...}}``.
 
 The earlier phases (4-6) must show no QoS launch, no phase before 9 an SSD
@@ -287,7 +321,7 @@ from torch.profiler import ProfilerActivity, profile
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-from repro_torch.configs import ARCH_IDS, get_config  # noqa: E402
+from repro_torch.configs import ARCH_IDS, get_config, get_smoke  # noqa: E402
 from repro_torch.configs.mamba2_2_7b import CONFIG as M2_CONFIG  # noqa: E402
 from repro_torch.configs.qwen3_0_6b import CONFIG  # noqa: E402
 from repro_torch.configs.qwen3_0_6b import SMOKE as Q3_SMOKE  # noqa: E402
@@ -349,7 +383,9 @@ from repro_torch.launch.steps import (  # noqa: E402
 )
 from repro_torch.models import Model, build_regions_and_phases  # noqa: E402
 from repro_torch.optim.adamw import AdamWConfig, adamw_init  # noqa: E402
+from repro_torch.optim.compression import init_error_state  # noqa: E402
 from repro_torch.models import attention as mattn  # noqa: E402
+from repro_torch.models import moe as mmoe  # noqa: E402
 from repro_torch.models.layers import rms_norm  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
@@ -3254,34 +3290,36 @@ def expect_refusal(tag, fn, match):
     check(False, f"{tag}: ran, want NotImplementedError ({match})")
 
 
-def train_small_path(dev):
-    """Phase 17a: qwen3-0.6b's SMOKE at f32, one seeded model's weights
-    carried to the card and kept on the CPU, 3 train steps on each from the
-    same SyntheticPipeline batches: losses to rel 1e-5, and the parameters
-    after the steps within 2 x the sum of the steps' lr (AdamW's first
-    update is about lr·sign(g): an element whose gradient is near 0 and
-    changes sign between the two devices moves by up to 2·lr)."""
-    cfg = dataclasses.replace(Q3_SMOKE, dtype=torch.float32, cache_dtype=torch.float32)
+def train_card_vs_cpu(tag, cfg, dev, compress=False):
+    """``cfg`` at f32, one seeded model's weights carried to the card and
+    kept on the CPU, 3 train steps on each (int8 error-feedback compression
+    of the gradients with ``compress``) from the same SyntheticPipeline
+    batches: losses to rel 1e-5, and the parameters after the steps within
+    2 x the sum of the steps' lr (AdamW's first update is about
+    lr·sign(g): an element whose gradient is near 0 and changes sign
+    between the two devices moves by up to 2·lr)."""
+    cfg = dataclasses.replace(cfg, dtype=torch.float32, cache_dtype=torch.float32)
     opt = AdamWConfig(**TRAIN_OPT)
     cpu = Model(cfg, device="cpu", seed=0)
     card = model_params_from_arrays(cfg, params_to_arrays(cpu), device=dev)
     runs = {}
-    for tag, model, d in (("card", card, dev), ("cpu", cpu, torch.device("cpu"))):
-        step = make_train_step(cfg, opt, device=d)
+    for where, model, d in (("card", card, dev), ("cpu", cpu, torch.device("cpu"))):
+        step = make_train_step(cfg, opt, compress_grads=compress, device=d)
         pipe = SyntheticPipeline(cfg, TRAIN_SMALL["batch"], TRAIN_SMALL["seq"], seed=0, device=d)
-        state = {"adam": adamw_init(model, opt), "ef": {}}
+        state = {"adam": adamw_init(model, opt), "ef": init_error_state(model) if compress else {}}
         metrics = []
         for s in range(TRAIN_SMALL["steps"]):
             model, state, m = step(model, state, pipe.device_batch(s))
             metrics.append({k: float(v) for k, v in m.items()})
-        runs[tag] = (model, metrics)
+        runs[where] = (model, metrics)
     lrs = []
     for s, (a, b) in enumerate(zip(runs["card"][1], runs["cpu"][1])):
         rel = abs(a["loss"] - b["loss"]) / abs(b["loss"])
-        check(rel <= TRAIN_LOSS_REL, f"train-small step {s}: loss {a['loss']!r} on the card, "
+        check(rel <= TRAIN_LOSS_REL, f"{tag} step {s}: loss {a['loss']!r} on the card, "
               f"{b['loss']!r} on the CPU, rel {rel:.3e}")
-        print(f"[train-small] step {s}: loss {a['loss']!r} card, {b['loss']!r} cpu (rel "
-              f"{rel:.3e}); grad_norm {a['grad_norm']!r} / {b['grad_norm']!r}; lr {a['lr']!r}")
+        print(f"[{tag}] step {s}: loss {a['loss']!r} card, {b['loss']!r} cpu (rel "
+              f"{rel:.3e}); aux {a['aux']!r} / {b['aux']!r}; grad_norm {a['grad_norm']!r} / "
+              f"{b['grad_norm']!r}; lr {a['lr']!r}")
         lrs.append(b["lr"])
     atol = 2 * sum(lrs) + 1e-6
     worst, over = 0.0, 0
@@ -3290,10 +3328,16 @@ def train_small_path(dev):
         diff = (p.detach().cpu() - cpu_params[name].detach()).abs()
         worst = max(worst, float(diff.max()))
         over += int((diff > 1e-3 * lrs[0]).sum())
-    check(worst <= atol, f"train-small: parameters part by {worst!r}, over {atol!r}")
+    check(worst <= atol, f"{tag}: parameters part by {worst!r}, over {atol!r}")
     n = sum(p.numel() for p in cpu_params.values())
-    print(f"[train-small] parameters after {len(lrs)} steps within {worst!r} (bar {atol!r}); "
+    print(f"[{tag}] parameters after {len(lrs)} steps within {worst!r} (bar {atol!r}); "
           f"{over} of {n} elements part by more than 1e-3·lr")
+
+
+def train_small_path(dev):
+    """Phase 17a: qwen3-0.6b's SMOKE, the card against the CPU
+    (:func:`train_card_vs_cpu`)."""
+    train_card_vs_cpu("train-small", Q3_SMOKE, dev)
 
 
 def train_main_path(dev, main_rep, main_ref, stand_in):
@@ -3392,6 +3436,510 @@ def train_path(dev, main_rep, main_ref, stand_in):
     print(f"[train] phase 17 ran {time.perf_counter() - t0:.1f} s: train-small {t1 - t0:.1f}, "
           f"train-main {t2 - t1:.1f}")
     return launches
+
+
+# --------------------------------------------------------------------------- #
+# The MoE and hybrid families: granite-moe-3b-a800m, llama4-maverick, jamba
+# --------------------------------------------------------------------------- #
+
+MOE_ARCHS = ("granite-moe-3b-a800m", "llama4-maverick-400b-a17b")
+# SMOKE models, card against CPU: 2 sequences of 64 tokens; jamba also
+# under LONG's sliding-window attention, at a window that bites in 64
+# tokens (LONG's own 4096 would not)
+MOE_SMALL = dict(batch=2, seq=64, window=16)
+MODEL_RTOL = 1e-4  # logits and aux, card against CPU at f32 (tests/test_torch_moe.py)
+ROUNDTRIP_BAR = 5e-4  # lossless prefill S-1 + decode against prefill S (tests/test_arch_smoke.py)
+# a token routed differently on the two devices must be a near-tie: the
+# CPU's probability of its own choice above its probability of the card's
+# choice by at most this many f32 ulps
+NEAR_TIE_ULPS = 16
+# the three dispatches on one layer at granite's widths, card against CPU:
+# 2 groups of 128 tokens, lossless (cf = E/k) and lossy (granite's 1.25)
+DISPATCH_TOKENS, DISPATCH_GROUP = 256, 128
+DISPATCH_TOL = (2e-5, 2e-5)  # rtol, atol: tests/test_moe.py's bar
+# serve-moe: granite's prefill/decode roundtrip at f32 in the dense
+# dispatch (lossless; at lossless capacity the einsum one would need a
+# [8, 4096, 40, 32768] dispatch tensor), all 32 layers, every sequence
+MOE_ROUNDTRIP_F32 = (32, 5e-4)
+# train-moe: 1 warm-up + 3 measured steps of 4 x 4096 tokens.  Cut from 8
+# x 4096, where the first step's backward ran out of the card's memory
+# beside the 52.8 GB of f32 parameters, gradients and AdamW moments
+# (PERF.md §6)
+MOE_TRAIN = dict(batch=4, seq=4096, steps=3)
+JAMBA_LAYERS = 8  # jamba cut to one of its 4 groups (7 Mamba2 + 1 attention sublayer)
+JAMBA_DECODES = 8
+
+
+def recorded(fn, keep_probs=False):
+    """``fn()`` with every MoE routing it runs recorded (``models.moe.route``
+    wrapped, then restored): (result, records), each record ``(probs or
+    None, Routing)``."""
+    inner = mmoe.route
+    records = []
+
+    def recorder(probs, top_k, cap):
+        r = inner(probs, top_k, cap)
+        records.append((probs.detach().cpu() if keep_probs else None, r))
+        return r
+
+    mmoe.route = recorder
+    try:
+        return fn(), records
+    finally:
+        mmoe.route = inner
+
+
+def route_flips(tag, card, cpu):
+    """Two runs' routings call by call: each token whose experts differ
+    must be a near-tie in the CPU's probabilities (its own choice above the
+    card's by at most NEAR_TIE_ULPS ulps).  Prints and returns the flipped
+    tokens as (routing call, flat token index) pairs."""
+    check(len(card) == len(cpu), f"{tag}: {len(card)} routings on the card, {len(cpu)} on the CPU")
+    flips = []
+    for call, ((_, rc), (probs, rp)) in enumerate(zip(card, cpu)):
+        idx_c = rc.idx.cpu()
+        check(idx_c.shape == rp.idx.shape, f"{tag}: routing {call}'s shapes differ")
+        gs = idx_c.shape[1]
+        for g, s in (idx_c != rp.idx).any(-1).nonzero().tolist():
+            j = int((idx_c[g, s] != rp.idx[g, s]).nonzero()[0])
+            mine, theirs = int(rp.idx[g, s, j]), int(idx_c[g, s, j])
+            p_mine, p_theirs = float(probs[g, s, mine]), float(probs[g, s, theirs])
+            ulps = (p_mine - p_theirs) / float(np.spacing(np.float32(p_mine)))
+            print(f"[{tag}] route flip in routing {call}, token {g * gs + s}, place {j}: the CPU's "
+                  f"expert {mine} at {p_mine!r}, the card's {theirs} at {p_theirs!r} "
+                  f"({ulps:.1f} ulps)")
+            check(0.0 <= ulps <= NEAR_TIE_ULPS, f"{tag}: a route flipped across {ulps} ulps")
+            flips.append((call, g * gs + s))
+    return flips
+
+
+def drop_share(records):
+    """The share of routes past their expert's capacity in ``records``."""
+    kept = sum(int(r.keep.sum()) for _, r in records)
+    total = sum(r.keep.numel() for _, r in records)
+    return 1.0 - kept / total, total
+
+
+def check_rows(tag, got, want, rtol, atol):
+    """``got`` against ``want`` (CPU tensors) elementwise at rtol / atol;
+    returns the largest difference."""
+    got, want = got.double(), want.double()
+    diff = (got - want).abs()
+    over = int((diff > atol + rtol * want.abs()).sum())
+    check(over == 0, f"{tag}: {over} elements part by more than {rtol} / {atol}, the most "
+          f"{float(diff.max())!r}")
+    return float(diff.max())
+
+
+def moe_small_model(tag, cfg, dev):
+    """Phase 18a: one seeded SMOKE model at f32 on the card and the CPU:
+    forward logits and aux with every routing compared (a sequence holding
+    a flipped near-tie is left out of the logits bar), then the lossless
+    prefill S-1 plus one decode against the forward of S on the card."""
+    cfg = dataclasses.replace(cfg, dtype=torch.float32, cache_dtype=torch.float32)
+    cpu = Model(cfg, device="cpu", seed=0)
+    weights = params_to_arrays(cpu)
+    card = model_params_from_arrays(cfg, weights, device=dev)
+    B, S = MOE_SMALL["batch"], MOE_SMALL["seq"]
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=torch.Generator().manual_seed(3))
+    out = {}
+    for where, model, t in (("card", card, toks.to(dev)), ("cpu", cpu, toks)):
+        with torch.inference_mode():
+            (logits, aux), records = recorded(lambda: model(t), keep_probs=True)
+        out[where] = (logits.cpu(), float(aux), records)
+    flips = route_flips(tag, out["card"][2], out["cpu"][2])
+    rows = sorted({tok // S for _, tok in flips})
+    keep = [b for b in range(B) if b not in rows]
+    want = out["cpu"][0][keep]
+    err = check_rows(f"{tag} logits", out["card"][0][keep], want, MODEL_RTOL,
+                     MODEL_RTOL * float(want.abs().max()))
+    a, b = out["card"][1], out["cpu"][1]
+    if not flips:
+        check(abs(a - b) <= MODEL_RTOL * abs(b), f"{tag}: aux {a!r} on the card, {b!r} on the CPU")
+    print(f"[{tag}] forward: logits within {err!r} of the CPU's on {len(keep)} of {B} "
+          f"sequences; aux {a!r} card, {b!r} cpu; {len(out['cpu'][2])} MoE routings, "
+          f"{len(flips)} route flips")
+    # the lossless roundtrip on the card (tests/test_arch_smoke.py:64-90)
+    n_exp = float(max(cfg.n_experts, 1))
+    lossless = dataclasses.replace(cfg, capacity_factor=n_exp, decode_capacity_factor=n_exp)
+    model = model_params_from_arrays(lossless, weights, device=dev)
+    t = toks.to(dev)
+    full, _, _ = make_prefill_step(lossless)(model, {"tokens": t})
+    _, caches, clen = make_prefill_step(lossless, pad_to=S + 4)(model, {"tokens": t[:, :-1]})
+    dec, _, _ = make_decode_step(lossless)(
+        model, {"token": t[:, -1:], "caches": caches, "cache_len": clen})
+    errs = seq_errs(dec, full)
+    check(max(errs) < ROUNDTRIP_BAR, f"{tag}: roundtrip {errs} >= {ROUNDTRIP_BAR}")
+    print(f"[{tag}] lossless roundtrip on the card: per-sequence rel {errs} (bar "
+          f"{ROUNDTRIP_BAR})")
+
+
+def moe_dispatch_path(dev):
+    """Phase 18a: the three dispatches on one MoE layer at granite's widths
+    (d 1536, 40 experts of 512, top-8; f32, 256 tokens in 2 groups), each
+    on the card against the CPU at a lossless and a lossy capacity, the
+    routes compared first; on the card the three agree at the lossless
+    capacity, and at the lossy one the scatter dispatch equals the einsum
+    one, which drops routes, while the dense one drops none."""
+    cfg = get_config("granite-moe-3b-a800m")
+    gen = torch.Generator().manual_seed(4)
+    p_cpu = mmoe.init_moe(gen, cfg.d_model, cfg.moe_d_ff, cfg.n_experts)
+    p_card = {k: v.to(dev) for k, v in p_cpu.items()}
+    x = torch.randn(1, DISPATCH_TOKENS, cfg.d_model, generator=gen)
+    rtol, atol = DISPATCH_TOL
+    outs = {}
+    for cf_tag, cf in (("lossless", cfg.n_experts / cfg.top_k), ("lossy", cfg.capacity_factor)):
+        C = mmoe.capacity(DISPATCH_GROUP, cfg.top_k, cf, cfg.n_experts)
+        for d in mmoe.DISPATCHES:
+            tag = f"moe-dispatch {d} {cf_tag}"
+            res = {}
+            for where, p, xx in (("card", p_card, x.to(dev)), ("cpu", p_cpu, x)):
+                with torch.inference_mode():
+                    (o, aux), records = recorded(
+                        lambda: mmoe.moe_block(p, xx, cfg.top_k, cf, d, DISPATCH_GROUP),
+                        keep_probs=True)
+                res[where] = (o[0].cpu(), float(aux), records)
+            flips = {tok for _, tok in route_flips(tag, res["card"][2], res["cpu"][2])}
+            keep = [s for s in range(DISPATCH_TOKENS) if s not in flips]
+            err = check_rows(tag, res["card"][0][keep], res["cpu"][0][keep], rtol, atol)
+            share, n = drop_share(res["card"][2])
+            print(f"[{tag}] C = {C}: the card within {err!r} of the CPU on {len(keep)} of "
+                  f"{DISPATCH_TOKENS} tokens ({len(flips)} route flips); aux {res['card'][1]!r} / "
+                  f"{res['cpu'][1]!r}; {share!r} of {n} routes past capacity")
+            outs[(cf_tag, d)] = res["card"][0]
+    base = outs[("lossless", "einsum")]
+    for d in ("scatter", "dense"):
+        check_rows(f"moe-dispatch lossless {d} vs einsum", outs[("lossless", d)], base, rtol, atol)
+    check_rows("moe-dispatch lossy scatter vs einsum", outs[("lossy", "scatter")],
+               outs[("lossy", "einsum")], rtol, atol)
+    check_rows("moe-dispatch lossy dense vs lossless", outs[("lossy", "dense")], base, rtol, atol)
+    check(float(outs[("lossy", "einsum")].norm()) < float(base.norm()),
+          "moe-dispatch: the lossy capacity dropped nothing")
+    print("[moe-dispatch] on the card the three dispatches agree at the lossless capacity; "
+          "lossy, scatter equals einsum and dense drops nothing")
+
+
+def moe_small_path(dev):
+    """Phase 18a: the SMOKE models and the three dispatches, card against
+    CPU, and SMOKE training on granite and llama4 with and without the int8
+    compression."""
+    for arch in MOE_ARCHS + ("jamba-v0.1-52b",):
+        moe_small_model(f"moe-small {arch}", get_smoke(arch), dev)
+    moe_small_model("moe-small jamba-v0.1-52b window", dataclasses.replace(
+        get_smoke("jamba-v0.1-52b"), window=MOE_SMALL["window"]), dev)
+    moe_dispatch_path(dev)
+    for arch in MOE_ARCHS:
+        for compress in (False, True):
+            train_card_vs_cpu(f"moe-train-small {arch}{' ef-int8' if compress else ''}",
+                              get_smoke(arch), dev, compress=compress)
+
+
+def check_program(tag, prog, traces, rep, steps, launches):
+    """An attached program's totals over ``steps`` against analyze_ref.  If
+    its epochs reach 2**23 ns, as phase 13: latency and bandwidth against
+    analyze_ref, congestion against the plain version on the same epochs;
+    returns whether they did (the caller then runs the program again in
+    quantum epochs)."""
+    flat = prog.sim.flat
+    ref = oracle(flat, traces)
+    span_ns = max(float(tr.t_ns.max()) for tr in traces)
+    print(f"[{tag}] {len(traces)} epochs, up to {max(tr.n for tr in traces)} events, "
+          f"{sum(tr.n for tr in traces)} per step, spanning up to {span_ns!r} ns; {launches}")
+    if span_ns < F32_EXACT_NS:
+        check_totals(tag, rep, ref, steps)
+        return False
+    check_totals(tag, rep, ref, steps, keys=("latency_s", "bandwidth_s"))
+    plain = EpochAnalyzer(flat, device="cpu").analyze_batch(traces)
+    g_ns, want = s_to_ns(rep.congestion_s), steps * plain.congestion_ns
+    check(abs(g_ns - want) <= 1e-5 * abs(want),
+          f"{tag}: congestion {g_ns} ns vs the plain version's {want} ns")
+    print(f"[{tag}] layer epochs past 2**23 ns: congestion {g_ns!r} ns on the card, {want!r} ns "
+          f"by the plain version, analyze_ref {steps * ref.congestion_ns!r} ns (f32 "
+          f"epoch-relative times)")
+    return True
+
+
+def attach_program(cfg, kind, step, policy, epoch=None, **program):
+    """``cfg``'s own ``kind`` program on Figure 1 under ``policy``,
+    attached to ``step`` (layer epochs unless ``epoch``)."""
+    regions, phases = build_regions_and_phases(cfg, kind, **program)
+    sim = CXLMemSim(figure1_topology(), ClassMapPolicy(policy),
+                    epoch=epoch or EpochSchedule("layer"), hw=H100_SXM,
+                    max_events_per_access=1024, check_capacity=False, device="cuda")
+    return sim.attach(step, phases, regions)
+
+
+def attached_serving(tag, cfg, kind, step, args, steps, want, program):
+    """``step`` attached to ``cfg``'s ``kind`` program with the weights in
+    cxl_pool1: 1 warm-up step and ``steps`` measured, exactly ``want``
+    launches (``{kernel: count}``, the cascade's one a step), totals against
+    analyze_ref (and, past 2**23 ns, 1 + 1 steps again in quantum epochs).
+    Returns the launches."""
+    prog = attach_program(cfg, kind, step, ZOO_POLICY, **program)
+    traces = prog.epoch_traces()
+    prog.step(*args)  # warm-up
+    warm_an, warm_native = prog.report.analyzer_s, prog.report.native_s
+    reset_counts()
+    rep = prog.run(steps, *args)
+    c = counts()
+    check_launches(tag, c, "cascade", steps, **want)
+    total = {k: v for k, v in c.items() if v}
+    if check_program(tag, prog, traces, rep, rep.steps, total):
+        q = attach_program(cfg, kind, step, ZOO_POLICY,
+                           epoch=EpochSchedule("quantum", quantum_ns=ZOO_QUANTUM_NS), **program)
+        qtraces = q.epoch_traces()
+        q.step(*args)
+        reset_counts()
+        qrep = q.run(1, *args)
+        qc = counts()
+        check_launches(f"{tag} quantum", qc, "cascade", 1,
+                       **{k: v // steps for k, v in want.items()})
+        check_totals(f"{tag} quantum", qrep, oracle(q.sim.flat, qtraces), qrep.steps)
+        print(f"[{tag} quantum] {len(qtraces)} epochs of 2**22 ns, up to "
+              f"{max(tr.n for tr in qtraces)} events")
+        for k, v in qc.items():
+            c[k] += v
+    print(f"[{tag}] analyzer {(rep.analyzer_s - warm_an) / steps:.6f} s/step and native "
+          f"{(rep.native_s - warm_native) / steps:.6f} s/step over the {steps} measured steps; "
+          f"warm-up step analyzer {warm_an:.6f} s, native {warm_native:.6f} s; simulated "
+          f"slowdown {rep.slowdown!r}")
+    return c
+
+
+def serve_and_drops(tag, cfg, model, tokens, pad_to, decodes):
+    """One prefill of ``tokens`` and ``decodes`` greedy decode steps, every
+    routing recorded: prints the times, the peak memory and the share of
+    routes past capacity in the prefill and in the first decode.  Returns
+    (logits, caches, cache_len) of the prefill."""
+    prefill, decode = make_prefill_step(cfg, pad_to=pad_to), make_decode_step(cfg)
+    torch.cuda.reset_peak_memory_stats()
+
+    seconds = {}
+
+    def serve():
+        t0 = time.perf_counter()
+        out = prefill(model, {"tokens": tokens})
+        torch.cuda.synchronize()
+        seconds["prefill"] = time.perf_counter() - t0
+        state = {"token": out[0].argmax(-1, keepdim=True), "caches": out[1], "cache_len": out[2]}
+        t0 = time.perf_counter()
+        for _ in range(decodes):
+            step_logits, new_caches, new_len = decode(model, state)
+            state = {"token": step_logits.argmax(-1, keepdim=True), "caches": new_caches,
+                     "cache_len": new_len}
+        torch.cuda.synchronize()
+        seconds["decode"] = (time.perf_counter() - t0) / decodes
+        return out, state, step_logits
+
+    ((logits, caches, clen), state, step_logits), records = recorded(serve)
+    n_prefill = len(records) // (1 + decodes)  # MoE layers a pass
+    B, S = tokens.shape
+    check(logits.shape == (B, cfg.vocab_size) and bool(torch.isfinite(logits).all())
+          and bool(torch.isfinite(step_logits).all()), f"{tag}: non-finite logits")
+    check(state["cache_len"] == S + decodes, f"{tag}: cache length {state['cache_len']}")
+    pre, n_pre = drop_share(records[:n_prefill])
+    dec, n_dec = drop_share(records[n_prefill:2 * n_prefill])
+    c_pre = mmoe.capacity(min(cfg.moe_group_tokens, B * S), cfg.top_k, cfg.capacity_factor,
+                          cfg.n_experts)
+    c_dec = mmoe.capacity(min(cfg.moe_group_tokens, B), cfg.top_k, cfg.decode_capacity_factor,
+                          cfg.n_experts)
+    print(f"[{tag}] served {B} x {S} tokens: prefill {seconds['prefill']:.6f} s (first call), "
+          f"then {decodes} decode steps at {seconds['decode']:.6f} s each; peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    print(f"[{tag}] routes past capacity: prefill {pre!r} of {n_pre} (C = {c_pre} a group of "
+          f"{min(cfg.moe_group_tokens, B * S)}, capacity_factor {cfg.capacity_factor}); first "
+          f"decode {dec!r} of {n_dec} (C = {c_dec} a group of {B}, decode_capacity_factor "
+          f"{cfg.decode_capacity_factor}); {n_prefill} MoE layers a pass")
+    layers = [(drop_share([rec])[0], int(torch.bincount(rec[1].idx.reshape(-1),
+                                                        minlength=cfg.n_experts).max()))
+              for rec in records[:n_prefill]]
+    print(f"[{tag}] the prefill's MoE layers in order, (share past capacity, the busiest "
+          f"expert's routes in the batch; a mean of {B * S * cfg.top_k / cfg.n_experts!r}): "
+          f"{[(round(d, 4), m) for d, m in layers]}")
+    return logits, caches, clen
+
+
+def serve_moe_path(dev):
+    """Phase 18b, serve-moe: granite-moe-3b-a800m at its published widths
+    and depth (bf16 compute over f32 weights from seed 0): the f32 roundtrip
+    in the dense dispatch, 8 x 4096 tokens served (prefill padded to 4112,
+    16 decodes), then the prefill (1 + 3) and decode (1 + 8) steps attached
+    to granite's own prefill and decode programs with the weights in
+    cxl_pool1.  Returns the cascade's launches."""
+    cfg = get_config("granite-moe-3b-a800m")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_SEQ), generator=gen, device=dev)
+    layers, bar = MOE_ROUNDTRIP_F32
+    f32 = dict(dtype=torch.float32, cache_dtype=torch.float32, moe_dispatch="dense")
+    t0 = time.perf_counter()
+    errs = roundtrip(dataclasses.replace(cfg, n_layers=layers, **f32), tokens, dev,
+                     pad_to=Q3_PAD_TO)
+    print(f"[serve-moe] roundtrip float32 (dense dispatch) at {layers} layers: per-sequence rel "
+          f"{errs} (bar {bar} on each) in {time.perf_counter() - t0:.3f} s")
+    check(max(errs) < bar, f"serve-moe roundtrip at {layers} layers: {max(errs)} >= {bar}")
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    model = Model(cfg, device=dev, seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    pc = cfg.param_counts()
+    check(n_params == pc["total"], f"serve-moe: {n_params} parameters, want {pc['total']}")
+    print(f"[serve-moe] {cfg.name}: {n_params} f32 parameters ({pc['active']!r} active) on the "
+          f"card in {time.perf_counter() - t0:.3f} s; dispatch {cfg.moe_dispatch!r}")
+    logits, caches, clen = serve_and_drops("serve-moe", cfg, model, tokens, Q3_PAD_TO,
+                                           SERVE_DECODES)
+    batch = {"tokens": tokens}
+    c = attached_serving("moe-prefill", cfg, "prefill", make_prefill_step(cfg, pad_to=Q3_PAD_TO),
+                         (model, batch), 3, {}, dict(batch=SERVE_BATCH, seq=SERVE_SEQ))
+    state = {"token": logits.argmax(-1, keepdim=True), "caches": caches, "cache_len": clen}
+    c_dec = attached_serving("moe-decode", cfg, "decode", make_decode_step(cfg), (model, state),
+                             8, {}, dict(batch=SERVE_BATCH, seq=1, cache_len=SERVE_SEQ))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        make_prefill_step(cfg, pad_to=Q3_PAD_TO)(model, batch)
+        torch.cuda.synchronize()
+    print(prof.key_averages().table(sort_by="device_time_total", row_limit=30))
+    return c["cascade"] + c_dec["cascade"]
+
+
+def train_moe_path(dev, stand_in):
+    """Phase 18c, train-moe: granite-moe-3b-a800m's own train step at its
+    published widths and depth (bf16 compute over f32 master parameters
+    and AdamW moments, remat, the head in 4096-token chunks) on 4 x
+    4096-token SyntheticPipeline batches, attached to granite's own train
+    program at that size under main's policy on Figure 1: 1 warm-up and 3 measured
+    steps, one cascade launch a step and nothing else; totals against
+    analyze_ref (its layer epochs pass 2**23 ns: as phase 13, and again
+    in quantum epochs, 1 + 1 steps); every loss finite, the first within
+    1.0 of ln(vocab).  Returns the cascade's launches."""
+    cfg = get_config("granite-moe-3b-a800m")
+    check(cfg.remat and cfg.dtype == torch.bfloat16, "train-moe: want bf16 with remat")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Model(cfg, device=dev, seed=0)
+    opt = AdamWConfig()
+    state = {"adam": adamw_init(model, opt), "ef": {}}
+    train_step = make_train_step(cfg, opt, device=dev)
+    pipe = SyntheticPipeline(cfg, MOE_TRAIN["batch"], MOE_TRAIN["seq"], seed=0, device=dev)
+    program = dict(batch=MOE_TRAIN["batch"], seq=MOE_TRAIN["seq"])
+    prog = attach_program(cfg, "train", train_step, POLICY, **program)
+    traces = prog.epoch_traces()
+    print(f"[train-moe] {sum(p.numel() for p in model.parameters())} parameters, set-up "
+          f"{time.perf_counter() - t0:.3f} s")
+    metrics = []
+    model, state, m = prog.step(model, state, pipe.device_batch(0))
+    metrics.append({k: float(v) for k, v in m.items()})
+    warm_native, warm_analyzer = prog.report.native_s, prog.report.analyzer_s
+    reset_counts()
+    for s in range(1, 1 + MOE_TRAIN["steps"]):
+        model, state, m = prog.step(model, state, pipe.device_batch(s))
+        metrics.append({k: float(v) for k, v in m.items()})
+    c = counts()
+    check_launches("train-moe", c, "cascade", MOE_TRAIN["steps"])
+    rep = prog.report
+    peak = torch.cuda.max_memory_allocated()
+    launches = c["cascade"]
+    if check_program("train-moe", prog, traces, rep, rep.steps, {"cascade": launches}):
+        q = attach_program(cfg, "train", train_step, POLICY,
+                           epoch=EpochSchedule("quantum", quantum_ns=ZOO_QUANTUM_NS), **program)
+        qtraces = q.epoch_traces()
+        n = 1 + MOE_TRAIN["steps"]
+        model, state, _ = q.step(model, state, pipe.device_batch(n))
+        reset_counts()
+        model, state, m = q.step(model, state, pipe.device_batch(n + 1))
+        check_launches("train-moe quantum", counts(), "cascade", 1)
+        launches += 1
+        check_totals("train-moe quantum", q.report, oracle(q.sim.flat, qtraces), q.report.steps)
+        print(f"[train-moe quantum] {len(qtraces)} epochs of 2**22 ns, up to "
+              f"{max(tr.n for tr in qtraces)} events; loss {float(m['loss'])!r}")
+    losses = [x["loss"] for x in metrics]
+    check(all(np.isfinite(losses)), f"train-moe: a loss is not finite: {losses}")
+    ln_v = float(np.log(cfg.vocab_size))
+    check(abs(losses[0] - ln_v) <= 1.0, f"train-moe: first loss {losses[0]!r}, ln V {ln_v!r}")
+    native = (rep.native_s - warm_native) / MOE_TRAIN["steps"]
+    analyzer = (rep.analyzer_s - warm_analyzer) / MOE_TRAIN["steps"]
+    flops = cfg.model_flops("train", MOE_TRAIN["batch"], MOE_TRAIN["seq"])
+    print(f"[train-moe] losses {losses} = ce {[x['ce'] for x in metrics]} + 0.01 x aux "
+          f"{[x['aux'] for x in metrics]} (ln V = {ln_v!r}); lr {metrics[-1]['lr']!r}, grad_norm "
+          f"{metrics[-1]['grad_norm']!r}")
+    print(f"[train-moe] native {native:.6f} s/step and analyzer {analyzer:.6f} s/step over the "
+          f"{MOE_TRAIN['steps']} measured steps (warm-up step native {warm_native:.6f} s, "
+          f"analyzer {warm_analyzer:.6f} s); phase 4's stand-in native "
+          f"{stand_in['native_s']:.6f} s/step; simulated slowdown {rep.slowdown!r}")
+    print(f"[train-moe] model FLOPs {flops!r} a step (6 x {cfg.param_counts()['active']!r} active "
+          f"x {MOE_TRAIN['batch'] * MOE_TRAIN['seq']} tokens): {flops / native / 1e12!r} TFLOP/s, "
+          f"{flops / native / BF16_OPS_PER_S!r} of the dense bf16 peak")
+    print(f"[train-moe] peak device memory {peak} bytes ({peak / 2**30:.3f} GiB) over the model, "
+          f"optimizer state and the steps")
+    batch = pipe.device_batch(100)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        model, state, m = train_step(model, state, batch)
+        torch.cuda.synchronize()
+        prof_s = time.perf_counter() - t1
+    check(np.isfinite(float(m["loss"])), "train-moe: the profiled step's loss is not finite")
+    print(f"[train-moe] one step under torch.profiler {prof_s:.6f} s")
+    print(prof.key_averages().table(sort_by="device_time_total", row_limit=30))
+    return launches
+
+
+def jamba_path(dev):
+    """Phase 18d: jamba-v0.1-52b at its published widths, cut to one of its
+    4 groups (8 sublayers: 7 Mamba2, 1 attention; 4 MoE feed-forwards of 16
+    experts of 14336, top-2; bf16 compute over f32 weights from seed 0): 8
+    x 4096 tokens served (prefill padded to 4104, 8 decodes), then the
+    prefill (1 + 3: 7 SSD calls and one cascade a step) and decode (1 + 8:
+    no SSD call) steps attached to the cut config's own programs with the
+    weights in cxl_pool1.  Returns the launches."""
+    cfg = dataclasses.replace(get_config("jamba-v0.1-52b"), n_layers=JAMBA_LAYERS)
+    spec = cfg.group_spec()
+    check(cfg.n_groups == 1 and cfg.attn_layers_per_group == 1
+          and cfg.mamba_layers_per_group == 7 and sum(f == "moe" for _, f in spec) == 4,
+          f"jamba cut: {spec}")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_SEQ), generator=gen, device=dev)
+    t0 = time.perf_counter()
+    model = Model(cfg, device=dev, seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params == cfg.param_counts()["total"], f"jamba: {n_params} parameters")
+    print(f"[jamba] {cfg.name} cut to {cfg.n_layers} layers: {n_params} f32 parameters on the card "
+          f"in {time.perf_counter() - t0:.3f} s, {torch.cuda.memory_allocated() / 2**30:.3f} GiB")
+    pad_to = SERVE_SEQ + JAMBA_DECODES
+    reset_counts()
+    logits, caches, clen = serve_and_drops("jamba", cfg, model, tokens, pad_to, JAMBA_DECODES)
+    c = counts()
+    check(c["ssd"] == cfg.mamba_layers_per_group, f"jamba: served with {c['ssd']} SSD calls")
+    n_ssd = c["ssd"]
+    want = cfg.mamba_layers_per_group * 3
+    c1 = attached_serving("jamba-prefill", cfg, "prefill", make_prefill_step(cfg, pad_to=pad_to),
+                          (model, {"tokens": tokens}), 3, {"ssd": want},
+                          dict(batch=SERVE_BATCH, seq=SERVE_SEQ))
+    state = {"token": logits.argmax(-1, keepdim=True), "caches": caches, "cache_len": clen}
+    c2 = attached_serving("jamba-decode", cfg, "decode", make_decode_step(cfg), (model, state),
+                          JAMBA_DECODES, {}, dict(batch=SERVE_BATCH, seq=1, cache_len=SERVE_SEQ))
+    return {"cascade": c1["cascade"] + c2["cascade"], "ssd": n_ssd + c1["ssd"] + c2["ssd"]}
+
+
+def moe_hybrid_path(dev, stand_in):
+    """Phase 18: the MoE and hybrid families.  llama4-maverick stays at
+    SMOKE: one MoE layer's 128 experts of 8192 are 16.1e9 parameters, 64 GB
+    in f32, and its 48 layers do not fit one card.  Returns the cascade's
+    and the SSD kernel's launches."""
+    t0 = time.perf_counter()
+    moe_small_path(dev)
+    t1 = time.perf_counter()
+    cascade = serve_moe_path(dev)
+    torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    cascade += train_moe_path(dev, stand_in)
+    torch.cuda.empty_cache()
+    t3 = time.perf_counter()
+    j = jamba_path(dev)
+    torch.cuda.empty_cache()
+    print(f"[moe] phase 18 ran {time.perf_counter() - t0:.1f} s: small {t1 - t0:.1f}, serve-moe "
+          f"{t2 - t1:.1f}, train-moe {t3 - t2:.1f}, jamba {time.perf_counter() - t3:.1f}")
+    return {"cascade": cascade + j["cascade"], "ssd": j["ssd"]}
 
 
 def sass_counts(path) -> str:
@@ -3536,8 +4084,12 @@ def main(argv) -> int:
     del step, x
     torch.cuda.empty_cache()
     cascade_launches += train_path(dev, main_rep, main_ref, stand_in)
+    torch.cuda.empty_cache()
+    c18 = moe_hybrid_path(dev, stand_in)
+    cascade_launches += c18["cascade"]
+    ssd_launches += c18["ssd"]
 
-    # -- 18. the kernels line and the result -------------------------------- #
+    # -- 19. the kernels line and the result -------------------------------- #
     src = "src/repro_torch/kernels/csrc/"
     kernels = []
     for name, source, replaces, launches, comps, row in (

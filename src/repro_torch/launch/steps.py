@@ -43,14 +43,16 @@ def make_train_step(
 
     On the card a model with Mamba2 layers is refused here, before any
     work: its backward pass would run through the SSD kernel, which has no
-    backward kernel yet (``kernels.ops.ssd`` refuses it too).  The ssm
-    family trains on the CPU, through the plain chunked scan's autograd."""
+    backward kernel (``kernels.ops.ssd`` refuses it too; the reference has
+    none either).  So the ssm and hybrid families train on the CPU only,
+    through the plain chunked scan's autograd; the dense and moe families
+    train on either."""
     dev = torch.device(device)
     if dev.type == "cuda" and cfg.mamba_layers_per_group:
         raise NotImplementedError(
             f"training {cfg.name} on the card needs the SSD backward kernel (an "
-            "autograd.Function around ssd_scan.cu), which is not ported; the ssm family "
-            "trains with device='cpu'"
+            "autograd.Function around ssd_scan.cu), which neither package has; the ssm "
+            "and hybrid families train with device='cpu'"
         )
     dev = _check_device(dev)
 

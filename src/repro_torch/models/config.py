@@ -6,8 +6,8 @@ zoo (dense, moe, hybrid, ssm, vlm, audio).  The reference counts parameters
 by ``jax.eval_shape`` over the model's init; this port counts them from the
 shapes ``repro/models/transformer.py`` (and ``layers.py``, ``attention.py``,
 ``mamba2.py``, ``moe.py``) initialize.  The structure of every family is
-here; the forward passes of the moe, hybrid, vlm and audio families arrive
-with later cuts of the model zoo (slice 7 of the port).
+here; the forward passes of the vlm and audio families arrive with a later
+cut of the model zoo (slice 7 of the port).
 
 The reference's TPU- and XLA-only fields stay out: ``cast_params_at_step``
 and ``fsdp_gather_at_layer`` (where the parameter all-gather casts under
@@ -55,7 +55,7 @@ class ModelConfig:
     shared_expert: bool = False
     capacity_factor: float = 1.25
     decode_capacity_factor: float = 2.0
-    moe_dispatch: str = "einsum"  # 'einsum' | 'dense'
+    moe_dispatch: str = "einsum"  # 'einsum' | 'scatter' | 'dense' (models/moe.py)
     moe_group_tokens: int = 4096  # GShard dispatch group size
     # --- attention ---
     rope_variant: str = "rope"  # 'rope' | 'rope2d' | 'mrope' | 'none'
@@ -205,6 +205,19 @@ class ModelConfig:
         if self.n_experts and self.top_k:
             active = total - expert * (1.0 - self.top_k / self.n_experts)
         return {"total": float(total), "active": float(active), "expert": float(expert)}
+
+    def model_flops(self, kind: str, batch: int, seq: int) -> float:
+        """The reference's model FLOPs: 6·N_active·tokens (train),
+        2·N_active·tokens (prefill), 2·N_active·batch (decode, one token a
+        sequence)."""
+        n = self.param_counts()["active"]
+        if kind == "train":
+            return 6.0 * n * batch * seq
+        if kind == "prefill":
+            return 2.0 * n * batch * seq
+        if kind == "decode":
+            return 2.0 * n * batch
+        raise ValueError(kind)
 
     def _mamba_params(self) -> int:
         d, h, n = self.d_model, self.ssm_heads, self.ssm_state

@@ -1,5 +1,6 @@
 """The model: init, forward, the training loss, prefill and decode (port
-of ``repro/models/model.py:Model`` for the dense and ssm families).
+of ``repro/models/model.py:Model`` for the dense, moe, hybrid and ssm
+families).
 
 :class:`Model` is an ``nn.Module`` whose parameters carry the reference's
 names and layouts (``embed [V, D]``, ``blocks.{g}.sub0.attn.wq [D, H·Dh]``
@@ -47,7 +48,7 @@ class Model(nn.Module):
 
     def __init__(self, cfg: ModelConfig, device="cuda", seed: int = 0):
         super().__init__()
-        if cfg.family not in ("dense", "ssm"):
+        if cfg.family not in ("dense", "moe", "hybrid", "ssm"):
             # the config describes the family's structure (group_spec,
             # param_counts, memory programs); its forward pass is not here
             raise tf._unported(f"the {cfg.family!r} family's forward pass")

@@ -1,20 +1,23 @@
 """Block assembly: per-family layer groups and the stack over them (port of
-``repro/models/transformer.py`` for the dense and ssm families).
+``repro/models/transformer.py`` for the dense, moe, hybrid and ssm
+families).
 
 A model is a stack of identical **groups** (``cfg.group_spec()``); the
 reference scans over stacked group parameters, the port loops over an
 ``nn.ModuleList`` of groups.  With ``cfg.remat`` a training forward runs
 each group under activation recomputation, as the reference's
 ``jax.checkpoint`` around its scan body.  A sublayer is a mixer (GQA
-attention or Mamba2) and an optional gated MLP.  Caches keep the reference's stacked decode format:
+attention or Mamba2) and an optional feed-forward: a gated MLP, or a MoE
+layer (:mod:`repro_torch.models.moe`), whose auxiliary loss the group
+sums.  Caches keep the reference's stacked decode format:
 
   {'kv': {'k': [G, n_attn, B, Hk, Smax, D], 'v': ...},
    'ssm_conv': [G, n_mamba, B, K-1, di], 'ssm_state': [G, n_mamba, B, H, N, P]}
 
 Decode writes each token's K/V into ``kv`` in place and returns the same
-tensors; the Mamba2 caches are restacked, as in the reference.  MoE
-feed-forwards and the LayerNorm / GELU-MLP families arrive with their cuts
-of slice 7 and raise here.
+tensors; the Mamba2 caches are restacked, as in the reference.  The
+LayerNorm / GELU-MLP families (vlm, audio) arrive with their cut of slice
+7 and raise here.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from torch.utils.checkpoint import checkpoint
 
 from . import attention as attn
 from . import mamba2 as m2
+from . import moe as moe_mod
 from .layers import gated_mlp, init_gated_mlp, rms_norm
 
 __all__ = ["Group", "apply_group", "apply_stack", "decode_group", "decode_stack"]
@@ -34,8 +38,8 @@ __all__ = ["Group", "apply_group", "apply_stack", "decode_group", "decode_stack"
 
 def _unported(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} comes with a later cut of the model zoo (slice 7 of the port: MoE, "
-        "then hybrid, then VLM and audio); the dense and ssm families are ported"
+        f"{what} comes with a later cut of the model zoo (slice 7 of the port: VLM and "
+        "audio); the dense, moe, hybrid and ssm families are ported"
     )
 
 
@@ -43,7 +47,8 @@ class Group(nn.Module):
     """Parameters of ONE group, named as the reference's tree:
     ``sub{i}.norm1``, ``sub{i}.attn.{wq, wk, wv, wo, q_norm, k_norm}`` or
     ``sub{i}.mamba.{in_proj, conv_w, ...}``, and ``sub{i}.norm2``,
-    ``sub{i}.mlp.{wi, wu, wo}``."""
+    ``sub{i}.mlp.{wi, wu, wo}`` or ``sub{i}.moe.{router, wi, wu, wo}`` (and
+    ``shared_wi``, ``shared_wu``, ``shared_wo``)."""
 
     def __init__(self, cfg, gen: torch.Generator, device=None):
         super().__init__()
@@ -63,11 +68,25 @@ class Group(nn.Module):
             else:
                 raise _unported(f"the {mixer!r} mixer")
             if ffn is not None:
-                if ffn != "mlp" or not cfg.mlp_gated:
-                    raise _unported(f"the {ffn!r} feed-forward" if ffn != "mlp" else "the GELU MLP")
+                if ffn == "mlp" and not cfg.mlp_gated:
+                    raise _unported("the GELU MLP")
                 sub.norm2 = nn.Parameter(torch.ones(cfg.d_model, device=dev))
-                sub.mlp = nn.ParameterDict(init_gated_mlp(gen, cfg.d_model, cfg.d_ff, dev))
+                if ffn == "mlp":
+                    sub.mlp = nn.ParameterDict(init_gated_mlp(gen, cfg.d_model, cfg.d_ff, dev))
+                else:
+                    sub.moe = nn.ParameterDict(moe_mod.init_moe(
+                        gen, cfg.d_model, cfg.moe_d_ff or cfg.d_ff, cfg.n_experts,
+                        shared_expert=cfg.shared_expert, device=dev))
             self.add_module(f"sub{i}", sub)
+
+
+def _feed_forward(sub, ffn: str, h: torch.Tensor, cfg, capacity_factor: float):
+    """A sublayer's feed-forward on its normed input: (output, the MoE's
+    aux loss or None)."""
+    if ffn == "moe":
+        return moe_mod.moe_block(sub.moe, h, cfg.top_k, capacity_factor=capacity_factor,
+                                 dispatch=cfg.moe_dispatch, group_tokens=cfg.moe_group_tokens)
+    return gated_mlp(sub.mlp, h), None
 
 
 def apply_group(
@@ -121,7 +140,10 @@ def apply_group(
                 mix = m2.mamba2_block(*args, chunk=cfg.ssm_chunk)
         x = x + mix
         if ffn is not None:
-            x = x + gated_mlp(sub.mlp, rms_norm(x, sub.norm2))
+            out, a = _feed_forward(sub, ffn, rms_norm(x, sub.norm2), cfg, cfg.capacity_factor)
+            x = x + out
+            if a is not None:
+                aux = aux + a
     cache = None
     if collect_cache:
         cache = {}
@@ -167,7 +189,9 @@ def decode_group(
             mi += 1
         x = x + mix
         if ffn is not None:
-            x = x + gated_mlp(sub.mlp, rms_norm(x, sub.norm2))
+            # decode's own capacity; the aux loss is a training term
+            x = x + _feed_forward(sub, ffn, rms_norm(x, sub.norm2), cfg,
+                                  cfg.decode_capacity_factor)[0]
     new = {"ssm_conv": torch.stack(conv), "ssm_state": torch.stack(state)} if conv else {}
     return x, new
 

@@ -50,7 +50,7 @@ ZOO_FILES = (
     "configs/mamba2_2_7b.py", "configs/qwen3_0_6b.py", "interop.py", "kernels/build.py",
     "kernels/flash_attention.py", "kernels/ssd_scan.py", "launch/steps.py",
     "models/attention.py", "models/config.py", "models/layers.py", "models/mamba2.py",
-    "models/model.py", "models/phases.py", "models/transformer.py",
+    "models/model.py", "models/moe.py", "models/phases.py", "models/transformer.py",
     "core/cache.py", "core/migration.py", "core/aot.py", "core/scenario.py",
     "core/fleet.py", "configs/__init__.py",
     "configs/mistral_large_123b.py", "configs/chatglm3_6b.py", "configs/starcoder2_3b.py",

@@ -96,13 +96,20 @@ def test_config_fields_and_groups():
     assert cfg.dtype == cfg.cache_dtype == torch.bfloat16
     assert dataclasses.replace(cfg, d_ff=64).group_spec() == (("mamba", "mlp"),)
     # the other families' structure is ported (tests/test_torch_model_zoo.py);
-    # their forward passes still raise, naming their slice
+    # the moe and hybrid forward passes too (tests/test_torch_moe.py), the
+    # vlm and audio ones still raise, naming their slice
     from repro.models import ModelConfig as RConfig
 
     for fam in ("moe", "hybrid", "vlm", "audio"):
-        kw = dict(attn_every=2, n_experts=4, top_k=2) if fam == "hybrid" else {}
+        kw = {"moe": dict(n_experts=4, top_k=2),
+              "hybrid": dict(attn_every=2, n_experts=4, top_k=2, ssm_state=16, ssm_heads=4,
+                             ssm_d_head=16)}.get(fam, {})
         cfg = ModelConfig("m", fam, 2, 64, 4, 2, 128, 512, **kw)
         assert cfg.group_spec() == RConfig("m", fam, 2, 64, 4, 2, 128, 512, **kw).group_spec()
+        if fam in ("moe", "hybrid"):
+            model = Model(cfg, device="cpu")
+            assert sum(p.numel() for p in model.parameters()) == cfg.param_counts()["total"]
+            continue
         with pytest.raises(NotImplementedError, match="slice 7"):
             Model(cfg, device="cpu")
 
@@ -327,9 +334,9 @@ def test_random_init_follows_reference_distributions():
 
 
 def test_unported_families_and_mixers_name_their_slice():
-    moe = dataclasses.replace(t_m2cfg.SMOKE, family="moe", n_heads=4, n_kv_heads=2)
+    vlm = dataclasses.replace(t_m2cfg.SMOKE, family="vlm", n_heads=4, n_kv_heads=2)
     with pytest.raises(NotImplementedError, match="slice 7"):
-        Model(moe, device="cpu")
+        Model(vlm, device="cpu")
     with pytest.raises(NotImplementedError, match="slice 7"):
         Model(dataclasses.replace(t_m2cfg.SMOKE, d_ff=64, mlp_gated=False), device="cpu")
 
