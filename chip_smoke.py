@@ -66,15 +66,17 @@ Phases (any failure exits non-zero and prints no result):
      single-host QoS kernel's to rtol 1e-6;
 4. slice-1 main path: CXLMemSim attached to a bf16 stand-in step on the
    card, with the qwen3-0.6b published config's layer-epoch trace (8 x 4096
-   tokens) on the paper's Figure 1 topology, one warm-up step, then 3
+   tokens) on the paper's Figure 1 topology, under the default
+   (asynchronous on the shared engine), one warm-up step, then 3
    measured steps; over those 3 the cascade's launch count must rise by
    exactly 3 and the plain path's by 0, the report's delay totals must
    match the f64 oracle ``analyze_ref``, and both switches must queue; then
    host staging on the host clock, and a torch.profiler table of one batch;
 5. the shared fabric: FabricSession with 8 trace-only qwen3-0.6b decode
    tenants (batch 64, 4096-token caches) pooling their KV caches on
-   pooled_topology(n_hosts=8) with trace-driven coherency, one warm-up
-   round, then 3 measured rounds; over those 3 the host-segmented kernel's
+   pooled_topology(n_hosts=8) with trace-driven coherency, synchronous
+   (``async_analysis=False``, as phases 6, 8, 12 and 14 run their
+   sessions), one warm-up round, then 3 measured rounds; over those 3 the host-segmented kernel's
    launch count must rise by exactly 3, the plain path's and the
    single-host kernel's by 0; totals and the per-host decomposition must
    match ``analyze_ref`` on the merged epochs; then the host time of the
@@ -119,7 +121,13 @@ Phases (any failure exits non-zero and prints no result):
    cxl_pool1 (one warm-up step, 3 measured: exactly 64 SSD launches and one
    cascade per step, totals against ``analyze_ref``) and the decode step
    from the prefill's caches (one warm-up, 8 measured: one cascade per step,
-   no SSD launch); then a torch.profiler table of one prefill;
+   no SSD launch) in three modes in turn: with ``async_analysis=False``,
+   under the default, and under the default with the interpreter's thread
+   switch interval cut to 0.1 ms (the GIL probe), the three runs' totals
+   equal and each run's native step, its ratio to the synchronous run's,
+   its launching (wall and the submitting thread's CPU seconds) and its
+   wait for the card, and the dispatcher's overlap with the native steps
+   printed; then a torch.profiler table of one prefill;
 10. dense serving at qwen3-0.6b's published widths (random weights from
    seed 0, bf16 compute): the flash attention kernels (built with the
    others from flash_attention.cu; the wrapper picks the bf16 wgmma kernel,
@@ -150,7 +158,8 @@ Phases (any failure exits non-zero and prints no result):
    attached to CXLMemSim on Figure 1 with the KV cache in cxl_pool1 (one
    warm-up step, 3 measured: one cascade per step, totals against
    ``analyze_ref``) and the decode step from the prefill's caches (one
-   warm-up, 8 measured); then a torch.profiler table of one prefill;
+   warm-up, 8 measured) in phase 9's three modes; then a torch.profiler
+   table of one prefill;
 11. migration and the device cache at qwen3-0.6b's widths: phase 4's
    program with software migration (1 MiB pages, promote at a hotness of
    1024 weighted events, demote below 1, an 8 GiB local budget, cold
@@ -212,9 +221,10 @@ Phases (any failure exits non-zero and prints no result):
    14's pipeline-main through an engine (1 + 3 steps): 3 scan launches a
    step, no build after attach, staging through the engine's pinned
    2-slot ring, totals against phase 14's at the same bars;
-   engine-fabric8, phase 5's fabric with overlapped rounds (1 + 3): one
-   hosts launch a round, totals and per-host latency and congestion
-   against phase 5's at the fabric bars; engine-coalesced, 4 sessions of
+   engine-fabric8, phase 5's fabric under the session's default,
+   overlapped rounds on the shared engine (1 + 3): one hosts launch a
+   round, totals and per-host latency and congestion against phase 5's
+   synchronous ones at the fabric bars; engine-coalesced, 4 sessions of
    phase 4's program cut to 28, 24, 20 and 12 layers (31, 27, 23 and 15
    epochs a step) on one engine whose steps' submissions queue behind a
    held dispatcher: 4 sessions coalesced, exactly one cascade launch, over
@@ -222,7 +232,15 @@ Phases (any failure exits non-zero and prints no result):
    (latency rel 1e-6, congestion and bandwidth rel 1e-5; the four solo
    analyses differ pairwise by more than those bars, so a mix-up of
    sessions fails); the stacked batch's cascade against its plain version
-   and timed beside the 4 solo batches;
+   and timed beside the 4 solo batches; then train-main (phase 17b)
+   attached twice, 1 + 3 steps each, the model training on through both:
+   with ``async_analysis=False``, then under the default (asynchronous on
+   the shared engine): one cascade launch a step and nothing else, both
+   runs' totals equal and phase 4's, the default run's mean native step
+   within 1.10 of the synchronous run's and each of its dispatches
+   launched during its own step; per step the native seconds, their ratio
+   and the dispatch's launch and finish times printed, and the wall
+   against the synchronous native + analyzer seconds;
 16. scenario sweeps and the fleet: sweep-main, phase 4's program on Figure 1
    through ``ScenarioSuite`` with 64 scenarios (4 policies x 4 overrides x
    2 granularities x 2 caches, benchmarks/scenario_sweep.py's axes): one
@@ -248,7 +266,8 @@ Phases (any failure exits non-zero and prints no result):
 17. training: train-small, qwen3-0.6b's SMOKE at f32 with one seeded
    model's weights on the card and the CPU, 3 train steps each from the
    same SyntheticPipeline batches (losses to rel 1e-5, parameters within 2
-   x the sum of the steps' lr); train-main, qwen3-0.6b's own train step at
+   x the sum of the steps' lr); train-main (run in phase 15),
+   qwen3-0.6b's own train step at
    its published widths (bf16 compute over f32 master parameters and AdamW
    moments, remat, the head in 4096-token chunks) on 8 x 4096-token
    batches, attached to phase 4's program, policy and topology: one
@@ -286,8 +305,8 @@ Phases (any failure exits non-zero and prints no result):
    nothing else, its layer epochs past 2**23 ns held as phase 13 holds
    them and run again in quantum epochs (1 + 1 steps), every loss finite
    and the first within 1.0 of ln(49155); native and analyzer seconds, the
-   peak memory, the model-FLOP rate and a torch.profiler table of one
-   step; jamba, jamba-v0.1-52b at its published widths cut to one of its 4
+   peak memory and the model-FLOP rate (the script profiles one train
+   step, train-main's in phase 15); jamba, jamba-v0.1-52b at its published widths cut to one of its 4
    groups (7 Mamba2 sublayers through ssd_scan.cu, 1 attention, 4 MoE
    feed-forwards): 8 x 4096 tokens served (7 SSD calls) with the routes
    past capacity, then the prefill (1 + 3: 7 SSD calls and one cascade a
@@ -295,7 +314,32 @@ Phases (any failure exits non-zero and prints no result):
    programs with the weights in cxl_pool1, held as above;
    llama4-maverick stays at SMOKE (one MoE layer's experts are 64 GB in
    f32);
-19. a JSON ``kernels`` line, then the card's nvidia-smi line, then the result
+19. the VLM and audio families and the two remaining dense configs:
+   family-small, chatglm3-6b's (rope2d), starcoder2-3b's (GELU MLP),
+   qwen2-vl-72b's (M-RoPE, embedding inputs) and hubert-xlarge's
+   (LayerNorm, GELU, bidirectional, embedding inputs) SMOKE at f32, one
+   seeded model's weights on the card and the CPU: forward logits (rtol
+   1e-4 of the largest), the three decoders' prefill S-1 plus one decode
+   against their forward of S on the card (under 5e-4), 3 train steps
+   each (as train-small), and starcoder2's 3 steps under
+   ``remat_policy_name="dots"`` against ``"nothing"`` on the card (same
+   bars, the peak memory of each printed); then at published widths (bf16
+   compute over f32 weights from seed 0), each served 8 x 4096 tokens or
+   frames (one prefill and, for a decoder, 8 decodes, timed) and attached
+   to its own programs with the weights in cxl_pool1 (prefill 1 + 3,
+   decode 1 + 8; one cascade launch a step; totals against
+   ``analyze_ref``, and layer epochs past 2**23 ns held as phase 13 holds
+   them, then 1 + 1 steps in quantum epochs): serve-starcoder2 and
+   train-starcoder2 (30 layers; its own train step on 4 x 4096-token
+   batches attached to its own train program under main's policy, 1 + 3
+   steps, as train-moe: every loss finite, the first within 1.0 of
+   ln(49152), native and analyzer seconds, peak memory and model-FLOP
+   rate), serve-chatglm3 (28 layers),
+   serve-hubert (48 layers, a forward of 8 x 4096 frames, no decode) and
+   train-hubert (8 x 4096 frames, the first loss within 1.0 of ln(504)),
+   serve-qwen2vl (cut to 12 of its 80 layers, widths kept, embeddings in
+   and out of the decode);
+20. a JSON ``kernels`` line, then the card's nvidia-smi line, then the result
    line ``{"ok": true, "device": {...}}``.
 
 The earlier phases (4-6) must show no QoS launch, no phase before 9 an SSD
@@ -317,6 +361,7 @@ from pathlib import Path
 import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
+from torch.utils._python_dispatch import TorchDispatchMode
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -374,6 +419,7 @@ from repro_torch.kernels import build as kbuild  # noqa: E402
 from repro_torch.kernels import flash_attention as kflash  # noqa: E402
 from repro_torch.kernels import ref as kref  # noqa: E402
 from repro_torch.kernels import ssd_scan as kssd  # noqa: E402
+from repro_torch.models import transformer as mtf  # noqa: E402
 from repro_torch.data.pipeline import SyntheticPipeline  # noqa: E402
 from repro_torch.interop import model_params_from_arrays, params_to_arrays  # noqa: E402
 from repro_torch.launch.steps import (  # noqa: E402
@@ -1038,11 +1084,12 @@ def check_totals(tag, got, want, steps, keys=("latency_s", "congestion_s", "band
 
 
 def fabric_session(n_hosts, load, events_per_access, dev, classes=None, migration=None,
-                   cache=None, pipeline=False, engine=None, **topo_kw):
+                   cache=None, pipeline=False, engine=None, async_analysis=True, **topo_kw):
     """n_hosts trace-only qwen3-0.6b tenants pooling their KV caches, tenant
     h in QoS class ``classes[h]`` (0 without ``classes``), with
-    ``migration``, ``cache``, ``pipeline`` and ``engine`` (overlapped rounds)
-    given to the session."""
+    ``migration``, ``cache``, ``pipeline``, ``engine`` and
+    ``async_analysis`` (the session's default: overlapped rounds) given to
+    the session."""
     tenants = []
     for h in range(n_hosts):
         regions, phases = build_regions_and_phases(CONFIG, **load)
@@ -1052,7 +1099,7 @@ def fabric_session(n_hosts, load, events_per_access, dev, classes=None, migratio
         pooled_topology(n_hosts=n_hosts, **topo_kw), tenants, epoch=EpochSchedule("layer"),
         hw=H100_SXM, coherency=CoherencyConfig(shared_classes=("kvcache",)),
         max_events_per_access=events_per_access, device=dev, migration=migration, cache=cache,
-        pipeline=pipeline, engine=engine,
+        pipeline=pipeline, engine=engine, async_analysis=async_analysis,
     )
 
 
@@ -1195,9 +1242,11 @@ def slice1_main_path(dev, step, x):
 
 
 def fabric_main_path(dev):
-    """Phase 5: the 8-tenant KV-pooling fabric through FabricSession."""
+    """Phase 5: the 8-tenant KV-pooling fabric through FabricSession,
+    synchronous (phase 15's engine-fabric8 runs it under the default)."""
     t0 = time.perf_counter()
-    sess = fabric_session(FABRIC_HOSTS, FABRIC_LOAD, FABRIC_EVENTS_PER_ACCESS, "cuda")
+    sess = fabric_session(FABRIC_HOSTS, FABRIC_LOAD, FABRIC_EVENTS_PER_ACCESS, "cuda",
+                          async_analysis=False)
     merge_s = sess._merged_round = Timed(sess._merged_round)
     check(sess._analyzer.fused, "the 8-host fabric must run the fused cascade")
     print(f"[fabric] {sess.flat.n_switches} stages "
@@ -1252,9 +1301,11 @@ def fabric_main_path(dev):
 
 
 def wide_fabric_path(dev):
-    """Phase 6: 32 hosts, 33 stages: the unfused per-stage loop."""
+    """Phase 6: 32 hosts, 33 stages: the unfused per-stage loop,
+    synchronous."""
     t0 = time.perf_counter()
-    sess = fabric_session(WIDE_HOSTS, WIDE_LOAD, WIDE_EVENTS_PER_ACCESS, "cuda")
+    sess = fabric_session(WIDE_HOSTS, WIDE_LOAD, WIDE_EVENTS_PER_ACCESS, "cuda",
+                          async_analysis=False)
     merge_s = sess._merged_round = Timed(sess._merged_round)
     check(not sess._analyzer.fused, "the 32-host fabric must fall back to the unfused loop")
     stages = sess.flat.n_switches
@@ -1334,14 +1385,15 @@ def qos_main_path(dev, step, x, fifo_rep):
 
 
 def qos_fabric_session(tag, dev, fifo_rep, discipline, weights, rounds):
-    """Phase 8: phase 5's tenants in two classes on a QoS fabric.  Under
+    """Phase 8: phase 5's tenants in two classes on a QoS fabric,
+    synchronous.  Under
     priority class 0 must gain on phase 5's FIFO run; WFQ's per-class
     servers run at their weight's share of the switch whether or not the
     other class is busy, so there it is only printed."""
     t0 = time.perf_counter()
     sess = fabric_session(FABRIC_HOSTS, FABRIC_LOAD, FABRIC_EVENTS_PER_ACCESS, "cuda",
                           classes=FABRIC_CLASSES, discipline=discipline,
-                          class_weights=weights)
+                          class_weights=weights, async_analysis=False)
     merge_s = sess._merged_round = Timed(sess._merged_round)
     check(sess._analyzer.fused and sess._analyzer.qos_on,
           f"{tag}: the QoS fabric must run the fused QoS cascade")
@@ -1476,9 +1528,12 @@ def attach_migrating(step, migration=None, cache=None):
         flat = topology.flatten()
         ClassMapPolicy(POLICY).place(regions, flat)
         sim_kw["migration"] = MigrationSimulator(migration, regions, flat)
+    # synchronous: each analyzed batch is kept through analyze_batch, which
+    # the engine's overlapped path bypasses (it calls launch_batch)
     sim = CXLMemSim(
         topology, ClassMapPolicy(POLICY), epoch=EpochSchedule("layer"), hw=H100_SXM,
-        max_events_per_access=1024, check_capacity=False, device="cuda", cache=cache, **sim_kw,
+        max_events_per_access=1024, check_capacity=False, device="cuda", cache=cache,
+        async_analysis=False, **sim_kw,
     )
     prog = sim.attach(step, phases, regions)
     timers = {"pre": Timed(prog._epoch_batch), "synthesis": Timed(prog._traces)}
@@ -1588,10 +1643,11 @@ def migration_cache_path(step, x, main_rep):
 
 def fabric_migration_path():
     """Phase 12: fabric8 with migration on one shared local budget and the
-    1 GiB cache, warmed by the merged stream: 1 + 2 rounds (no replay)."""
+    1 GiB cache, warmed by the merged stream: 1 + 2 rounds (no replay),
+    synchronous."""
     t0 = time.perf_counter()
     sess = fabric_session(FABRIC_HOSTS, FABRIC_LOAD, FABRIC_EVENTS_PER_ACCESS, "cuda",
-                          migration=FABRIC_MIGRATION, cache=CACHE)
+                          migration=FABRIC_MIGRATION, cache=CACHE, async_analysis=False)
     check(len({id(s._budget) for s in sess._migration}) == 1,
           "the tenants' local budgets differ")
     timers = {
@@ -1675,6 +1731,7 @@ def zoo_step(tag, cfg, kind, topology, epoch, step, x):
     warm, warm_an = totals(prog.report), prog.report.analyzer_s
     reset_counts()
     prog.step(x)
+    prog.flush()  # the step's batch is analyzed on the engine's thread
     c = counts()
     check_launches(tag, c, "cascade", 1)
     got = delta(totals(prog.report), warm)
@@ -1940,29 +1997,93 @@ def mamba2_serving_path(dev):
     # attached decode from the prefill's caches
     regions, phases = build_regions_and_phases(M2_CONFIG, "decode", batch=SERVE_BATCH, seq=1,
                                                cache_len=SERVE_SEQ)
-    sim_d = CXLMemSim(figure1_topology(), ClassMapPolicy(M2_POLICY),
-                      epoch=EpochSchedule("layer"), hw=H100_SXM, max_events_per_access=1024,
-                      device=dev)
-    prog_d = sim_d.attach(decode, phases, regions)
-    traces_d = prog_d.epoch_traces()
     state = {"token": logits.argmax(-1, keepdim=True), "caches": caches, "cache_len": clen}
-    prog_d.step(model, state)  # warm-up
-    warm_analyzer_s, warm_native_s = prog_d.report.analyzer_s, prog_d.report.native_s
-    reset_counts()
-    rep_d = prog_d.run(8, model, state)
-    c = counts()
-    check_launches("mamba2-decode", c, "cascade", 8)
-    check_totals("mamba2-decode", rep_d, oracle(prog_d.sim.flat, traces_d), rep_d.steps)
-    print(f"[mamba2-decode] summary {json.dumps(rep_d.summary())}")
-    print(f"[mamba2-decode] analyzer {(rep_d.analyzer_s - warm_analyzer_s) / 8:.6f} s/step "
-          f"and native {(rep_d.native_s - warm_native_s) / 8:.6f} s/step over the 8 measured "
-          f"steps; warm-up step analyzer {warm_analyzer_s:.6f} s, native {warm_native_s:.6f} s")
+    attached_decode_modes("mamba2-decode", lambda **kw: CXLMemSim(
+        figure1_topology(), ClassMapPolicy(M2_POLICY), epoch=EpochSchedule("layer"),
+        hw=H100_SXM, max_events_per_access=1024, device=dev, **kw).attach(decode, phases, regions),
+        (model, state))
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         prefill(model, batch)
         torch.cuda.synchronize()
     print(prof.key_averages().table(sort_by="device_time_total", row_limit=12))
     return prefill_launches
+
+
+# the GIL probe of the attached decodes: the interpreter's thread switch
+# interval cut from CPython's 5 ms, so a thread waiting for the GIL gets it
+# back sooner from one that holds it
+PROBE_SWITCH_S = 1e-4
+
+
+def overlap_s(spans, marks) -> float:
+    """Seconds of the ``(start, end)`` spans that the marks' spans cover."""
+    return sum(max(0.0, min(b, m[2]) - max(a, m[1])) for a, b in spans for m in marks)
+
+
+def attached_decode_modes(tag, attach, args, steps=8):
+    """The attached decode step, one program from ``attach(**sim_kw)`` in
+    each of three modes in turn, in one process, 1 warm-up and ``steps``
+    measured steps each: synchronous (``async_analysis=False``), the
+    default (asynchronous on the shared engine), and the default again with
+    the thread switch interval at ``PROBE_SWITCH_S`` (the GIL probe).  Per
+    mode: one cascade launch a step and nothing else, totals against
+    ``analyze_ref``, and the two asynchronous runs' totals against the
+    synchronous run's (phase 15's bars).  Prints per mode the mean native
+    step and its ratio to the synchronous run's; of each native step, the
+    wall and the submitting thread's CPU seconds (``time.thread_time``)
+    until its kernels are launched, then the wait for the card; and the
+    native seconds that the dispatcher's launches and finishes overlapped.
+    Returns the default run's report and the cascade's launches."""
+    reps, native, cascade = {}, {}, 0
+    for mode, kw, switch in (("sync", dict(async_analysis=False), None), ("default", {}, None),
+                             ("default, switch 0.1 ms", {}, PROBE_SWITCH_S)):
+        prog = attach(**kw)
+        check((prog._handle is not None) == (mode != "sync"), f"{tag} {mode}: asynchronous")
+        traces = prog.epoch_traces()
+        marks, spans, split = [], [], []
+        dispatch_timeline(prog._analyzer, marks)
+        inner = prog.step_fn
+
+        def timed(*a, inner=inner, spans=spans, split=split, **k):
+            t0, c0 = time.perf_counter(), time.thread_time()
+            out = inner(*a, **k)
+            t1, c1 = time.perf_counter(), time.thread_time()
+            torch.cuda.synchronize()
+            spans.append((t0, time.perf_counter()))
+            split.append((t1 - t0, c1 - c0, spans[-1][1] - t1))
+            return out
+
+        prog.step_fn = timed
+        interval = sys.getswitchinterval()
+        if switch is not None:
+            sys.setswitchinterval(switch)
+        try:
+            prog.step(*args)  # warm-up
+            warm_an, warm_native = prog.report.analyzer_s, prog.report.native_s
+            spans.clear(), split.clear(), marks.clear()
+            reset_counts()
+            rep = prog.run(steps, *args)
+        finally:
+            sys.setswitchinterval(interval)
+        prog.close()
+        c = counts()
+        check_launches(f"{tag} {mode}", c, "cascade", steps)
+        cascade += c["cascade"]
+        check_totals(f"{tag} {mode}", rep, oracle(prog.sim.flat, traces), rep.steps)
+        if mode != "sync":
+            check_equal_phase(f"{tag} {mode} vs sync", rep, reps["sync"], "9/10 sync")
+        reps[mode], native[mode] = rep, (rep.native_s - warm_native) / steps
+        launch_s, launch_cpu, wait_s = np.mean(split, axis=0)
+        print(f"[{tag}] {mode}: native {native[mode]:.6f} s/step (ratio to sync "
+              f"{native[mode] / native['sync']:.4f}), analyzer "
+              f"{(rep.analyzer_s - warm_an) / steps:.6f} s/step over the {steps} measured "
+              f"steps (warm-up step native {warm_native:.6f} s, analyzer {warm_an:.6f} s); a "
+              f"native step: launching {launch_s:.6f} s ({launch_cpu:.6f} s of the submitting "
+              f"thread's CPU), then waiting for the card {wait_s:.6f} s; the dispatcher's "
+              f"spans over the native steps {overlap_s(spans, marks) / steps:.6f} s/step")
+    print(f"[{tag}] summary {json.dumps(reps['default'].summary())}")
+    return reps["default"], cascade
 
 
 # --------------------------------------------------------------------------- #
@@ -2220,23 +2341,11 @@ def qwen3_serving_path(dev):
     # attached decode from the served prefill's caches (each step writes slot 4096 again)
     regions, phases = build_regions_and_phases(CONFIG, "decode", batch=SERVE_BATCH, seq=1,
                                                cache_len=SERVE_SEQ)
-    sim_d = CXLMemSim(figure1_topology(), ClassMapPolicy(Q3_POLICY),
-                      epoch=EpochSchedule("layer"), hw=H100_SXM, max_events_per_access=1024,
-                      device=dev)
-    prog_d = sim_d.attach(decode, phases, regions)
-    traces_d = prog_d.epoch_traces()
     state = {"token": logits.argmax(-1, keepdim=True), "caches": caches, "cache_len": clen}
-    prog_d.step(model, state)  # warm-up
-    warm_analyzer_s, warm_native_s = prog_d.report.analyzer_s, prog_d.report.native_s
-    reset_counts()
-    rep_d = prog_d.run(8, model, state)
-    c = counts()
-    check_launches("qwen3-decode", c, "cascade", 8)
-    check_totals("qwen3-decode", rep_d, oracle(prog_d.sim.flat, traces_d), rep_d.steps)
-    print(f"[qwen3-decode] summary {json.dumps(rep_d.summary())}")
-    print(f"[qwen3-decode] analyzer {(rep_d.analyzer_s - warm_analyzer_s) / 8:.6f} s/step "
-          f"and native {(rep_d.native_s - warm_native_s) / 8:.6f} s/step over the 8 measured "
-          f"steps; warm-up step analyzer {warm_analyzer_s:.6f} s, native {warm_native_s:.6f} s")
+    attached_decode_modes("qwen3-decode", lambda **kw: CXLMemSim(
+        figure1_topology(), ClassMapPolicy(Q3_POLICY), epoch=EpochSchedule("layer"),
+        hw=H100_SXM, max_events_per_access=1024, device=dev, **kw).attach(decode, phases, regions),
+        (model, state))
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         prefill(model, batch)
@@ -2398,8 +2507,9 @@ def profile_pipeline(tag, an, traces, rows=14):
 
 def pipeline_main_path(dev, step, x, main_rep, main_ref):
     """Phase 14, pipeline-main: phase 4's program with pipeline=True and
-    warmup=True, one warm-up step and 3 measured."""
-    prog = attach_main(figure1_topology(), step, pipeline=True, warmup=True)
+    warmup=True, synchronous, one warm-up step and 3 measured."""
+    prog = attach_main(figure1_topology(), step, pipeline=True, warmup=True,
+                       async_analysis=False)
     an = prog._analyzer
     check(an._chain_plan is not None and an._aot.lowerings == 1,
           "pipeline-main must take the chain path and build at attach")
@@ -2449,18 +2559,20 @@ def pipeline_session_path(tag, sess, want, kernel, per_round, **checks):
 
 def pipeline_path(dev, step, x, main_rep, main_ref, fabric_rep, wide_rep, qos_rep):
     """Phase 14: the chain cascade on the card against its plain version,
-    then each simulator path with pipeline=True against its own phase.
-    Returns the rows and the scan, hosts and QoS launches of the paths."""
+    then each simulator path with pipeline=True against its own phase,
+    synchronous (phase 15 runs pipeline-main through an engine).  Returns
+    the rows and the scan, hosts and QoS launches of the paths."""
     t0 = time.perf_counter()
-    prog = attach_main(figure1_topology(), step)
+    prog = attach_main(figure1_topology(), step, async_analysis=False)
     rows = chain_kernel_phase(dev, prog.epoch_traces(), prog.sim.flat)
     del prog
     scan, pipe_rep = pipeline_main_path(dev, step, x, main_rep, main_ref)
     sess = fabric_session(FABRIC_HOSTS, FABRIC_LOAD, FABRIC_EVENTS_PER_ACCESS, "cuda",
-                          pipeline=True)
+                          pipeline=True, async_analysis=False)
     hosts = pipeline_session_path("pipeline-fabric8", sess, fabric_rep, "hosts", 1, hosts=True)
     del sess
-    sess = fabric_session(WIDE_HOSTS, WIDE_LOAD, WIDE_EVENTS_PER_ACCESS, "cuda", pipeline=True)
+    sess = fabric_session(WIDE_HOSTS, WIDE_LOAD, WIDE_EVENTS_PER_ACCESS, "cuda", pipeline=True,
+                          async_analysis=False)
     scan += pipeline_session_path("pipeline-wide32", sess, wide_rep, "scan",
                                   sess.flat.n_switches)
     del sess
@@ -2470,7 +2582,7 @@ def pipeline_path(dev, step, x, main_rep, main_ref, fabric_rep, wide_rep, qos_re
         fig.rc_latency_ns, fig.rc_bandwidth_gbps, fig.rc_stt_ns, fig.local_dram_latency_ns,
         n_qos_classes=2,
     )
-    prog = attach_main(topo, step, pipeline=True, warmup=True)
+    prog = attach_main(topo, step, pipeline=True, warmup=True, async_analysis=False)
     check(prog._analyzer._chain_plan is None, "pipeline-qos-main must leave the chain path")
     prog.step(x)
     before = snapshot(prog.report)
@@ -2695,10 +2807,12 @@ def engine_pipeline_main_path(step, x, pipe_rep):
 
 
 def engine_fabric_path(fabric_rep):
-    """engine-fabric8: phase 5's fabric with overlapped rounds, 1 + 3."""
-    with AnalysisEngine() as eng:
-        sess = fabric_session(FABRIC_HOSTS, FABRIC_LOAD, FABRIC_EVENTS_PER_ACCESS, "cuda",
-                              engine=eng)
+    """engine-fabric8: phase 5's fabric under the session's default,
+    overlapped rounds on the shared engine, 1 + 3, against phase 5's
+    synchronous rounds."""
+    with fabric_session(FABRIC_HOSTS, FABRIC_LOAD, FABRIC_EVENTS_PER_ACCESS, "cuda") as sess:
+        check(sess._handle is not None and sess._handle.engine is AnalysisEngine.default(),
+              "engine-fabric8 must overlap its rounds on the shared engine")
         check(sess.round() is None, "an overlapped round returns no breakdown")
         before = snapshot(sess.report)
         reset_counts()
@@ -2713,7 +2827,6 @@ def engine_fabric_path(fabric_rep):
         check_against("engine-fabric8", rep, fabric_rep, hosts=True)
         print(f"[engine-fabric8] analyzer {(rep.analyzer_s - before['analyzer_s']) / 3:.6f} "
               f"s/round, wall {wall / 3:.6f} s/round over the 3 measured rounds")
-        sess.close()
     return c["hosts"]
 
 
@@ -2805,17 +2918,21 @@ def engine_coalesced_path(dev, step, x, layers=COALESCED_LAYERS, park_s=2.0):
     return row, c["cascade"]
 
 
-def engine_path(dev, step, x, main_rep, pipe_rep, fabric_rep):
-    """Phase 15: the shared analysis engine on the card.  Returns the
-    coalesced batch's cascade row and the cascade, scan and hosts launches
-    of its paths."""
+def engine_path(dev, step, x, main_rep, pipe_rep, fabric_rep, main_ref, stand_in):
+    """Phase 15: the shared analysis engine on the card, then train-main
+    synchronously and under the default.  Returns the coalesced batch's
+    cascade row and the cascade, scan and hosts launches of its paths."""
     t0 = time.perf_counter()
     cascade = engine_main_path(step, x, main_rep)
     scan = engine_pipeline_main_path(step, x, pipe_rep)
     hosts = engine_fabric_path(fabric_rep)
     row, coalesced = engine_coalesced_path(dev, step, x)
-    print(f"[engine] phase 15 ran {time.perf_counter() - t0:.1f} s")
-    return row, cascade + coalesced, scan, hosts
+    t1 = time.perf_counter()
+    train = engine_train_main_path(dev, main_rep, main_ref, stand_in)
+    torch.cuda.empty_cache()
+    print(f"[engine] phase 15 ran {time.perf_counter() - t0:.1f} s: train-main (sync and "
+          f"default) {time.perf_counter() - t1:.1f}")
+    return row, cascade + coalesced + train, scan, hosts
 
 
 # --------------------------------------------------------------------------- #
@@ -3340,15 +3457,66 @@ def train_small_path(dev):
     train_card_vs_cpu("train-small", Q3_SMOKE, dev)
 
 
-def train_main_path(dev, main_rep, main_ref, stand_in):
-    """Phase 17b, train-main: qwen3-0.6b's own train step at its published
-    widths (bf16 compute, f32 master parameters and AdamW moments, remat),
-    8 x 4096-token SyntheticPipeline batches, attached to main's program,
-    policy and Figure 1 topology: 1 warm-up step and 3 measured.  One
-    cascade launch a step and nothing else; the trace is the program's, so
-    the totals are phase 4's (congestion and latency bitwise, bandwidth to
-    rel 1e-6) and within phase 4's bars of analyze_ref; every loss finite,
-    the first within 1.0 of ln(vocab).  Returns the cascade's launches."""
+def train_main_run(tag, prog, model, state, pipe, first):
+    """1 warm-up and ``TRAIN_MAIN['steps']`` measured train steps through
+    ``prog`` on the pipeline's batches ``first``, ``first + 1``, ...: the
+    engine flushed after the warm-up and after the measured steps, each
+    measured step's native seconds read as the step returns (the submitting
+    thread's own clock), each dispatch's launch and finish marked.  Returns
+    the model, state and a record of the run."""
+    marks = []
+    dispatch_timeline(prog._analyzer, marks)
+    losses = []
+    model, state, m = prog.step(model, state, pipe.device_batch(first))
+    losses.append(float(m["loss"]))
+    warm = prog.report  # flushes the warm-up step
+    warm_native, warm_analyzer = warm.native_s, warm.analyzer_s
+    marks.clear()
+    reset_counts()
+    native, steps, last = [], [], warm_native
+    t0 = time.perf_counter()
+    for s in range(1, 1 + TRAIN_MAIN["steps"]):
+        ts = time.perf_counter()
+        model, state, m = prog.step(model, state, pipe.device_batch(first + s))
+        te = time.perf_counter()
+        with prog._report_lock:  # written by this thread only: no flush needed
+            now = prog._report.native_s
+        native.append(now - last)
+        last = now
+        steps.append((ts, te))
+        losses.append(float(m["loss"]))
+    prog.flush()
+    wall = time.perf_counter() - t0
+    c = counts()
+    rep = prog.report
+    check_launches(tag, c, "cascade", TRAIN_MAIN["steps"])
+    launches = sorted(m_ for m_ in marks if m_[0] == "launch")
+    finishes = sorted(m_ for m_ in marks if m_[0] == "finish")
+    check(len(launches) == len(finishes) == TRAIN_MAIN["steps"],
+          f"{tag}: {len(launches)} dispatches launched, {len(finishes)} finished")
+    return model, state, dict(
+        prog=prog, rep=rep, c=c, losses=losses, m=m, native=native, steps=steps, t0=t0,
+        wall=wall, launches=launches, finishes=finishes, warm_native=warm_native,
+        warm_analyzer=warm_analyzer,
+        analyzer=(rep.analyzer_s - warm_analyzer) / TRAIN_MAIN["steps"])
+
+
+def engine_train_main_path(dev, main_rep, main_ref, stand_in):
+    """engine-train-main (phase 15) and train-main (phase 17b): qwen3-0.6b's
+    own train step at its published widths (bf16 compute, f32 master
+    parameters and AdamW moments, remat), 8 x 4096-token SyntheticPipeline
+    batches, attached to main's program, policy and Figure 1 topology
+    twice, 1 warm-up and 3 measured steps each: with
+    ``async_analysis=False``, then under the default (asynchronous, the
+    shared engine), the model training on through both.  Bars: one cascade
+    launch a step and nothing else; both runs' totals equal (latency and
+    bandwidth rel 1e-6, congestion 1e-4) and phase 4's, within phase 4's
+    bars of analyze_ref; the default run's mean native step within 1.10 of
+    the synchronous run's, and each of its dispatches launched after its
+    own step began and before it returned (the analysis overlaps the
+    native step); every loss
+    finite, the first within 1.0 of ln(vocab).  Then one unattached step
+    under the profiler.  Returns the cascade's launches."""
     check(CONFIG.remat and CONFIG.dtype == torch.bfloat16, "train-main: want bf16 with remat")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -3357,40 +3525,66 @@ def train_main_path(dev, main_rep, main_ref, stand_in):
     state = {"adam": adamw_init(model, opt), "ef": {}}
     train_step = make_train_step(CONFIG, opt, device=dev)
     pipe = SyntheticPipeline(CONFIG, TRAIN_MAIN["batch"], TRAIN_MAIN["seq"], seed=0, device=dev)
-    prog = attach_main(figure1_topology(), train_step)
-    print(f"[train-main] {sum(p.numel() for p in model.parameters())} parameters, "
-          f"{len(prog.epoch_traces())} epochs a step, set-up {time.perf_counter() - t0:.3f} s")
-    losses = []
-    model, state, m = prog.step(model, state, pipe.device_batch(0))
-    losses.append(float(m["loss"]))
-    warm_native, warm_analyzer = prog.report.native_s, prog.report.analyzer_s
-    reset_counts()
-    for s in range(1, 1 + TRAIN_MAIN["steps"]):
-        model, state, m = prog.step(model, state, pipe.device_batch(s))
-        losses.append(float(m["loss"]))
-    c = counts()
-    check_launches("train-main", c, "cascade", TRAIN_MAIN["steps"])
-    rep = prog.report
+    runs = {}
+    first = 0
+    for mode, kw in (("sync", dict(async_analysis=False)), ("default", {})):
+        prog = attach_main(figure1_topology(), train_step, **kw)
+        asy = prog._handle is not None
+        check(asy == (mode == "default") and prog.sim.async_analysis == asy
+              and (not asy or prog._handle.engine is AnalysisEngine.default()),
+              f"train-main {mode}: asynchronous {asy}")
+        if mode == "sync":
+            print(f"[train-main] {sum(p.numel() for p in model.parameters())} parameters, "
+                  f"{len(prog.epoch_traces())} epochs a step, set-up "
+                  f"{time.perf_counter() - t0:.3f} s")
+        model, state, r = train_main_run(f"train-main {mode}", prog, model, state, pipe, first)
+        prog.close()
+        first += 1 + TRAIN_MAIN["steps"]
+        runs[mode] = r
+        rep = r["rep"]
+        check(rep.steps == main_rep.steps, f"train-main {mode} {rep.steps} steps")
+        check_totals(f"train-main {mode}", rep, main_ref, rep.steps)
+        check_like(f"train-main {mode} vs phase 4", totals(rep), totals(main_rep))
+    sync, dflt = runs["sync"], runs["default"]
+    check_equal_phase("train-main default vs sync", dflt["rep"], sync["rep"], "15 sync")
+    ratios = [a / b for a, b in zip(dflt["native"], sync["native"])]
+    mean_ratio = float(np.mean(dflt["native"]) / np.mean(sync["native"]))
+    sync_sum = float(np.sum(sync["native"])) + sync["analyzer"] * TRAIN_MAIN["steps"]
+    for k in range(TRAIN_MAIN["steps"]):
+        ts, te = dflt["steps"][k]
+        la, fi = dflt["launches"][k], dflt["finishes"][k]
+        print(f"[train-main] step {k + 1}: native {dflt['native'][k]:.6f} s (sync "
+              f"{sync['native'][k]:.6f} s, ratio {ratios[k]:.4f}); the step {1e3 * (ts - dflt['t0']):.1f}-"
+              f"{1e3 * (te - dflt['t0']):.1f} ms, its dispatch launched "
+              f"{1e3 * (la[1] - dflt['t0']):.1f}-{1e3 * (la[2] - dflt['t0']):.1f} ms, finished "
+              f"{1e3 * (fi[1] - dflt['t0']):.1f}-{1e3 * (fi[2] - dflt['t0']):.1f} ms")
+        check(ts <= la[1] <= te,
+              f"train-main step {k + 1}: its dispatch was not launched during the step")
+    print(f"[train-main] default (asynchronous): native {float(np.sum(dflt['native'])):.6f} s, "
+          f"wall {dflt['wall']:.6f} s over the 3 measured steps, against sync native + "
+          f"analyzer {sync_sum:.6f} s (wall ratio {dflt['wall'] / sync_sum:.4f}); mean native "
+          f"ratio {mean_ratio:.4f} (bar 1.10); analyzer {dflt['analyzer']:.6f} s/step "
+          f"(sync {sync['analyzer']:.6f}); sync wall {sync['wall']:.6f} s")
+    check(mean_ratio <= 1.10, f"train-main: asynchronous native {mean_ratio:.4f}x the sync run's")
+    rep = dflt["rep"]
+    losses = sync["losses"] + dflt["losses"]
     peak = torch.cuda.max_memory_allocated()
-    check(rep.steps == main_rep.steps, f"train-main {rep.steps} steps, phase 4 {main_rep.steps}")
-    check_totals("train-main", rep, main_ref, rep.steps)
-    check_like("train-main vs phase 4", totals(rep), totals(main_rep))
     check(all(np.isfinite(losses)), f"train-main: a loss is not finite: {losses}")
     ln_v = float(np.log(CONFIG.vocab_size))
     check(abs(losses[0] - ln_v) <= 1.0, f"train-main: first loss {losses[0]!r}, ln V {ln_v!r}")
-    native = (rep.native_s - warm_native) / TRAIN_MAIN["steps"]
-    analyzer = (rep.analyzer_s - warm_analyzer) / TRAIN_MAIN["steps"]
+    native = float(np.mean(dflt["native"]))
+    m = dflt["m"]
     print(f"[train-main] losses {losses} (ln V = {ln_v!r}); lr {float(m['lr'])!r}, grad_norm "
           f"{float(m['grad_norm'])!r}")
-    print(f"[train-main] native {native:.6f} s/step and analyzer {analyzer:.6f} s/step over "
-          f"the {TRAIN_MAIN['steps']} measured steps (warm-up step native {warm_native:.6f} s, "
-          f"analyzer {warm_analyzer:.6f} s); phase 4's stand-in native "
-          f"{stand_in['native_s']:.6f} s/step, analyzer {stand_in['analyzer_s']:.6f} s/step; "
-          f"simulated slowdown {rep.slowdown!r}")
+    print(f"[train-main] native {native:.6f} s/step and analyzer {dflt['analyzer']:.6f} s/step "
+          f"over the {TRAIN_MAIN['steps']} measured steps under the default (warm-up step "
+          f"native {dflt['warm_native']:.6f} s, analyzer {dflt['warm_analyzer']:.6f} s); phase "
+          f"4's stand-in native {stand_in['native_s']:.6f} s/step, analyzer "
+          f"{stand_in['analyzer_s']:.6f} s/step; simulated slowdown {rep.slowdown!r}")
     print(f"[train-main] peak device memory {peak} bytes ({peak / 2**30:.3f} GiB) over the "
-          f"model, optimizer state and 4 steps")
+          f"model, optimizer state and 8 steps")
     # one more step, unattached, under the profiler: the device time by op
-    batch = pipe.device_batch(1 + TRAIN_MAIN["steps"])
+    batch = pipe.device_batch(first)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t1 = time.perf_counter()
         model, state, m = train_step(model, state, batch)
@@ -3399,7 +3593,7 @@ def train_main_path(dev, main_rep, main_ref, stand_in):
     check(np.isfinite(float(m["loss"])), "train-main: the profiled step's loss is not finite")
     print(f"[train-main] one step under torch.profiler {prof_s:.6f} s")
     print(prof.key_averages().table(sort_by="device_time_total", row_limit=20))
-    return c["cascade"]
+    return sync["c"]["cascade"] + dflt["c"]["cascade"]
 
 
 def train_refusals(dev):
@@ -3424,18 +3618,15 @@ def train_refusals(dev):
     check(counts() == before, f"train-refusals launched: {before} -> {counts()}")
 
 
-def train_path(dev, main_rep, main_ref, stand_in):
-    """Phase 17: training.  Returns the cascade's launches in train-main."""
+def train_path(dev):
+    """Phase 17: training (train-main, 17b, runs in phase 15 beside its
+    synchronous twin: :func:`engine_train_main_path`)."""
     t0 = time.perf_counter()
     train_small_path(dev)
     t1 = time.perf_counter()
-    launches = train_main_path(dev, main_rep, main_ref, stand_in)
-    torch.cuda.empty_cache()
-    t2 = time.perf_counter()
     train_refusals(dev)
-    print(f"[train] phase 17 ran {time.perf_counter() - t0:.1f} s: train-small {t1 - t0:.1f}, "
-          f"train-main {t2 - t1:.1f}")
-    return launches
+    print(f"[train] phase 17 ran {time.perf_counter() - t0:.1f} s: train-small {t1 - t0:.1f} "
+          f"(train-main ran in phase 15)")
 
 
 # --------------------------------------------------------------------------- #
@@ -3465,7 +3656,7 @@ MOE_ROUNDTRIP_F32 = (32, 5e-4)
 # x 4096, where the first step's backward ran out of the card's memory
 # beside the 52.8 GB of f32 parameters, gradients and AdamW moments
 # (PERF.md §6)
-MOE_TRAIN = dict(batch=4, seq=4096, steps=3)
+MOE_TRAIN = dict(batch=4, seq=4096)
 JAMBA_LAYERS = 8  # jamba cut to one of its 4 groups (7 Mamba2 + 1 attention sublayer)
 JAMBA_DECODES = 8
 
@@ -3643,6 +3834,8 @@ def check_program(tag, prog, traces, rep, steps, launches):
     flat = prog.sim.flat
     ref = oracle(flat, traces)
     span_ns = max(float(tr.t_ns.max()) for tr in traces)
+    if span_ns >= F32_EXACT_NS:
+        PAST_F32_EXACT.append(tag)
     print(f"[{tag}] {len(traces)} epochs, up to {max(tr.n for tr in traces)} events, "
           f"{sum(tr.n for tr in traces)} per step, spanning up to {span_ns!r} ns; {launches}")
     if span_ns < F32_EXACT_NS:
@@ -3689,6 +3882,7 @@ def attached_serving(tag, cfg, kind, step, args, steps, want, program):
                            epoch=EpochSchedule("quantum", quantum_ns=ZOO_QUANTUM_NS), **program)
         qtraces = q.epoch_traces()
         q.step(*args)
+        q.flush()
         reset_counts()
         qrep = q.run(1, *args)
         qc = counts()
@@ -3802,85 +3996,96 @@ def serve_moe_path(dev):
     return c["cascade"] + c_dec["cascade"]
 
 
-def train_moe_path(dev, stand_in):
-    """Phase 18c, train-moe: granite-moe-3b-a800m's own train step at its
-    published widths and depth (bf16 compute over f32 master parameters
-    and AdamW moments, remat, the head in 4096-token chunks) on 4 x
-    4096-token SyntheticPipeline batches, attached to granite's own train
-    program at that size under main's policy on Figure 1: 1 warm-up and 3 measured
-    steps, one cascade launch a step and nothing else; totals against
-    analyze_ref (its layer epochs pass 2**23 ns: as phase 13, and again
-    in quantum epochs, 1 + 1 steps); every loss finite, the first within
-    1.0 of ln(vocab).  Returns the cascade's launches."""
-    cfg = get_config("granite-moe-3b-a800m")
-    check(cfg.remat and cfg.dtype == torch.bfloat16, "train-moe: want bf16 with remat")
+def train_full_path(tag, cfg, dev, batch, seq, stand_in):
+    """``cfg``'s own train step at its published widths (bf16 compute over
+    f32 master parameters and AdamW moments, remat, the head in 4096-token
+    chunks) on ``batch`` x ``seq``-token SyntheticPipeline batches
+    (embeddings for a model without an embedding table), attached to
+    ``cfg``'s own train program at that size under main's policy on Figure
+    1: 1 warm-up and 3 measured steps, one cascade launch a step and
+    nothing else; totals against analyze_ref (layer epochs past 2**23 ns:
+    as phase 13, then 1 + 1 steps in quantum epochs); every loss finite,
+    the first within 1.0 of ln(vocab).  Prints native and analyzer seconds,
+    the model-FLOP rate and the peak memory.  Returns the cascade's
+    launches."""
+    check(cfg.remat and cfg.dtype == torch.bfloat16, f"{tag}: want bf16 with remat")
+    steps = 3
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = Model(cfg, device=dev, seed=0)
     opt = AdamWConfig()
     state = {"adam": adamw_init(model, opt), "ef": {}}
     train_step = make_train_step(cfg, opt, device=dev)
-    pipe = SyntheticPipeline(cfg, MOE_TRAIN["batch"], MOE_TRAIN["seq"], seed=0, device=dev)
-    program = dict(batch=MOE_TRAIN["batch"], seq=MOE_TRAIN["seq"])
+    pipe = SyntheticPipeline(cfg, batch, seq, seed=0, device=dev)
+    program = dict(batch=batch, seq=seq)
     prog = attach_program(cfg, "train", train_step, POLICY, **program)
     traces = prog.epoch_traces()
-    print(f"[train-moe] {sum(p.numel() for p in model.parameters())} parameters, set-up "
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params == cfg.param_counts()["total"], f"{tag}: {n_params} parameters")
+    print(f"[{tag}] {cfg.name}: {n_params} parameters, {batch} x {seq} "
+          f"{'tokens' if cfg.embed_inputs else 'frames of embeddings'} a step, set-up "
           f"{time.perf_counter() - t0:.3f} s")
     metrics = []
     model, state, m = prog.step(model, state, pipe.device_batch(0))
     metrics.append({k: float(v) for k, v in m.items()})
     warm_native, warm_analyzer = prog.report.native_s, prog.report.analyzer_s
     reset_counts()
-    for s in range(1, 1 + MOE_TRAIN["steps"]):
+    for s in range(1, 1 + steps):
         model, state, m = prog.step(model, state, pipe.device_batch(s))
         metrics.append({k: float(v) for k, v in m.items()})
+    prog.flush()
     c = counts()
-    check_launches("train-moe", c, "cascade", MOE_TRAIN["steps"])
+    check_launches(tag, c, "cascade", steps)
     rep = prog.report
     peak = torch.cuda.max_memory_allocated()
     launches = c["cascade"]
-    if check_program("train-moe", prog, traces, rep, rep.steps, {"cascade": launches}):
+    if check_program(tag, prog, traces, rep, rep.steps, {"cascade": launches}):
         q = attach_program(cfg, "train", train_step, POLICY,
                            epoch=EpochSchedule("quantum", quantum_ns=ZOO_QUANTUM_NS), **program)
         qtraces = q.epoch_traces()
-        n = 1 + MOE_TRAIN["steps"]
+        n = 1 + steps
         model, state, _ = q.step(model, state, pipe.device_batch(n))
+        q.flush()
         reset_counts()
         model, state, m = q.step(model, state, pipe.device_batch(n + 1))
-        check_launches("train-moe quantum", counts(), "cascade", 1)
+        q.flush()
+        check_launches(f"{tag} quantum", counts(), "cascade", 1)
         launches += 1
-        check_totals("train-moe quantum", q.report, oracle(q.sim.flat, qtraces), q.report.steps)
-        print(f"[train-moe quantum] {len(qtraces)} epochs of 2**22 ns, up to "
+        check_totals(f"{tag} quantum", q.report, oracle(q.sim.flat, qtraces), q.report.steps)
+        print(f"[{tag} quantum] {len(qtraces)} epochs of 2**22 ns, up to "
               f"{max(tr.n for tr in qtraces)} events; loss {float(m['loss'])!r}")
+        q.close()
+    prog.close()
     losses = [x["loss"] for x in metrics]
-    check(all(np.isfinite(losses)), f"train-moe: a loss is not finite: {losses}")
+    check(all(np.isfinite(losses)), f"{tag}: a loss is not finite: {losses}")
     ln_v = float(np.log(cfg.vocab_size))
-    check(abs(losses[0] - ln_v) <= 1.0, f"train-moe: first loss {losses[0]!r}, ln V {ln_v!r}")
-    native = (rep.native_s - warm_native) / MOE_TRAIN["steps"]
-    analyzer = (rep.analyzer_s - warm_analyzer) / MOE_TRAIN["steps"]
-    flops = cfg.model_flops("train", MOE_TRAIN["batch"], MOE_TRAIN["seq"])
-    print(f"[train-moe] losses {losses} = ce {[x['ce'] for x in metrics]} + 0.01 x aux "
+    check(abs(losses[0] - ln_v) <= 1.0, f"{tag}: first loss {losses[0]!r}, ln V {ln_v!r}")
+    native = (rep.native_s - warm_native) / steps
+    analyzer = (rep.analyzer_s - warm_analyzer) / steps
+    flops = cfg.model_flops("train", batch, seq)
+    print(f"[{tag}] losses {losses} = ce {[x['ce'] for x in metrics]} + 0.01 x aux "
           f"{[x['aux'] for x in metrics]} (ln V = {ln_v!r}); lr {metrics[-1]['lr']!r}, grad_norm "
           f"{metrics[-1]['grad_norm']!r}")
-    print(f"[train-moe] native {native:.6f} s/step and analyzer {analyzer:.6f} s/step over the "
-          f"{MOE_TRAIN['steps']} measured steps (warm-up step native {warm_native:.6f} s, "
+    print(f"[{tag}] native {native:.6f} s/step and analyzer {analyzer:.6f} s/step over the "
+          f"{steps} measured steps (warm-up step native {warm_native:.6f} s, "
           f"analyzer {warm_analyzer:.6f} s); phase 4's stand-in native "
           f"{stand_in['native_s']:.6f} s/step; simulated slowdown {rep.slowdown!r}")
-    print(f"[train-moe] model FLOPs {flops!r} a step (6 x {cfg.param_counts()['active']!r} active "
-          f"x {MOE_TRAIN['batch'] * MOE_TRAIN['seq']} tokens): {flops / native / 1e12!r} TFLOP/s, "
+    print(f"[{tag}] model FLOPs {flops!r} a step (6 x {cfg.param_counts()['active']!r} active "
+          f"x {batch * seq} tokens): {flops / native / 1e12!r} TFLOP/s, "
           f"{flops / native / BF16_OPS_PER_S!r} of the dense bf16 peak")
-    print(f"[train-moe] peak device memory {peak} bytes ({peak / 2**30:.3f} GiB) over the model, "
+    print(f"[{tag}] peak device memory {peak} bytes ({peak / 2**30:.3f} GiB) over the model, "
           f"optimizer state and the steps")
-    batch = pipe.device_batch(100)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t1 = time.perf_counter()
-        model, state, m = train_step(model, state, batch)
-        torch.cuda.synchronize()
-        prof_s = time.perf_counter() - t1
-    check(np.isfinite(float(m["loss"])), "train-moe: the profiled step's loss is not finite")
-    print(f"[train-moe] one step under torch.profiler {prof_s:.6f} s")
-    print(prof.key_averages().table(sort_by="device_time_total", row_limit=30))
     return launches
+
+
+def train_moe_path(dev, stand_in):
+    """Phase 18c, train-moe: granite-moe-3b-a800m's own train step at its
+    published widths and depth on 4 x 4096-token batches
+    (:func:`train_full_path`; its layer epochs pass 2**23 ns).  Returns the
+    cascade's launches."""
+    cfg = get_config("granite-moe-3b-a800m")
+    return train_full_path("train-moe", cfg, dev, MOE_TRAIN["batch"], MOE_TRAIN["seq"],
+                           stand_in)
 
 
 def jamba_path(dev):
@@ -3942,6 +4147,264 @@ def moe_hybrid_path(dev, stand_in):
     return {"cascade": cascade + j["cascade"], "ssd": j["ssd"]}
 
 
+# --------------------------------------------------------------------------- #
+# Phase 19: the VLM and audio families and the two remaining dense configs
+# --------------------------------------------------------------------------- #
+
+FAMILY_ARCHS = ("chatglm3-6b", "starcoder2-3b", "qwen2-vl-72b", "hubert-xlarge")
+FAMILY_SMALL = dict(batch=2, seq=64)  # SMOKE models, card against CPU, f32
+FAMILY_DECODES = 8
+# train-starcoder2: 4 x 4096 tokens a step.  A reckoning from the widths
+# put 8 x 4096 at 80-90 GiB beside the 48.5 GB of f32 parameters,
+# gradients and moments (PERF.md §6), past the card's 79.2 GiB, so the batch is cut, as
+# train-moe's was; hubert's 15.1 GB of state leave room for 8 x 4096
+STARCODER2_TRAIN = dict(batch=4, seq=4096)
+HUBERT_TRAIN = dict(batch=8, seq=4096)
+QWEN2VL_LAYERS = 12  # qwen2-vl-72b cut in depth from 80 layers: widths kept
+PAST_F32_EXACT = []  # the attached programs whose layer epochs reach 2**23 ns
+
+
+def family_inputs(cfg, B, S, gen, dev):
+    """Tokens, or ``[B, S, d_model]`` embeddings in ``cfg.dtype``, from the
+    generator ``gen``, and the batch key they go under."""
+    if cfg.embed_inputs:
+        return "tokens", torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device=gen.device
+                                       ).to(dev)
+    x = torch.randn((B, S, cfg.d_model), generator=gen, device=gen.device)
+    return "embeds", x.to(dev, cfg.dtype)
+
+
+def family_small_model(tag, cfg, dev):
+    """Phase 19a: one seeded SMOKE model at f32 on the card and the CPU:
+    forward logits at rtol 1e-4 (atol 1e-4 of the largest); a decoder's
+    prefill of S-1 plus one decode against its forward of S under 5e-4 on
+    the card; then 3 train steps on each device (:func:`train_card_vs_cpu`)."""
+    cfg = dataclasses.replace(cfg, dtype=torch.float32, cache_dtype=torch.float32)
+    cpu = Model(cfg, device="cpu", seed=0)
+    card = model_params_from_arrays(cfg, params_to_arrays(cpu), device=dev)
+    B, S = FAMILY_SMALL["batch"], FAMILY_SMALL["seq"]
+    key, x = family_inputs(cfg, B, S, torch.Generator().manual_seed(3), "cpu")
+    with torch.inference_mode():
+        got, want = card(x.to(dev))[0].cpu(), cpu(x)[0]
+    err = check_rows(f"{tag} logits", got, want, MODEL_RTOL, MODEL_RTOL * float(want.abs().max()))
+    line = f"[{tag}] logits on the card within {err!r} of the CPU's (largest {float(want.abs().max())!r})"
+    if cfg.family != "audio":
+        xd = x.to(dev)
+        _, caches, clen = make_prefill_step(cfg, pad_to=S + 4)(card, {key: xd[:, :-1]})
+        one = "token" if cfg.embed_inputs else "embed"
+        dec, _, _ = make_decode_step(cfg)(card, {one: xd[:, -1:], "caches": caches,
+                                                 "cache_len": clen})
+        full = got[:, -1]
+        rel = float((dec.cpu() - full).abs().max()) / float(full.abs().max())
+        check(rel < ROUNDTRIP_BAR, f"{tag}: prefill S-1 + decode parts by {rel} from forward S")
+        line += f"; prefill {S - 1} + 1 decode against forward {S}: rel {rel:.3e}"
+    print(line)
+    train_card_vs_cpu(f"{tag} train", cfg, dev)
+
+
+class ProductCount(TorchDispatchMode):
+    """Counts the weight products (``aten.mm`` / ``aten.addmm``) dispatched
+    while it is active, the backward's autograd thread included."""
+
+    PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.n += func in self.PRODUCTS
+        return func(*args, **(kwargs or {}))
+
+
+def group_products(run):
+    """``run()`` under a :class:`ProductCount`, each call of
+    ``transformer.apply_group`` noting the products it ran (a group's
+    forward, then its checkpoint's recomputation in the backward, which may
+    stop early by raising).  Returns run's result and the per-call counts."""
+    inner, per_call = mtf.apply_group, []
+
+    def counted(*args, **kwargs):
+        n0 = mode.n
+        try:
+            return inner(*args, **kwargs)
+        finally:
+            per_call.append(mode.n - n0)
+
+    mtf.apply_group = counted
+    try:
+        with ProductCount() as mode:
+            out = run()
+    finally:
+        mtf.apply_group = inner
+    return out, per_call
+
+
+def dots_vs_nothing(tag, cfg, dev):
+    """Phase 19a: ``cfg`` at f32 on the card, 3 train steps under
+    ``remat_policy_name="dots"`` and under ``"nothing"`` from one seeded
+    model's weights and the same batches: losses to rel 1e-5, parameters
+    within 2 x the sum of the steps' lr; the weight products of each
+    group's forward and recomputation counted: the forwards equal, every
+    recomputation under ``"dots"`` without a product (their outputs were
+    saved) and every one under ``"nothing"`` with some; the peak memory
+    above the model of each printed."""
+    opt = AdamWConfig(**TRAIN_OPT)
+    base = Model(dataclasses.replace(cfg, dtype=torch.float32, cache_dtype=torch.float32),
+                 device="cpu", seed=0)
+    weights = params_to_arrays(base)
+    runs = {}
+    for policy in ("dots", "nothing"):
+        pcfg = dataclasses.replace(base.cfg, remat_policy_name=policy)
+        model = model_params_from_arrays(pcfg, weights, device=dev)
+        step = make_train_step(pcfg, opt, device=dev)
+        pipe = SyntheticPipeline(pcfg, TRAIN_SMALL["batch"], TRAIN_SMALL["seq"], seed=0, device=dev)
+        state = {"adam": adamw_init(model, opt), "ef": {}}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated()
+        metrics = []
+
+        def steps():
+            nonlocal model, state
+            for s in range(TRAIN_SMALL["steps"]):
+                model, state, m = step(model, state, pipe.device_batch(s))
+                metrics.append({k: float(v) for k, v in m.items()})
+
+        _, per_call = group_products(steps)
+        runs[policy] = (model, metrics, torch.cuda.max_memory_allocated() - base_mem, per_call)
+    lrs = [x["lr"] for x in runs["nothing"][1]]
+    for s, (a, b) in enumerate(zip(runs["dots"][1], runs["nothing"][1])):
+        rel = abs(a["loss"] - b["loss"]) / abs(b["loss"])
+        check(rel <= TRAIN_LOSS_REL, f"{tag} step {s}: loss {a['loss']!r} under dots, "
+              f"{b['loss']!r} under nothing")
+    atol = 2 * sum(lrs) + 1e-6
+    ref = dict(runs["nothing"][0].named_parameters())
+    worst = max(float((p - ref[k]).detach().abs().max())
+                for k, p in runs["dots"][0].named_parameters())
+    check(worst <= atol, f"{tag}: parameters part by {worst!r}, over {atol!r}")
+    g, n_steps = cfg.n_groups, TRAIN_SMALL["steps"]
+    fwd, rec = {}, {}
+    for policy in ("dots", "nothing"):
+        per_call = runs[policy][3]
+        check(len(per_call) == 2 * g * n_steps, f"{tag} {policy}: {len(per_call)} group calls")
+        fwd[policy] = [n for s in range(n_steps) for n in per_call[2 * g * s:2 * g * s + g]]
+        rec[policy] = [n for s in range(n_steps) for n in per_call[2 * g * s + g:2 * g * (s + 1)]]
+    check(fwd["dots"] == fwd["nothing"] and min(fwd["dots"]) > 0,
+          f"{tag}: the forwards' products differ: {fwd}")
+    check(max(rec["dots"]) == 0 and min(rec["nothing"]) > 0,
+          f"{tag}: recomputed products under dots {rec['dots']}, nothing {rec['nothing']}")
+    print(f"[{tag}] weight products over 3 steps: the groups' forwards {sum(fwd['dots'])} under "
+          f"each; their recomputations {sum(rec['dots'])} under dots, {sum(rec['nothing'])} "
+          f"under nothing")
+    print(f"[{tag}] 3 steps under dots and nothing: losses {[x['loss'] for x in runs['dots'][1]]} "
+          f"/ {[x['loss'] for x in runs['nothing'][1]]}; parameters within {worst!r} (bar "
+          f"{atol!r}); peak above the model: dots {runs['dots'][2]} bytes, nothing "
+          f"{runs['nothing'][2]} bytes")
+
+
+def serve_full_path(tag, cfg, dev, decodes=FAMILY_DECODES):
+    """``cfg`` at its published widths (bf16 compute over f32 weights from
+    seed 0) serving 8 x 4096 tokens or frames: one prefill (padded for
+    ``decodes``) and ``decodes`` greedy decode steps, timed, then the
+    prefill (1 + 3) and, for a decoder, the decode (1 + 8) steps attached
+    to ``cfg``'s own prefill and decode programs with the weights in
+    cxl_pool1 (:func:`attached_serving`).  A model without an embedding
+    table decodes on embeddings of the next frame.  Returns the cascade's
+    launches."""
+    gen = torch.Generator(device=dev).manual_seed(1)
+    key, x = family_inputs(cfg, SERVE_BATCH, SERVE_SEQ, gen, dev)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Model(cfg, device=dev, seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params == cfg.param_counts()["total"], f"{tag}: {n_params} parameters")
+    print(f"[{tag}] {cfg.name} ({cfg.n_layers} layers): {n_params} f32 parameters on the card in "
+          f"{time.perf_counter() - t0:.3f} s, {torch.cuda.memory_allocated() / 2**30:.3f} GiB")
+    decoder = cfg.family != "audio"
+    pad_to = SERVE_SEQ + decodes if decoder else None
+    prefill = make_prefill_step(cfg, pad_to=pad_to)
+    batch = {key: x}
+    t0 = time.perf_counter()
+    logits, caches, clen = prefill(model, batch)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    check(logits.shape == (SERVE_BATCH, cfg.vocab_size) and bool(torch.isfinite(logits).all()),
+          f"{tag}: prefill logits {tuple(logits.shape)}, finite {bool(torch.isfinite(logits).all())}")
+    line = f"[{tag}] served {SERVE_BATCH} x {SERVE_SEQ}: prefill {prefill_s:.6f} s (first call)"
+    one = "token" if cfg.embed_inputs else "embed"
+
+    def next_input(step_logits):
+        if cfg.embed_inputs:
+            return step_logits.argmax(-1, keepdim=True)
+        return torch.randn((SERVE_BATCH, 1, cfg.d_model), generator=gen, device=dev).to(cfg.dtype)
+
+    c_dec = {"cascade": 0}
+    if decoder:
+        decode = make_decode_step(cfg)
+        state = {one: next_input(logits), "caches": caches, "cache_len": clen}
+        t0 = time.perf_counter()
+        for _ in range(decodes):
+            step_logits, new_caches, new_len = decode(model, state)
+            state = {one: next_input(step_logits), "caches": new_caches, "cache_len": new_len}
+        torch.cuda.synchronize()
+        dec_s = (time.perf_counter() - t0) / decodes
+        check(bool(torch.isfinite(step_logits).all()) and state["cache_len"] == SERVE_SEQ + decodes,
+              f"{tag}: decode logits finite {bool(torch.isfinite(step_logits).all())}, cache "
+              f"length {state['cache_len']}")
+        line += f", then {decodes} decode steps at {dec_s:.6f} s each"
+    print(f"{line}; peak {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    c = attached_serving(f"{tag}-prefill", cfg, "prefill", prefill, (model, batch), 3, {},
+                         dict(batch=SERVE_BATCH, seq=SERVE_SEQ))
+    if decoder:
+        # every attached decode writes slot 4096 (the state is not
+        # advanced); the served decodes' keys above it are masked
+        state = {one: next_input(logits), "caches": caches, "cache_len": clen}
+        c_dec = attached_serving(f"{tag}-decode", cfg, "decode", make_decode_step(cfg),
+                                 (model, state), FAMILY_DECODES, {},
+                                 dict(batch=SERVE_BATCH, seq=1, cache_len=SERVE_SEQ))
+    return c["cascade"] + c_dec["cascade"]
+
+
+def families_path(dev, stand_in):
+    """Phase 19: the VLM and audio families and chatglm3-6b / starcoder2-3b.
+    Returns the cascade's launches."""
+    t0 = time.perf_counter()
+    past = len(PAST_F32_EXACT)
+    for arch in FAMILY_ARCHS:
+        family_small_model(f"family-small {arch}", get_smoke(arch), dev)
+    dots_vs_nothing("family-small starcoder2-3b dots", get_smoke("starcoder2-3b"), dev)
+    times = {"small": time.perf_counter() - t0}
+    cascade = 0
+    for tag, run in (
+        ("serve-starcoder2", lambda: serve_full_path("serve-starcoder2",
+                                                     get_config("starcoder2-3b"), dev)),
+        ("train-starcoder2", lambda: train_full_path(
+            "train-starcoder2", get_config("starcoder2-3b"), dev, STARCODER2_TRAIN["batch"],
+            STARCODER2_TRAIN["seq"], stand_in)),
+        ("serve-chatglm3", lambda: serve_full_path("serve-chatglm3", get_config("chatglm3-6b"),
+                                                   dev)),
+        ("serve-hubert", lambda: serve_full_path("serve-hubert", get_config("hubert-xlarge"),
+                                                 dev)),
+        ("train-hubert", lambda: train_full_path(
+            "train-hubert", get_config("hubert-xlarge"), dev, HUBERT_TRAIN["batch"],
+            HUBERT_TRAIN["seq"], stand_in)),
+        ("serve-qwen2vl", lambda: serve_full_path(
+            "serve-qwen2vl", dataclasses.replace(get_config("qwen2-vl-72b"),
+                                                 n_layers=QWEN2VL_LAYERS), dev)),
+    ):
+        t1 = time.perf_counter()
+        cascade += run()
+        torch.cuda.empty_cache()
+        times[tag] = time.perf_counter() - t1
+    print(f"[families] programs whose layer epochs reach 2**23 ns on H100_SXM (held as "
+          f"phase 13, then rerun in quantum epochs): {PAST_F32_EXACT[past:]}")
+    print(f"[families] phase 19 ran {time.perf_counter() - t0:.1f} s: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in times.items()))
+    return cascade
+
+
 def sass_counts(path) -> str:
     """How many atomic, double-add and match instructions a built library's
     SASS holds (cuobjdump), or why it could not be read."""
@@ -3961,6 +4424,7 @@ def cascade_batches(dev):
     alone, for ``--cascades``."""
     sess = fabric_session(FABRIC_HOSTS, FABRIC_LOAD, FABRIC_EVENTS_PER_ACCESS, "cuda")
     sess.round()
+    sess.flush()
     b = staged_batch(sess._round_cache[0], sess.flat, dev)
     compare_hosts("fabric_batch", b["t"], b["bits"], b["hosts"], b["stts"], sess.flat.n_hosts)
     del sess, b
@@ -3968,6 +4432,7 @@ def cascade_batches(dev):
                           classes=FABRIC_CLASSES, discipline="priority",
                           class_weights=(1.0, 1.0))
     sess.round()
+    sess.flush()
     b = staged_batch(sess._round_cache[0], sess.flat, dev)
     stts, disc, w = qos_tables(sess.flat, dev)
     compare_qos_hosts("qos_fabric_batch", b["t"], b["bits"], b["qos"], b["hosts"], stts, disc,
@@ -4066,7 +4531,7 @@ def main(argv) -> int:
     hosts_launches += hosts14
     qos_launches += qos14
     coalesced_row, cascade15, scan15, hosts15 = engine_path(
-        dev, step, x, main_rep, pipe_rep, fabric_rep)
+        dev, step, x, main_rep, pipe_rep, fabric_rep, main_ref, stand_in)
     rows.append(coalesced_row)
     cascade_launches += cascade15
     scan_launches += scan15
@@ -4083,13 +4548,15 @@ def main(argv) -> int:
     qos_hosts_launches += c16["qos_hosts"]
     del step, x
     torch.cuda.empty_cache()
-    cascade_launches += train_path(dev, main_rep, main_ref, stand_in)
+    train_path(dev)
     torch.cuda.empty_cache()
     c18 = moe_hybrid_path(dev, stand_in)
     cascade_launches += c18["cascade"]
     ssd_launches += c18["ssd"]
+    torch.cuda.empty_cache()
+    cascade_launches += families_path(dev, stand_in)
 
-    # -- 19. the kernels line and the result -------------------------------- #
+    # -- 20. the kernels line and the result -------------------------------- #
     src = "src/repro_torch/kernels/csrc/"
     kernels = []
     for name, source, replaces, launches, comps, row in (

@@ -1,14 +1,13 @@
 """Published model configurations (structure only, no weights): the
-architecture registry and the assigned input shapes, a copy of
-``repro/configs/__init__.py``.
+architecture registry, the assigned input shapes and ``input_specs``, a
+port of ``repro/configs/__init__.py``.
 
 40 assigned cells = 10 archs × 4 shapes.  ``cells()`` enumerates the
 runnable ones and records every skip with its reason (full-attention archs
 skip long_500k; the encoder-only arch skips decode shapes).
-
-The reference's ``input_specs`` (the step inputs of one cell, decode caches
-included) needs ``Model.init_caches`` for every family, so it arrives with
-the families' forward passes (slice 7 of the port).
+``input_specs`` gives one cell's step inputs, decode caches included, as
+``meta`` tensors (the reference's ``ShapeDtypeStruct``s): shapes and
+dtypes, nothing allocated.
 """
 
 from __future__ import annotations
@@ -17,7 +16,9 @@ import dataclasses
 import importlib
 from typing import Any, Dict, List, Optional, Tuple
 
-from repro_torch.models import ModelConfig
+import torch
+
+from repro_torch.models import Model, ModelConfig
 
 __all__ = [
     "ARCH_IDS",
@@ -26,6 +27,7 @@ __all__ = [
     "cells",
     "get_config",
     "get_smoke",
+    "input_specs",
 ]
 
 _MODULES = {
@@ -94,3 +96,48 @@ def cells() -> List[Dict[str, Any]]:
                 {"arch": arch, "shape": sname, "runnable": skip is None, "skip": skip}
             )
     return out
+
+
+# --------------------------------------------------------------------------- #
+# input specs (meta tensors; no allocation)
+# --------------------------------------------------------------------------- #
+
+
+def _spec(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def input_specs(
+    cfg: ModelConfig, shape: Shape, batch_override: Optional[int] = None
+) -> Dict[str, Any]:
+    """Meta-tensor tree for one step of (cfg × shape):
+
+    train:   {'tokens'|'embeds', 'labels'}
+    prefill: {'tokens'|'embeds'}
+    decode:  {'caches', 'token'|'embed', 'cache_len'}
+
+    Tokens, labels and ``cache_len`` (0-d) are int32; embeddings are
+    ``[B, S, d_model]`` in ``cfg.dtype``; the caches are a meta model's
+    ``init_caches(B, S)``."""
+    B = batch_override or shape.global_batch
+    S = shape.seq_len
+    i32 = torch.int32
+    if shape.kind == "train":
+        if cfg.embed_inputs:
+            inp = {"tokens": _spec((B, S), i32)}
+        else:
+            inp = {"embeds": _spec((B, S, cfg.d_model), cfg.dtype)}
+        inp["labels"] = _spec((B, S), i32)
+        return inp
+    if shape.kind == "prefill":
+        if cfg.embed_inputs:
+            return {"tokens": _spec((B, S), i32)}
+        return {"embeds": _spec((B, S, cfg.d_model), cfg.dtype)}
+    if shape.kind == "decode":
+        caches = Model(cfg, device="meta").init_caches(B, S)
+        if cfg.embed_inputs:
+            tok = {"token": _spec((B, 1), i32)}
+        else:
+            tok = {"embed": _spec((B, 1, cfg.d_model), cfg.dtype)}
+        return {"caches": caches, **tok, "cache_len": _spec((), i32)}
+    raise ValueError(shape.kind)

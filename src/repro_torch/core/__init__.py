@@ -19,6 +19,7 @@ Components (paper Figure 2):
   :mod:`repro_torch.core.cache` (host numpy, like the reference's)
   Asynchronous analysis -> :mod:`repro_torch.core.engine` (one dispatcher
   thread on its own CUDA stream, cross-session coalescing)
+  Roofline -> :mod:`repro_torch.core.roofline` (the three terms of a step)
   Exploration -> :mod:`repro_torch.core.scenario` (K placement, topology,
   cache, granularity and QoS scenarios in one stacked dispatch) and
   :mod:`repro_torch.core.fleet` (tenants scheduled over R pooled racks, the
@@ -75,6 +76,7 @@ from .policy import (
     bytes_per_pool_batch,
     capacity_check,
 )
+from .roofline import RooflineTerms, roofline_terms
 from .scenario import Scenario, ScenarioSuite, SweepResult
 from .timer import EpochSchedule, slice_by_quantum
 from .topology import (
@@ -149,6 +151,7 @@ __all__ = [
     "Region",
     "RegionArrays",
     "RegionMap",
+    "RooflineTerms",
     "Scenario",
     "ScenarioSuite",
     "SimReport",
@@ -177,6 +180,7 @@ __all__ = [
     "plan_cascade",
     "plan_chain",
     "pooled_topology",
+    "roofline_terms",
     "skeleton_to_events",
     "slice_by_quantum",
     "split_by_host",

@@ -8,10 +8,12 @@ Wraps any PyTorch step function.  Per step:
      residency and inject the copy traffic), inject coherency traffic, and
      run the device cache's tag simulation over the final epoch, whose hit
      fractions become the epoch's latency-scale row;
-  2. with ``async_analysis=True`` (or ``engine=``), submit the step's epoch
-     batch to the shared :class:`~repro_torch.core.engine.AnalysisEngine`
-     *before* the native step, so the analyzer works on its own thread and
-     CUDA stream while the step executes; the defaults stay synchronous;
+  2. asynchronously (the default for the epoch analyzer without delay
+     injection, as in the reference; ``async_analysis=False`` asks for the
+     synchronous path), submit the step's epoch batch to the shared
+     :class:`~repro_torch.core.engine.AnalysisEngine` *before* the native
+     step, so the analyzer works on its own thread and CUDA stream while
+     the step executes;
   3. dispatch the real step and measure native wall time (the paper's
      "execution of the attached program"), waiting for the card only on
      the streams the step's outputs were produced on (the caller's current
@@ -178,8 +180,9 @@ class CXLMemSim:
     when no card is present) or ``"cpu"`` (the plain PyTorch versions).
     ``async_analysis=True`` analyzes through ``engine`` (the process-wide
     :meth:`AnalysisEngine.default` when None); ``None``, the default, is
-    asynchronous only when an ``engine`` is given.  ``inject_delays`` always
-    forces synchronous analysis."""
+    asynchronous for the epoch analyzer without delay injection, as in the
+    reference; ``async_analysis=False`` asks for the synchronous path.
+    ``inject_delays`` always forces synchronous analysis."""
 
     def __init__(
         self,
@@ -196,7 +199,7 @@ class CXLMemSim:
         n_windows: int = 128,
         check_capacity: bool = True,
         max_events_per_access: int = 64,  # trace fidelity (higher = finer)
-        async_analysis: Optional[bool] = None,  # None: asynchronous iff engine= is given
+        async_analysis: Optional[bool] = None,  # None: asynchronous for 'epoch' without inject_delays
         engine: Optional[AnalysisEngine] = None,  # None: the shared default
         pipeline: bool = False,  # device-resident epoch pipeline (dispatch cache + pinned staging)
         warmup: bool = False,  # build the pipeline's dispatch-cache entry at attach
@@ -222,10 +225,11 @@ class CXLMemSim:
         self.pipeline = pipeline
         self.warmup = warmup
         self.device = _check_device(device)
+        # asynchronous analysis overlaps the analyzer with the native step;
         # delay injection needs the delay before the step returns, so it
         # forces the synchronous path
         if async_analysis is None:
-            async_analysis = engine is not None
+            async_analysis = analyzer == "epoch" and not inject_delays
         self.async_analysis = bool(async_analysis) and not inject_delays
 
     def attach(

@@ -4,9 +4,9 @@ session (port of ``repro/core/engine.py``).
 The paper's central claim is *low-overhead attach*: the Timing Analyzer must
 hide behind the attached program's own execution.  :class:`AnalysisEngine`
 is one dispatcher thread that serves every session that asks for
-asynchronous analysis (``CXLMemSim(async_analysis=True)``,
-``FabricSession(async_analysis=True)`` or either with ``engine=``); the
-port's sessions stay synchronous unless asked.
+asynchronous analysis: ``CXLMemSim`` and ``FabricSession`` by default, as
+in the reference, or either with ``engine=``; ``async_analysis=False``
+asks for the synchronous path.
 
   * **Sessions register** (:meth:`AnalysisEngine.register`) and get an
     :class:`EngineHandle`; ``handle.submit(traces, scales, fold=...)``

@@ -42,10 +42,10 @@ seconds (native + that host's delay share), and the fabric-wide contention
 decomposition (latency / congestion / bandwidth / coherency, per switch,
 per pool, per host).
 
-By default analysis is synchronous: each round analyzes on the caller's
-thread before the tenants' native steps run (the reference's rounds overlap
-by default).  **Overlapped rounds** (``async_analysis=True`` or
-``engine=``): each round's merged timeline is submitted to the shared
+**Overlapped rounds** are the default, as in the reference
+(``async_analysis=True``; ``async_analysis=False`` without ``engine=``
+analyzes each round synchronously on the caller's thread before the
+tenants' native steps run): each round's merged timeline is submitted to the shared
 :class:`~repro_torch.core.engine.AnalysisEngine` *before* the tenants'
 native steps, so the analyzer's device work hides behind the attached
 programs' own execution, and concurrent sessions on equal topologies
@@ -221,9 +221,10 @@ class FabricSession(EngineClient):
     components, full port visibility), since the fabric layout itself is
     host-count independent.  ``device`` is where the analyzer runs:
     ``"cuda"`` (the default; raises when no card is present) or ``"cpu"``
-    (the plain PyTorch versions).  ``async_analysis=True`` or ``engine=``
-    overlaps the rounds through ``engine`` (the process-wide
-    :meth:`AnalysisEngine.default` when None).
+    (the plain PyTorch versions).  ``async_analysis=True`` (the default)
+    or ``engine=`` overlaps the rounds through ``engine`` (the process-wide
+    :meth:`AnalysisEngine.default` when None); ``async_analysis=False``
+    without ``engine=`` analyzes each round synchronously.
     """
 
     # overlapped rounds fold from the engine's dispatcher thread while the
@@ -242,8 +243,8 @@ class FabricSession(EngineClient):
         n_windows: int = 128,
         check_capacity: bool = True,
         max_events_per_access: int = 64,
-        async_analysis: bool = False,
-        engine: Optional[AnalysisEngine] = None,
+        async_analysis: bool = True,
+        engine: Optional[AnalysisEngine] = None,  # None: the shared default
         pipeline: bool = False,
         device="cuda",
     ):

@@ -1,6 +1,6 @@
 """Model descriptions the simulator reads (configs and memory programs) and
-the model zoo's forward passes (the dense, moe, hybrid and ssm families so
-far)."""
+the model zoo's forward passes (every family: dense, moe, hybrid, ssm, vlm
+and audio)."""
 
 from .config import ModelConfig
 from .model import Model

@@ -8,8 +8,10 @@ through :func:`repro_torch.kernels.ops.attention`, the reference's own
 structure (its model never calls the Pallas kernel).
 
 RoPE variants: ``'rope'`` (standard 1-d rotary: Qwen3, Mistral, Granite,
-Jamba) and ``'none'``.  ``'rope2d'`` (ChatGLM) and ``'mrope'`` (Qwen2-VL)
-come with the VLM cut of slice 7 and raise here.
+Jamba, StarCoder2), ``'rope2d'`` (ChatGLM: rotary halves on position
+streams 0 and 1), ``'mrope'`` (Qwen2-VL M-RoPE: sections of ``D//2``,
+``D//4`` and the rest on streams 0, 1 and 2, each with its own
+frequencies) and ``'none'`` (HuBERT).
 """
 
 from __future__ import annotations
@@ -67,11 +69,26 @@ def apply_rope(
         pos = positions if positions.dim() == 2 else positions[:, 0]
         inv = rope_frequencies(x.shape[-1], theta, device=x.device)
         return _rotate(x, pos[:, None, :], inv)
-    if variant in ("rope2d", "mrope"):
-        raise NotImplementedError(
-            f"rope variant {variant!r} comes with the VLM cut of slice 7 of the port "
-            f"({'chatglm' if variant == 'rope2d' else 'qwen2-vl'}); 'rope' and 'none' are ported"
-        )
+    D = x.shape[-1]
+    if variant == "rope2d":
+        # ChatGLM: two independent rotary halves on two position streams
+        if positions.dim() != 3 or positions.shape[1] < 2:
+            raise ValueError(f"rope2d needs [B, 2, S] positions, got {tuple(positions.shape)}")
+        half = D // 2
+        inv = rope_frequencies(half, theta, device=x.device)
+        return torch.cat([_rotate(x[..., :half], positions[:, 0][:, None, :], inv),
+                          _rotate(x[..., half:], positions[:, 1][:, None, :], inv)], dim=-1)
+    if variant == "mrope":
+        # Qwen2-VL: 3 sections (t, h, w) of D//2, D//4 and the rest
+        if positions.dim() != 3 or positions.shape[1] < 3:
+            raise ValueError(f"mrope needs [B, 3, S] positions, got {tuple(positions.shape)}")
+        s_t, s_h = D // 2, D // 4
+        parts, off = [], 0
+        for span, stream in ((s_t, 0), (s_h, 1), (D - s_t - s_h, 2)):
+            inv = rope_frequencies(span, theta, device=x.device)
+            parts.append(_rotate(x[..., off:off + span], positions[:, stream][:, None, :], inv))
+            off += span
+        return torch.cat(parts, dim=-1)
     raise ValueError(f"unknown rope variant {variant!r}")
 
 

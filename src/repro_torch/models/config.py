@@ -5,9 +5,7 @@ Port of ``repro/models/model.py:ModelConfig`` for every family of the model
 zoo (dense, moe, hybrid, ssm, vlm, audio).  The reference counts parameters
 by ``jax.eval_shape`` over the model's init; this port counts them from the
 shapes ``repro/models/transformer.py`` (and ``layers.py``, ``attention.py``,
-``mamba2.py``, ``moe.py``) initialize.  The structure of every family is
-here; the forward passes of the vlm and audio families arrive with a later
-cut of the model zoo (slice 7 of the port).
+``mamba2.py``, ``moe.py``) initialize.
 
 The reference's TPU- and XLA-only fields stay out: ``cast_params_at_step``
 and ``fsdp_gather_at_layer`` (where the parameter all-gather casts under
@@ -18,7 +16,8 @@ reference's: with ``remat`` the training forward keeps only each group's
 input and recomputes the group in the backward pass
 (``torch.utils.checkpoint``, as ``jax.checkpoint`` around the reference's
 scan body), which is what lets an 8 x 4096-token qwen3-0.6b step fit on one
-card.
+card; ``remat_policy_name="dots"`` also keeps the group's weight products,
+as the reference's ``dots_with_no_batch_dims_saveable``.
 """
 
 from __future__ import annotations
@@ -80,20 +79,14 @@ class ModelConfig:
     dtype: torch.dtype = torch.bfloat16  # activations
     cache_dtype: torch.dtype = torch.bfloat16  # KV caches (the SSM caches stay f32)
     remat: bool = True  # recompute each group in the backward pass
-    remat_policy_name: str = "nothing"  # 'nothing' (save nothing); 'dots' raises
+    remat_policy_name: str = "nothing"  # 'nothing' (save nothing) | 'dots' (keep weight products)
 
     def __post_init__(self):
         if self.d_head == 0:
             object.__setattr__(self, "d_head", self.d_model // max(self.n_heads, 1))
         if self.family in ("moe",) and self.moe_d_ff == 0:
             object.__setattr__(self, "moe_d_ff", self.d_ff)
-        if self.remat_policy_name == "dots":
-            # the reference's dots_with_no_batch_dims_saveable (keep the
-            # matrix products); no config uses it
-            raise NotImplementedError(
-                "remat_policy_name='dots' is not ported; 'nothing' (save nothing) is"
-            )
-        if self.remat_policy_name != "nothing":
+        if self.remat_policy_name not in ("nothing", "dots"):
             raise ValueError(f"unknown remat policy {self.remat_policy_name!r}")
 
     @property

@@ -1,13 +1,22 @@
 """The model: init, forward, the training loss, prefill and decode (port
-of ``repro/models/model.py:Model`` for the dense, moe, hybrid and ssm
-families).
+of ``repro/models/model.py:Model`` for every family: dense, moe, hybrid,
+ssm, vlm and audio).
 
 :class:`Model` is an ``nn.Module`` whose parameters carry the reference's
 names and layouts (``embed [V, D]``, ``blocks.{g}.sub0.attn.wq [D, H·Dh]``
-or ``blocks.{g}.sub0.mamba.in_proj [D, out]``, ``final_norm [D]``), f32, on
-the device it was built on; compute runs in ``cfg.dtype`` (bf16) with
-weights cast at use, as in the reference.  Built with ``device="cuda"``
-(the default) it raises without a card; the tests pass ``device="cpu"``.
+or ``blocks.{g}.sub0.mamba.in_proj [D, out]``, ``final_norm [D]`` or
+``final_norm.{g, b}`` under LayerNorm, ``lm_head [D, V]``), f32, on the
+device it was built on; compute runs in ``cfg.dtype`` (bf16) with weights
+cast at use, as in the reference.  Built with ``device="cuda"`` (the
+default) it raises without a card; the tests pass ``device="cpu"``.
+
+With ``embed_inputs=False`` (qwen2-vl, hubert) the model has no embedding
+table: its steps take ``[B, S, d_model]`` embeddings, and the head is the
+untied ``lm_head``.  Positions are ``[B, S]``, or ``[B, 2, S]`` under
+``rope2d`` (stream 1 all zeros) and ``[B, 3, S]`` under ``mrope`` (the
+text stub: every stream the token's position).  An ``audio`` model is an
+encoder (``causal=False``; ``configs.cells`` runs no decode for it), but
+:meth:`Model.decode_step` runs for it as the reference's does.
 
 A model is built with its parameters' gradients off, as serving wants;
 a train step (:func:`repro_torch.launch.steps.make_train_step`) turns them
@@ -27,7 +36,6 @@ from torch.utils.checkpoint import checkpoint
 from ..core.analyzer import _check_device
 from . import transformer as tf
 from .config import CONV_K, ModelConfig
-from .layers import rms_norm
 
 __all__ = ["HEAD_CHUNK_TOKENS", "Model"]
 
@@ -48,10 +56,8 @@ class Model(nn.Module):
 
     def __init__(self, cfg: ModelConfig, device="cuda", seed: int = 0):
         super().__init__()
-        if cfg.family not in ("dense", "moe", "hybrid", "ssm"):
-            # the config describes the family's structure (group_spec,
-            # param_counts, memory programs); its forward pass is not here
-            raise tf._unported(f"the {cfg.family!r} family's forward pass")
+        if cfg.rope_variant not in ("rope", "rope2d", "mrope", "none"):
+            raise ValueError(f"unknown rope variant {cfg.rope_variant!r}")
         dev = torch.device(device)
         if dev.type != "meta":
             dev = _check_device(dev)
@@ -63,7 +69,7 @@ class Model(nn.Module):
                 torch.randn((cfg.padded_vocab, cfg.d_model), generator=gen, device=dev) * 0.02
             )
         self.blocks = nn.ModuleList(tf.Group(cfg, gen, dev) for _ in range(cfg.n_groups))
-        self.final_norm = nn.Parameter(torch.ones(cfg.d_model, device=dev))
+        self.final_norm = tf.init_norm(cfg, dev)
         if not cfg.tie_embeddings or not cfg.embed_inputs:
             self.lm_head = nn.Parameter(
                 torch.randn((cfg.d_model, cfg.padded_vocab), generator=gen, device=dev) * 0.02
@@ -72,15 +78,21 @@ class Model(nn.Module):
 
     @property
     def device(self) -> torch.device:
-        return self.final_norm.device
+        return next(self.parameters()).device
 
     # ---- shared forward ------------------------------------------------- #
 
     def _positions(self, batch: int, seq: int, offset: int = 0) -> torch.Tensor:
-        if self.cfg.rope_variant not in ("rope", "none"):
-            raise tf._unported(f"rope variant {self.cfg.rope_variant!r}")
+        """``[B, S]`` positions from ``offset``; ``[B, 2, S]`` under rope2d
+        (stream 1 zeros) and ``[B, 3, S]`` under mrope (every stream the
+        position), the offset applied before the streams are stacked."""
         pos = torch.arange(seq, dtype=torch.int32, device=self.device)[None, :] + offset
-        return pos.expand(batch, seq)
+        pos = pos.expand(batch, seq)
+        if self.cfg.rope_variant == "rope2d":
+            return torch.stack([pos, torch.zeros_like(pos)], dim=1)
+        if self.cfg.rope_variant == "mrope":
+            return torch.stack([pos, pos, pos], dim=1)  # the text stub
+        return pos
 
     def _embed(self, tokens_or_embeds: torch.Tensor) -> torch.Tensor:
         if self.cfg.embed_inputs:
@@ -104,7 +116,7 @@ class Model(nn.Module):
         return logits
 
     def _head(self, x: torch.Tensor) -> torch.Tensor:
-        return self._logits(rms_norm(x, self.final_norm), self._head_weight())
+        return self._logits(tf.norm(self.cfg, x, self.final_norm), self._head_weight())
 
     def forward(self, tokens_or_embeds, positions=None) -> Tuple[torch.Tensor, torch.Tensor]:
         """Full-sequence logits ``[B, S, V]`` and the auxiliary loss."""
@@ -144,7 +156,7 @@ class Model(nn.Module):
         if positions is None:
             positions = self._positions(B, S)
         x, aux, _ = tf.apply_stack(self.blocks, x, positions, cfg)
-        xn = rms_norm(x, self.final_norm).reshape(B * S, -1)
+        xn = tf.norm(cfg, x, self.final_norm).reshape(B * S, -1)
         labels = batch["labels"].reshape(B * S).long()
         w = self._head_weight()
         ll = torch.zeros((), dtype=torch.float32, device=xn.device)

@@ -1,23 +1,25 @@
 """Block assembly: per-family layer groups and the stack over them (port of
-``repro/models/transformer.py`` for the dense, moe, hybrid and ssm
-families).
+``repro/models/transformer.py`` for every family: dense, moe, hybrid, ssm,
+vlm and audio).
 
 A model is a stack of identical **groups** (``cfg.group_spec()``); the
 reference scans over stacked group parameters, the port loops over an
 ``nn.ModuleList`` of groups.  With ``cfg.remat`` a training forward runs
 each group under activation recomputation, as the reference's
-``jax.checkpoint`` around its scan body.  A sublayer is a mixer (GQA
-attention or Mamba2) and an optional feed-forward: a gated MLP, or a MoE
-layer (:mod:`repro_torch.models.moe`), whose auxiliary loss the group
-sums.  Caches keep the reference's stacked decode format:
+``jax.checkpoint`` around its scan body (under ``remat_policy_name="dots"``
+keeping the groups' weight products, as ``dots_with_no_batch_dims_saveable``
+does).  A sublayer is a mixer (GQA attention, causal or not, or Mamba2) and
+an optional feed-forward: a gated MLP, the plain GELU MLP (under
+``norm="ln"`` or ``mlp_gated=False``), or a MoE layer
+(:mod:`repro_torch.models.moe`), whose auxiliary loss the group sums.
+Norms are RMS norms, or layer norms with a ``{g, b}`` pair under
+``norm="ln"``.  Caches keep the reference's stacked decode format:
 
   {'kv': {'k': [G, n_attn, B, Hk, Smax, D], 'v': ...},
    'ssm_conv': [G, n_mamba, B, K-1, di], 'ssm_state': [G, n_mamba, B, H, N, P]}
 
 Decode writes each token's K/V into ``kv`` in place and returns the same
-tensors; the Mamba2 caches are restacked, as in the reference.  The
-LayerNorm / GELU-MLP families (vlm, audio) arrive with their cut of slice
-7 and raise here.
+tensors; the Mamba2 caches are restacked, as in the reference.
 """
 
 from __future__ import annotations
@@ -26,38 +28,59 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from . import attention as attn
 from . import mamba2 as m2
 from . import moe as moe_mod
-from .layers import gated_mlp, init_gated_mlp, rms_norm
+from .layers import dense_mlp, gated_mlp, init_dense_mlp, init_gated_mlp, layer_norm, rms_norm
 
-__all__ = ["Group", "apply_group", "apply_stack", "decode_group", "decode_stack"]
+__all__ = ["Group", "apply_group", "apply_stack", "decode_group", "decode_stack", "init_norm",
+           "norm"]
 
 
-def _unported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} comes with a later cut of the model zoo (slice 7 of the port: VLM and "
-        "audio); the dense, moe, hybrid and ssm families are ported"
-    )
+def init_norm(cfg, device) -> nn.Module:
+    """A norm's parameters: the RMS gain ``[D]``, or the layer norm's ``{g,
+    b}`` pair under ``norm="ln"``."""
+    if cfg.norm == "ln":
+        return nn.ParameterDict({"g": torch.ones(cfg.d_model, device=device),
+                                 "b": torch.zeros(cfg.d_model, device=device)})
+    return nn.Parameter(torch.ones(cfg.d_model, device=device))
+
+
+def norm(cfg, x: torch.Tensor, p) -> torch.Tensor:
+    """``cfg``'s norm of ``x`` with the parameters ``p`` of :func:`init_norm`."""
+    if cfg.norm == "ln":
+        return layer_norm(x, p["g"], p["b"])
+    return rms_norm(x, p)
+
+
+def _dense(cfg) -> bool:
+    """The plain GELU MLP, not the gated one (the reference's rule)."""
+    return cfg.norm == "ln" or not cfg.mlp_gated
 
 
 class Group(nn.Module):
     """Parameters of ONE group, named as the reference's tree:
-    ``sub{i}.norm1``, ``sub{i}.attn.{wq, wk, wv, wo, q_norm, k_norm}`` or
+    ``sub{i}.norm1`` (or ``sub{i}.norm1.{g, b}``),
+    ``sub{i}.attn.{wq, wk, wv, wo, q_norm, k_norm}`` or
     ``sub{i}.mamba.{in_proj, conv_w, ...}``, and ``sub{i}.norm2``,
-    ``sub{i}.mlp.{wi, wu, wo}`` or ``sub{i}.moe.{router, wi, wu, wo}`` (and
-    ``shared_wi``, ``shared_wu``, ``shared_wo``)."""
+    ``sub{i}.mlp.{wi, wu, wo}`` (``{wi, wo}`` for the GELU MLP) or
+    ``sub{i}.moe.{router, wi, wu, wo}`` (and ``shared_wi``, ``shared_wu``,
+    ``shared_wo``)."""
 
     def __init__(self, cfg, gen: torch.Generator, device=None):
         super().__init__()
         dev = device or gen.device
-        if cfg.norm != "rms":
-            raise _unported(f"norm {cfg.norm!r}")
+        if cfg.norm not in ("rms", "ln"):
+            raise ValueError(f"unknown norm {cfg.norm!r}")
         for i, (mixer, ffn) in enumerate(cfg.group_spec()):
             sub = nn.Module()
-            sub.norm1 = nn.Parameter(torch.ones(cfg.d_model, device=dev))
+            sub.norm1 = init_norm(cfg, dev)
             if mixer == "attn":
                 sub.attn = nn.ParameterDict(attn.init_attention(
                     gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head, cfg.qk_norm,
@@ -66,13 +89,12 @@ class Group(nn.Module):
                 sub.mamba = nn.ParameterDict(m2.init_mamba2(
                     gen, cfg.d_model, cfg.ssm_heads, cfg.ssm_d_head, cfg.ssm_state, device=dev))
             else:
-                raise _unported(f"the {mixer!r} mixer")
+                raise ValueError(mixer)
             if ffn is not None:
-                if ffn == "mlp" and not cfg.mlp_gated:
-                    raise _unported("the GELU MLP")
-                sub.norm2 = nn.Parameter(torch.ones(cfg.d_model, device=dev))
+                sub.norm2 = init_norm(cfg, dev)
                 if ffn == "mlp":
-                    sub.mlp = nn.ParameterDict(init_gated_mlp(gen, cfg.d_model, cfg.d_ff, dev))
+                    init = init_dense_mlp if _dense(cfg) else init_gated_mlp
+                    sub.mlp = nn.ParameterDict(init(gen, cfg.d_model, cfg.d_ff, dev))
                 else:
                     sub.moe = nn.ParameterDict(moe_mod.init_moe(
                         gen, cfg.d_model, cfg.moe_d_ff or cfg.d_ff, cfg.n_experts,
@@ -86,13 +108,13 @@ def _feed_forward(sub, ffn: str, h: torch.Tensor, cfg, capacity_factor: float):
     if ffn == "moe":
         return moe_mod.moe_block(sub.moe, h, cfg.top_k, capacity_factor=capacity_factor,
                                  dispatch=cfg.moe_dispatch, group_tokens=cfg.moe_group_tokens)
-    return gated_mlp(sub.mlp, h), None
+    return (dense_mlp if _dense(cfg) else gated_mlp)(sub.mlp, h), None
 
 
 def apply_group(
     p: Group,
     x: torch.Tensor,  # [B, S, D]
-    positions: torch.Tensor,  # [B, S]
+    positions: torch.Tensor,  # [B, S], or [B, n_streams, S] (rope2d, mrope)
     cfg,
     collect_cache: bool = False,
     cache_pad_to: Optional[int] = None,
@@ -108,7 +130,7 @@ def apply_group(
     ssm_state: List[torch.Tensor] = []
     for i, (mixer, ffn) in enumerate(cfg.group_spec()):
         sub = getattr(p, f"sub{i}")
-        h = rms_norm(x, sub.norm1)
+        h = norm(cfg, x, sub.norm1)
         if mixer == "attn" and collect_cache:
             # prefill: also keep this sublayer's K/V for the cache
             B, S, _ = h.shape
@@ -140,7 +162,7 @@ def apply_group(
                 mix = m2.mamba2_block(*args, chunk=cfg.ssm_chunk)
         x = x + mix
         if ffn is not None:
-            out, a = _feed_forward(sub, ffn, rms_norm(x, sub.norm2), cfg, cfg.capacity_factor)
+            out, a = _feed_forward(sub, ffn, norm(cfg, x, sub.norm2), cfg, cfg.capacity_factor)
             x = x + out
             if a is not None:
                 aux = aux + a
@@ -170,7 +192,7 @@ def decode_group(
     ai = mi = 0
     for i, (mixer, ffn) in enumerate(cfg.group_spec()):
         sub = getattr(p, f"sub{i}")
-        h = rms_norm(x, sub.norm1)
+        h = norm(cfg, x, sub.norm1)
         if mixer == "attn":
             kv = (cache["kv"]["k"][ai], cache["kv"]["v"][ai])
             mix, _ = attn.decode_attention_block(
@@ -190,7 +212,7 @@ def decode_group(
         x = x + mix
         if ffn is not None:
             # decode's own capacity; the aux loss is a training term
-            x = x + _feed_forward(sub, ffn, rms_norm(x, sub.norm2), cfg,
+            x = x + _feed_forward(sub, ffn, norm(cfg, x, sub.norm2), cfg,
                                   cfg.decode_capacity_factor)[0]
     new = {"ssm_conv": torch.stack(conv), "ssm_state": torch.stack(state)} if conv else {}
     return x, new
@@ -207,6 +229,24 @@ def _stack(caches: List[Dict[str, Any]]) -> Dict[str, Any]:
     return out
 
 
+# the weight products: ``x @ W`` with a 2-D weight lowers to ``aten.mm`` on
+# a view of ``x`` (``aten.addmm`` with a bias), a product with no batch
+# dimension; the attention's products are ``aten.bmm`` (batch dimensions)
+_NO_BATCH_DIMS_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``: keep the
+    outputs of products without batch dimensions, recompute the rest."""
+    if op in _NO_BATCH_DIMS_PRODUCTS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_contexts():
+    return create_selective_checkpoint_contexts(_dots_policy)
+
+
 def apply_stack(
     stack: nn.ModuleList,
     x: torch.Tensor,
@@ -219,17 +259,21 @@ def apply_stack(
 
     When autograd records (grad enabled, a training forward) and
     ``cfg.remat`` is set, each group runs under
-    ``torch.utils.checkpoint``: only its input is kept, and the backward
-    pass runs the group again.  Nothing in the forward pass draws random
-    numbers (no dropout), so the recomputation is exact without saving and
-    restoring the RNG state (``preserve_rng_state=False``)."""
+    ``torch.utils.checkpoint``: under ``remat_policy_name="nothing"`` only
+    its input is kept, and the backward pass runs the group again; under
+    ``"dots"`` the outputs of its weight products (``aten.mm`` and
+    ``aten.addmm``) are kept too, and the rest (the attention's ``bmm``,
+    norms, activations) is recomputed.  Nothing in the forward pass draws
+    random numbers (no dropout), so the recomputation is exact without
+    saving and restoring the RNG state (``preserve_rng_state=False``)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     caches = []
     remat = cfg.remat and torch.is_grad_enabled() and not collect_cache
+    kw = dict(context_fn=_dots_contexts) if cfg.remat_policy_name == "dots" else {}
     for gp in stack:
         if remat:
             x, a, cache = checkpoint(apply_group, gp, x, positions, cfg,
-                                     use_reentrant=False, preserve_rng_state=False)
+                                     use_reentrant=False, preserve_rng_state=False, **kw)
         else:
             x, a, cache = apply_group(
                 gp, x, positions, cfg, collect_cache=collect_cache, cache_pad_to=cache_pad_to

@@ -29,7 +29,7 @@ def _reference_report(steps):
         R.figure1_topology(), R.ClassMapPolicy(POLICY),
         epoch=R.EpochSchedule(KW["epoch"]), hw=R.TPU_V5E,
         max_events_per_access=KW["max_events_per_access"],
-        check_capacity=KW["check_capacity"], async_analysis=False,
+        check_capacity=KW["check_capacity"],
     )
     x = jnp.ones((16, 16))
     with sim.attach(jax.jit(lambda a: (a @ a.T).sum()), phases, regions) as prog:
@@ -67,8 +67,8 @@ def test_attach_run_matches_reference():
 
 
 def test_attach_epochs_equal_the_analyzer_on_its_traces():
-    prog = _port_program()
-    rep = prog.run(1, torch.ones(4, 4))
+    with _port_program() as prog:
+        rep = prog.run(1, torch.ones(4, 4))
     bd = T.EpochAnalyzer(prog.sim.flat, device="cpu").analyze_batch(prog.epoch_traces())
     assert rep.congestion_s == pytest.approx(ns_to_s(bd.congestion_ns), rel=1e-12)
     assert rep.epochs == len(prog.epoch_traces())
@@ -79,12 +79,13 @@ def test_fine_grained_analyzer_matches_reference():
     sim = R.CXLMemSim(
         R.figure1_topology(), R.ClassMapPolicy(POLICY), hw=R.TPU_V5E,
         analyzer="fine", max_events_per_access=64, check_capacity=False,
-        async_analysis=False,
     )
-    want = sim.attach(lambda: jnp.zeros(()), phases, regions).run(1)
-    got = _port_program(
+    with sim.attach(lambda: jnp.zeros(()), phases, regions) as prog:
+        want = prog.run(1)
+    with _port_program(
         analyzer="fine", epoch=T.EpochSchedule("step"), max_events_per_access=64
-    ).run(1, torch.ones(2, 2))
+    ) as prog:
+        got = prog.run(1, torch.ones(2, 2))
     for f in ("latency_s", "congestion_s", "bandwidth_s"):
         assert getattr(got, f) == pytest.approx(getattr(want, f), rel=1e-12), f
 
@@ -92,7 +93,8 @@ def test_fine_grained_analyzer_matches_reference():
 def test_local_only_has_no_delay():
     regions, phases = t_build(t_qwen.SMOKE, "train", batch=2, seq=64)
     sim = T.CXLMemSim(T.local_only_topology(), T.LocalOnlyPolicy(), device="cpu")
-    rep = sim.attach(lambda: None, phases, regions).run(2)
+    with sim.attach(lambda: None, phases, regions) as prog:
+        rep = prog.run(2)
     assert rep.latency_s == rep.congestion_s == rep.bandwidth_s == 0.0
     assert rep.slowdown == pytest.approx(1.0)
 

@@ -227,12 +227,19 @@ def test_rope_matches_reference_at_qwen3_theta_and_length():
 
 
 def test_rope_variants():
+    """'none' is the identity; rope2d (chatglm) and mrope (qwen2-vl) are
+    ported (held to the reference in tests/test_torch_vlm_audio.py): each
+    rotates, keeps the norm of every rotated pair, and needs its position
+    streams; an unknown variant is refused."""
     x = torch.randn(1, 2, 5, 8, generator=torch.Generator().manual_seed(0))
     pos = torch.arange(5)[None]
     assert t_attn.apply_rope(x, pos, "none") is x
-    for variant, arch in (("rope2d", "chatglm"), ("mrope", "qwen2-vl")):
-        with pytest.raises(NotImplementedError, match=f"slice 7.*{arch}"):
-            t_attn.apply_rope(x, pos[:, None].expand(1, 3, 5), variant)
+    for variant, streams in (("rope2d", 2), ("mrope", 3)):
+        got = t_attn.apply_rope(x, (pos[:, None] + 1).expand(1, streams, 5), variant)
+        assert got.shape == x.shape and not torch.allclose(got, x)
+        torch.testing.assert_close(got.norm(dim=-1), x.norm(dim=-1), rtol=1e-5, atol=1e-6)
+        with pytest.raises(ValueError, match=f"{variant} needs"):
+            t_attn.apply_rope(x, pos, variant)
     with pytest.raises(ValueError, match="unknown rope variant"):
         t_attn.apply_rope(x, pos, "alibi")
 

@@ -682,7 +682,7 @@ def test_attach_step_submits_before_native_step():
 
 
 def test_fabric_round_returns_breakdown_only_in_sync_mode():
-    sync = _session(_tenants(2))
+    sync = _session(_tenants(2), async_analysis=False)
     assert sync.round() is not None
     with _session(_tenants(2), async_analysis=True) as asy:
         assert asy.round() is None
@@ -706,10 +706,25 @@ def test_attach_async_still_matches_sync():
 
 
 def test_defaults_stay_synchronous():
-    """The port's defaults stay synchronous; ``engine=`` asks for the
-    engine, and delay injection always forces the synchronous path."""
-    assert _toy_attach(async_mode=None)._handle is None
-    assert _session(_tenants(2))._handle is None
+    """The port's defaults are the reference's: attach is asynchronous for
+    the epoch analyzer without delay injection and a fabric overlaps its
+    rounds, both on the shared default engine; ``async_analysis=False``
+    asks for the synchronous path, ``engine=`` for that engine, and delay
+    injection and the fine-grained analyzer always run synchronously."""
+    for pkg in (R, T):
+        prog = _toy_attach(pkg=pkg, async_mode=None)
+        assert prog.sim.async_analysis and prog._handle is not None
+        assert prog._handle.engine is pkg.AnalysisEngine.default()
+        prog.close()
+        dev = dict(device="cpu") if pkg is T else {}
+        topo = pkg.pooled_topology(n_hosts=2)
+        with pkg.FabricSession(topo, _tenants(2, pkg=pkg), **dev) as sess:
+            assert sess._handle is not None
+        sync = pkg.FabricSession(topo, _tenants(2, pkg=pkg), async_analysis=False, **dev)
+        assert sync._handle is None
+        assert _toy_attach(pkg=pkg, async_mode=False)._handle is None
+        assert not _toy_attach(pkg=pkg, async_mode=None, inject_delays=True).sim.async_analysis
+        assert not _toy_attach(pkg=pkg, async_mode=None, analyzer="fine").sim.async_analysis
     with T.AnalysisEngine() as eng:
         prog = _toy_attach(engine=eng, async_mode=None)
         assert prog._handle is not None and prog._handle.engine is eng

@@ -282,7 +282,7 @@ def _sessions(n_tenants, epoch, coherency=True, **kw):
     want = R.FabricSession(
         R.pooled_topology(n_hosts=n_tenants, cxl_bandwidth_gbps=8.0),
         [_tenant(R, f"t{h}", traffic_mult=1 + 3 * h) for h in range(n_tenants)],
-        epoch=R.EpochSchedule(epoch), hw=R.TPU_V5E, async_analysis=False,
+        epoch=R.EpochSchedule(epoch), hw=R.TPU_V5E,
         coherency=R.CoherencyConfig(**coh) if coh else None, **common,
     )
     got = T.FabricSession(
@@ -297,8 +297,9 @@ def _sessions(n_tenants, epoch, coherency=True, **kw):
 @pytest.mark.parametrize("n_tenants, epoch", [(2, "step"), (3, "quantum")])
 def test_fabric_session_matches_reference(n_tenants, epoch):
     got_s, want_s = _sessions(n_tenants, epoch)
-    want = want_s.run(2)
-    got = got_s.run(2)
+    with got_s, want_s:
+        want = want_s.run(2)
+        got = got_s.run(2)
     assert (got.rounds, got.epochs) == (want.rounds, want.epochs) == (2, got.epochs)
     assert got.bi_messages == want.bi_messages > 0
     assert got.coherency_s == pytest.approx(want.coherency_s, rel=1e-12)
@@ -324,7 +325,8 @@ def test_fabric_session_matches_reference(n_tenants, epoch):
 
 def test_fabric_summary_keys_match_reference():
     got_s, want_s = _sessions(2, "step", coherency=False)
-    got, want = got_s.run(1), want_s.run(1)
+    with got_s, want_s:
+        got, want = got_s.run(1), want_s.run(1)
     assert set(got.summary()) == set(want.summary())
     assert got.summary()["rounds"] == 1 and got.bi_messages == 0.0
 
@@ -440,7 +442,7 @@ def test_attach_with_coherency_matches_reference():
     """CXLMemSim(coherency=CoherencyModel(...)): the analytic n_hosts-1
     fallback injects BI traffic into the attached program's own stream."""
     reports = []
-    for pkg, kw in ((R, dict(async_analysis=False)), (T, dict(device="cpu"))):
+    for pkg, kw in ((R, dict()), (T, dict(device="cpu"))):
         # shared weights are read, the shared KV cache written: BI fan-out
         # and coherency misses both
         tenant = _tenant(pkg, "solo", policy={"kvcache": "cxl_pool", "param": "cxl_pool"})
@@ -450,7 +452,8 @@ def test_attach_with_coherency_matches_reference():
         )
         sim = pkg.CXLMemSim(pkg.two_tier_topology(), tenant.policy, hw=pkg.TPU_V5E,
                             coherency=model, max_events_per_access=128, **kw)
-        rep = sim.attach(lambda: None, tenant.phases, tenant.regions).run(2)
+        with sim.attach(lambda: None, tenant.phases, tenant.regions) as prog:
+            rep = prog.run(2)
         reports.append((rep, model))
     (want, want_m), (got, got_m) = reports
     assert got_m.bi_messages_total == want_m.bi_messages_total > 0

@@ -52,7 +52,7 @@ ZOO_FILES = (
     "models/attention.py", "models/config.py", "models/layers.py", "models/mamba2.py",
     "models/model.py", "models/moe.py", "models/phases.py", "models/transformer.py",
     "core/cache.py", "core/migration.py", "core/aot.py", "core/scenario.py",
-    "core/fleet.py", "configs/__init__.py",
+    "core/fleet.py", "core/roofline.py", "configs/__init__.py",
     "configs/mistral_large_123b.py", "configs/chatglm3_6b.py", "configs/starcoder2_3b.py",
     "configs/granite_moe_3b_a800m.py", "configs/llama4_maverick_400b_a17b.py",
     "configs/jamba_v0_1_52b.py", "configs/qwen2_vl_72b.py", "configs/hubert_xlarge.py",
@@ -101,6 +101,37 @@ def test_new_modules_load_without_the_reference():
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.split() == ["4", "software", "2", "1", "2"]
+
+
+def test_roofline_input_specs_and_the_new_families_load_without_the_reference():
+    """The roofline terms, ``input_specs`` and the vlm and audio families'
+    models run in a process where neither JAX nor the reference can be
+    imported."""
+    code = (
+        "import sys\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('jax', 'jaxlib', 'repro'):\n"
+        "            raise ImportError(name)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "import torch\n"
+        "import repro_torch.configs as C\n"
+        "from repro_torch.core import roofline_terms\n"
+        "from repro_torch.models import Model\n"
+        "print(roofline_terms(1e15, 1e9, 0.0, 5e14, 1).dominant)\n"
+        "spec = C.input_specs(C.get_config('qwen2-vl-72b'), C.SHAPES['decode_32k'], 2)\n"
+        "print(spec['embed'].device.type, tuple(spec['caches']['kv']['k'].shape)[:3])\n"
+        "for a in ('hubert-xlarge', 'qwen2-vl-72b'):\n"
+        "    m = Model(C.get_smoke(a), device='cpu')\n"
+        "    x = torch.zeros(1, 4, m.cfg.d_model, dtype=m.cfg.dtype)\n"
+        "    print(tuple(m(x)[0].shape))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split("\n")[:4] == ["compute", "meta (80, 1, 2)", "(1, 4, 64)",
+                                            "(1, 4, 512)"]
 
 
 # the training slice's modules, checked by name; msgpack is not on the

@@ -97,7 +97,7 @@ def test_config_fields_and_groups():
     assert dataclasses.replace(cfg, d_ff=64).group_spec() == (("mamba", "mlp"),)
     # the other families' structure is ported (tests/test_torch_model_zoo.py);
     # the moe and hybrid forward passes too (tests/test_torch_moe.py), the
-    # vlm and audio ones still raise, naming their slice
+    # every family builds, the vlm and audio ones too
     from repro.models import ModelConfig as RConfig
 
     for fam in ("moe", "hybrid", "vlm", "audio"):
@@ -106,12 +106,8 @@ def test_config_fields_and_groups():
                              ssm_d_head=16)}.get(fam, {})
         cfg = ModelConfig("m", fam, 2, 64, 4, 2, 128, 512, **kw)
         assert cfg.group_spec() == RConfig("m", fam, 2, 64, 4, 2, 128, 512, **kw).group_spec()
-        if fam in ("moe", "hybrid"):
-            model = Model(cfg, device="cpu")
-            assert sum(p.numel() for p in model.parameters()) == cfg.param_counts()["total"]
-            continue
-        with pytest.raises(NotImplementedError, match="slice 7"):
-            Model(cfg, device="cpu")
+        model = Model(cfg, device="cpu")
+        assert sum(p.numel() for p in model.parameters()) == cfg.param_counts()["total"]
 
 
 def _allocated(regions, phases):
@@ -334,11 +330,15 @@ def test_random_init_follows_reference_distributions():
 
 
 def test_unported_families_and_mixers_name_their_slice():
-    vlm = dataclasses.replace(t_m2cfg.SMOKE, family="vlm", n_heads=4, n_kv_heads=2)
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        Model(vlm, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        Model(dataclasses.replace(t_m2cfg.SMOKE, d_ff=64, mlp_gated=False), device="cpu")
+    """The vlm family and the GELU MLP are ported: a vlm variant of the
+    SMOKE config and the ssm family with a GELU MLP build every counted
+    parameter, the MLP as the reference's ``{wi, wo}``."""
+    vlm = dataclasses.replace(t_m2cfg.SMOKE, family="vlm", n_heads=4, n_kv_heads=2, d_ff=64)
+    gelu = dataclasses.replace(t_m2cfg.SMOKE, d_ff=64, mlp_gated=False)
+    for cfg in (vlm, gelu):
+        model = Model(cfg, device="cpu")
+        assert sum(p.numel() for p in model.parameters()) == cfg.param_counts()["total"]
+    assert set(model.blocks[0].sub0.mlp) == {"wi", "wo"}
 
 
 def test_steps_refuse_a_model_of_another_config():
@@ -361,7 +361,7 @@ def test_attached_prefill_matches_reference_attach():
     r_phases = _allocated(r_regions, r_phases)  # the reference refuses its own
     sim = R.CXLMemSim(
         R.figure1_topology(), R.ClassMapPolicy(POLICY), epoch=R.EpochSchedule("layer"),
-        hw=R.TPU_V5E, max_events_per_access=EVENTS, async_analysis=False,
+        hw=R.TPU_V5E, max_events_per_access=EVENTS,
     )
     r_params = RModel(r_m2cfg.SMOKE).init(jax.random.PRNGKey(0))
     tok = _tokens()

@@ -589,9 +589,9 @@ def _mig_cfg(pkg):
 
 def _attached(pkg, migration_cfg=None, **sim_kw):
     rm, phases = _attach_program(pkg)
+    sim_kw.setdefault("async_analysis", False)  # both packages synchronous
     if pkg is R:
         step = jax.jit(lambda a: (a * 2).sum())
-        sim_kw.setdefault("async_analysis", False)
     else:
         step = lambda a: (a * 2).sum()  # noqa: E731
         sim_kw.setdefault("device", "cpu")
@@ -732,7 +732,9 @@ def _fabric_tenant(pkg, name, kv_pages, hot=False):
 
 
 def _session(pkg, tenants, **kw):
-    kw.setdefault("async_analysis" if pkg is R else "device", False if pkg is R else "cpu")
+    kw.setdefault("async_analysis", False)  # both packages synchronous
+    if pkg is T:
+        kw.setdefault("device", "cpu")
     topo = kw.pop("topo", None) or pkg.pooled_topology(n_hosts=2, cxl_bandwidth_gbps=8.0)
     return pkg.FabricSession(topo, tenants(pkg), hw=pkg.TPU_V5E, **kw)
 

@@ -196,11 +196,13 @@ def test_smoke_program_traces_equal(arch):
 @pytest.mark.parametrize("arch", [a for a in RC.ARCH_IDS if RC.get_config(a).family
                                   not in ("dense", "ssm", "moe", "hybrid")])
 def test_forward_of_the_other_families_names_its_slice(arch):
-    """The structure is here; the vlm and audio forward passes come with
-    slice 7, and the model refuses them before drawing weights (the moe and
-    hybrid families are ported: tests/test_torch_moe.py)."""
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        Model(TC.get_smoke(arch), device="cpu")
+    """The vlm and audio families are ported (tests/test_torch_vlm_audio.py
+    holds their forward passes to the reference's): the SMOKE model and the
+    published config on the meta device build every counted parameter."""
+    for cfg, dev in ((TC.get_smoke(arch), "cpu"), (TC.get_config(arch), "meta")):
+        model = Model(cfg, device=dev)
+        assert sum(p.numel() for p in model.parameters()) == cfg.param_counts()["total"]
+        assert model.device.type == dev
 
 
 def _long_epochs(pkg, build, cfgs, quantum_ns=None):

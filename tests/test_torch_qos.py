@@ -501,10 +501,11 @@ def _wfq_session(pkg, weights, **kw):
 def test_wfq_fabric_session_matches_reference_and_weights_shift_shares():
     reports = {}
     for tag, w in (("protect0", (4.0, 1.0)), ("protect1", (1.0, 8.0))):
-        want_s = _wfq_session(R, w, async_analysis=False)
+        want_s = _wfq_session(R, w)
         got_s = _wfq_session(T, w, device="cpu")
         want, got = want_s.run(1), got_s.run(1)
         want_s.close()
+        got_s.close()
         assert got.summary()["qos_classes"] == want.summary()["qos_classes"] == 2
         assert got.congestion_s == pytest.approx(want.congestion_s, rel=1e-5)
         np.testing.assert_allclose(got.per_class_congestion_ns,
@@ -558,8 +559,7 @@ def test_attach_on_a_priority_topology_matches_reference_and_fifo():
     kw = dict(max_events_per_access=256, check_capacity=False)
     regions, phases = r_build(r_qwen.SMOKE, "train", batch=2, seq=64)
     sim = R.CXLMemSim(_priority_figure1(R), R.ClassMapPolicy(policy),
-                      epoch=R.EpochSchedule("layer"), hw=R.TPU_V5E,
-                      async_analysis=False, **kw)
+                      epoch=R.EpochSchedule("layer"), hw=R.TPU_V5E, **kw)
     with sim.attach(lambda: None, phases, regions) as prog:
         want = prog.run(2)
     reports = []

@@ -374,7 +374,7 @@ def test_attached_prefill_matches_reference_attach():
     r_regions, r_phases = r_build(r_q3cfg.SMOKE, "prefill", batch=BATCH, seq=SEQ)
     sim = R.CXLMemSim(
         R.figure1_topology(), R.ClassMapPolicy(POLICY), epoch=R.EpochSchedule("layer"),
-        hw=R.TPU_V5E, max_events_per_access=EVENTS, async_analysis=False,
+        hw=R.TPU_V5E, max_events_per_access=EVENTS,
     )
     r_params = RModel(r_q3cfg.SMOKE).init(jax.random.PRNGKey(0))
     tok = _tokens()

@@ -43,8 +43,8 @@ def test_param_counts_exact(which):
 def test_param_counts_other_families_name_their_slice():
     """The moe family's counts and memory program are ported (equal to the
     reference's, tests/test_torch_model_zoo.py), and its model builds every
-    counted parameter (tests/test_torch_moe.py); the vlm family's forward
-    pass still raises, naming its slice."""
+    counted parameter (tests/test_torch_moe.py); so does the vlm family's
+    (ported: tests/test_torch_vlm_audio.py)."""
     from repro.models import ModelConfig as RConfig
 
     cfg = ModelConfig("m", "moe", 2, 64, 4, 2, 128, 512, n_experts=4, top_k=2)
@@ -56,8 +56,9 @@ def test_param_counts_other_families_name_their_slice():
     assert [dataclasses.astuple(r) for r in r_reg] == [dataclasses.astuple(t) for t in t_reg]
     model = Model(cfg, device="cpu")
     assert sum(p.numel() for p in model.parameters()) == cfg.param_counts()["total"]
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        Model(dataclasses.replace(cfg, family="vlm"), device="cpu")
+    vlm = dataclasses.replace(cfg, family="vlm")
+    model = Model(vlm, device="cpu")
+    assert sum(p.numel() for p in model.parameters()) == vlm.param_counts()["total"]
 
 
 @pytest.mark.parametrize("which", ["CONFIG", "SMOKE"])

@@ -192,8 +192,23 @@ def test_remat_recomputes_exactly(arch):
 
 
 def test_dots_remat_policy_is_refused():
-    with pytest.raises(NotImplementedError, match="dots"):
-        dataclasses.replace(t_q3cfg.SMOKE, remat_policy_name="dots")
+    """``remat_policy_name="dots"`` is ported (the reference's
+    ``dots_with_no_batch_dims_saveable``; held against it in
+    tests/test_torch_vlm_audio.py): keeping the weight products changes
+    nothing, loss and gradients bitwise the ``"nothing"`` policy's; an
+    unknown policy is refused."""
+    t_cfg = _f32(*SMOKES["qwen3"])[1]
+    toks, labels = _batch(t_cfg.vocab_size)
+    out = []
+    for policy in ("dots", "nothing"):
+        model = Model(dataclasses.replace(t_cfg, remat_policy_name=policy), device="cpu",
+                      seed=0)
+        out.append(_port_loss_and_grads(model, toks, labels))
+    assert torch.equal(out[0][0], out[1][0])
+    for k in out[0][2]:
+        assert torch.equal(out[0][2][k], out[1][2][k]), k
+    with pytest.raises(ValueError, match="unknown remat policy"):
+        dataclasses.replace(t_q3cfg.SMOKE, remat_policy_name="offload")
 
 
 def test_padded_vocab_loss_equals_unpadded():
