@@ -356,6 +356,7 @@ import subprocess
 import sys
 import time
 import types
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -414,6 +415,7 @@ from repro_torch.core import (  # noqa: E402
 from repro_torch.core import scenario as tscenario  # noqa: E402
 from repro_torch.core.units import s_to_ms, s_to_ns  # noqa: E402
 from repro_torch.kernels import congestion as kcong  # noqa: E402
+from repro_torch.launch.mesh import make_data_mesh, mesh_devices  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels import build as kbuild  # noqa: E402
 from repro_torch.kernels import flash_attention as kflash  # noqa: E402
@@ -4405,6 +4407,258 @@ def families_path(dev, stand_in):
     return cascade
 
 
+# --------------------------------------------------------------------------- #
+# Phase 20: the split over several devices
+# --------------------------------------------------------------------------- #
+
+SPLIT_REL = 1e-6  # the reference's bar for a split sweep (tests/test_fleet_sharding.py)
+SPLIT_SESSIONS = 16  # main's step, then its first 30, 29, ... 16 epochs
+BD_ARRAYS = ("per_pool_latency_ns", "per_switch_congestion_ns", "per_switch_bandwidth_ns",
+             "per_host_latency_ns", "per_host_congestion_ns", "per_host_bandwidth_ns",
+             "per_class_congestion_ns")
+
+
+def bd_numbers(bds) -> dict:
+    """Every number of a list of breakdowns by field: the totals and the
+    arrays, each field one f64 vector over the list."""
+    out = {f: np.asarray([getattr(b, f) for b in bds], np.float64)
+           for f in ("latency_ns", "congestion_ns", "bandwidth_ns")}
+    for f in BD_ARRAYS:
+        if all(getattr(b, f) is not None for b in bds):
+            out[f] = np.concatenate([np.asarray(getattr(b, f), np.float64).ravel() for b in bds])
+    return out
+
+
+def split_meshes():
+    """A virtual mesh over cuda:0 of each size, and where the machine has
+    more than one card also make_data_mesh() over the real cards."""
+    meshes = [("virtual", lambda n: make_data_mesh(n, "cuda:0", virtual=True))]
+    if torch.cuda.device_count() > 1:
+        meshes.append(("cards", lambda n: make_data_mesh(n)))
+    return meshes
+
+
+def split_run(fn):
+    """``fn()`` timed on the host clock to its results on the host, its
+    launches counted and its fallback warnings kept; returns (result,
+    seconds, counts, warnings)."""
+    torch.cuda.synchronize()
+    reset_counts()
+    with warnings.catch_warnings(record=True) as w:
+        warnings.simplefilter("always")
+        t0 = time.perf_counter()
+        out = fn()
+        wall = time.perf_counter() - t0
+    return out, wall, counts(), [str(x.message) for x in w if "falling back" in str(x.message)]
+
+
+def split_case(tag, run, numbers, stats, mesh_n, kernel, want_plain, want_split):
+    """Run ``run(mesh)`` unsharded, sharded over each mesh of
+    :func:`split_meshes` (``mesh_n`` entries), then unsharded again.  For
+    each field of ``numbers`` (a dict of vectors): the sharded run bitwise
+    the unsharded one where the two unsharded runs are bitwise to each
+    other, and within rel SPLIT_REL of it in any case; each run's
+    ``kernel`` launches as wanted.  Returns the launches of every run by
+    kernel."""
+    total = {}
+
+    def add(c):
+        for k, v in c.items():
+            total[k] = total.get(k, 0) + v
+
+    u1, wall_u1, c_u1, _ = split_run(lambda: run(None))
+    add(c_u1)
+    check_launches(f"split-{tag} unsharded", c_u1, kernel, want_plain)
+    split = []
+    for name, make in split_meshes():
+        mesh = make(mesh_n)
+        out, wall, c, warned = split_run(lambda: run(mesh))
+        add(c)
+        split.append((name, mesh, out, wall, c, warned))
+    u2, wall_u2, c_u2, _ = split_run(lambda: run(None))
+    add(c_u2)
+    a, b = numbers(u1), numbers(u2)
+
+    def largest(x, y):  # (numbers that differ, largest difference ns, its rel)
+        d = np.abs(x - y)
+        return int((d != 0).sum()), float(d.max()), float((d / np.maximum(np.abs(y), 1e-30)).max())
+
+    twins = {f: largest(b[f], a[f]) for f in a}
+    st_u = stats(u1)
+    n = sum(v.size for v in a.values())
+    print(f"[split-{tag}] unsharded: devices_used {st_u[0]}, shard_rows {st_u[1]}, "
+          f"padded_fraction {st_u[2]!r}; wall {wall_u1:.6f} s and {wall_u2:.6f} s; "
+          f"{c_u1[kernel]} {kernel} launch(es) a run; the two unsharded runs differ in "
+          f"{sum(v[0] for v in twins.values())} of {n} numbers"
+          + "".join(f"; {f} {v[0]}, largest {v[1]!r} ns (rel {v[2]!r})"
+                    for f, v in twins.items() if v[0]))
+    for name, mesh, out, wall, c, warned in split:
+        st = stats(out)
+        check_launches(f"split-{tag} {name} mesh", c, kernel, want_split(st))
+        got = numbers(out)
+        diffs = {f: largest(got[f], a[f]) for f in a}
+        print(f"[split-{tag}] {name} mesh of {mesh.size} entries over "
+              f"{len(set(mesh_devices(mesh)))} device(s): devices_used {st[0]}, shard_rows "
+              f"{st[1]}, padded_fraction {st[2]!r}; wall {wall:.6f} s; {c[kernel]} {kernel} "
+              f"launches, {c[kernel] / st[0]:.4g} a shard; against the first unsharded run "
+              f"{sum(v[0] for v in diffs.values())} of {n} numbers differ"
+              + "".join(f"; {f} {v[0]}, largest {v[1]!r} ns (rel {v[2]!r}; the twins "
+                        f"{twins[f][1]!r} ns)" for f, v in diffs.items() if v[0])
+              + f"; {warned or 'no fallback'}")
+        for f, (n_diff, _, rel) in diffs.items():
+            check(not n_diff or twins[f][0],
+                  f"split-{tag} {name}: {f} bitwise in the unsharded twins, {n_diff} numbers "
+                  "differ sharded")
+            check(rel <= SPLIT_REL, f"split-{tag} {name}: {f} past rel {SPLIT_REL} ({rel!r})")
+    return total
+
+
+def split_analyzer(dev):
+    """analyze_batch_multi of 16 sessions of main's program (its step's 31
+    epochs, then its first 30 down to 16: main's [32, 131072] batch each;
+    FIFO cascade) on a mesh of 8: one launch a shard over [64, 131072]
+    rows."""
+    prog = attach_main(figure1_topology(), lambda h: h)
+    traces = prog.epoch_traces()
+    prog.close()
+    groups = [traces[: len(traces) - i] for i in range(SPLIT_SESSIONS)]
+    an = EpochAnalyzer(prog.sim.flat, device="cuda")
+    print(f"[split-analyzer] {len(groups)} sessions of {len(groups[0])} to {len(groups[-1])} "
+          f"epochs, up to {max(t.n for g in groups for t in g)} events an epoch, "
+          f"{sum(t.n for g in groups for t in g)} events in all")
+
+    def run(mesh):
+        out = an.analyze_batch_multi(groups, mesh=mesh)
+        return out, an.last_dispatch
+
+    def stats(res):
+        st = res[1]
+        return st.devices_used, st.shard_rows, st.padded_fraction
+
+    total = split_case("analyzer", run, lambda r: bd_numbers(r[0]), stats, 8, "cascade", 1,
+                       lambda st: st[0])
+    check(an.sharded_dispatches == len(split_meshes()),
+          f"split-analyzer: {an.sharded_dispatches} sharded dispatches")
+    return total
+
+
+def split_engine(dev):
+    """The engine's 4 coalesced sessions of phase 15 (main's program cut to
+    28, 24, 20 and 12 layers) behind a parked dispatcher, on a mesh of 4:
+    one launch a shard, on the engine's own stream."""
+    progs = [attach_main(figure1_topology(), lambda h: h,
+                         cfg=dataclasses.replace(CONFIG, n_layers=n)) for n in COALESCED_LAYERS]
+    groups = [p.epoch_traces() for p in progs]
+    flat = progs[0].sim.flat
+    for p in progs:
+        p.close()
+
+    def run(mesh):
+        with AnalysisEngine(mesh=mesh) as eng:
+            handles = [eng.register(EpochAnalyzer(flat, device="cuda")) for _ in groups]
+            park = eng.register(ParkAnalyzer(flat, 1.0))
+            rec, restore = recording_streams()
+            try:
+                park.submit([MemEvents.empty()])
+                futs = [h.submit(g) for h, g in zip(handles, groups)]
+                out = [f.result(600) for f in futs]
+            finally:
+                restore()
+            park.close()
+            check(all(h.last_group_size == len(groups) for h in handles),
+                  f"split-engine: group sizes {[h.last_group_size for h in handles]}")
+            if mesh is not None:  # every shard's cascade on the engine's stream of its card
+                check(len(rec) == mesh.size,
+                      f"split-engine: {len(rec)} cascade calls on a mesh of {mesh.size}")
+                for _, _, stream in rec:
+                    check(stream == eng.stream(stream.device)
+                          and stream != torch.cuda.default_stream(stream.device),
+                          f"split-engine: a shard's cascade ran off the engine's stream on "
+                          f"{stream.device}")
+            return out, handles[0].last_dispatch
+
+    def stats(res):
+        st = res[1]
+        return st.devices_used, st.shard_rows, st.padded_fraction
+
+    return split_case("engine", run, lambda r: bd_numbers(r[0]), stats, 4, "cascade", 1,
+                      lambda st: st[0])
+
+
+def split_sweeps(dev):
+    """sweep-main's 64 scenarios and sweep-qos's 4 on a mesh of 8 (sweep-qos
+    falls back to 4 shards): the unique cascades run once, on the mesh's
+    first device, so the launches are the unsharded run's."""
+    regions, phases = sweep_program()
+    suite = sweep_suite(regions, phases)
+    scens = sweep_scenarios(regions)
+
+    def stats(res):
+        return res.devices_used, res.shard_rows, res.padded_fraction
+
+    total = split_case("sweep-main", lambda mesh: suite.run(scens, mesh=mesh),
+                       lambda r: bd_numbers(r.breakdowns), stats, 8, "cascade", 2, lambda st: 2)
+    rq = {r.name: 1 for r in regions if r.tensor_class in ("opt_state", "grad")}
+    qsuite = sweep_suite(regions, phases, region_qos=rq)
+    qscens = [Scenario(ClassMapPolicy(POLICY), qos=q, name=q.describe()) for q in (
+        QosSpec(discipline="fifo"), QosSpec(discipline="priority"),
+        QosSpec(discipline="wfq", class_weights=(4.0, 1.0)),
+        QosSpec(discipline="wfq", class_weights=(1.0, 4.0)))]
+    q = split_case("sweep-qos", lambda mesh: qsuite.run(qscens, mesh=mesh),
+                   lambda r: bd_numbers(r.breakdowns), stats, 8, "qos", 4, lambda st: 4)
+    return {k: total.get(k, 0) + q.get(k, 0) for k in set(total) | set(q)}
+
+
+def split_fleets(dev):
+    """fleet-frontier's 256 rack planes (hosts cascade) and fleet-hetero-qos's
+    32 racks (QoS hosts cascade, two STT rows) on a mesh of 8: a launch per
+    STT row and shard."""
+    tenants = fleet_tenants()
+    fleet = FleetSim(FLEET_RACKS, hosts_per_rack=FLEET_HOSTS, hw=H100_SXM, device="cuda")
+
+    def numbers(pts):
+        out = bd_numbers([b for p in pts for b in p.report.breakdowns])
+        out["delay_ns"] = np.concatenate([p.report.delay_ns.ravel() for p in pts])
+        return out
+
+    def stats(pts):
+        r = pts[0].report
+        return r.devices_used, r.shard_rows, r.padded_fraction
+
+    total = split_case("fleet-frontier", lambda mesh: fleet.frontier(
+        tenants, offload_fractions=FLEET_FRACTIONS, mesh=mesh), numbers, stats, 8, "hosts", 1,
+        lambda st: st[0])
+    qtenants = [dataclasses.replace(t, qos_class=i % 2) for i, t in enumerate(tenants)]
+    hetero = FleetSim(
+        FLEET_RACKS, hosts_per_rack=FLEET_HOSTS, hw=H100_SXM, device="cuda",
+        rack_overrides=[None if r % 2 == 0 else TopologyOverride(**FLEET_SLOW)
+                        for r in range(FLEET_RACKS)],
+        rack_qos=[QosSpec(discipline="wfq", class_weights=(4.0, 1.0)) if r % 2 == 0
+                  else QosSpec(discipline="priority") for r in range(FLEET_RACKS)])
+    q = split_case("fleet-hetero-qos", lambda mesh: [types.SimpleNamespace(report=hetero.simulate(
+        qtenants, policy="round_robin", offload_fraction=1.0, mesh=mesh))], numbers, stats, 8,
+        "qos_hosts", 2, lambda st: 2 * st[0])
+    return {k: total.get(k, 0) + q.get(k, 0) for k in set(total) | set(q)}
+
+
+def split_path(dev):
+    """Phase 20: the split over several devices.  Returns the launches of
+    its runs by kernel."""
+    t0 = time.perf_counter()
+    total, times = {}, {}
+    for tag, fn in (("analyzer", split_analyzer), ("engine", split_engine),
+                    ("sweeps", split_sweeps), ("fleets", split_fleets)):
+        t1 = time.perf_counter()
+        for k, v in fn(dev).items():
+            total[k] = total.get(k, 0) + v
+        torch.cuda.empty_cache()
+        times[tag] = time.perf_counter() - t1
+    print(f"[split] {torch.cuda.device_count()} card(s); phase 20 ran "
+          f"{time.perf_counter() - t0:.1f} s: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in times.items()))
+    return total
+
+
 def sass_counts(path) -> str:
     """How many atomic, double-add and match instructions a built library's
     SASS holds (cuobjdump), or why it could not be read."""
@@ -4441,6 +4695,7 @@ def cascade_batches(dev):
 
 def main(argv) -> int:
     cascades_only = "--cascades" in argv
+    split_only = "--split" in argv
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script needs a card",
               file=sys.stderr)
@@ -4469,6 +4724,11 @@ def main(argv) -> int:
                 print(f"[build] {line.strip()}")
         if name in ("congestion_cascade", "qos_cascade"):
             print(f"[build] {name} SASS: {sass_counts(res.path)}")
+
+    if split_only:
+        split_path(dev)
+        print(f"[done] chip_smoke --split ran {time.perf_counter() - t_start:.1f} s")
+        return 0
 
     # -- 3. kernels vs plain at synthetic shapes ---------------------------- #
     fig = figure1_topology().flatten()
@@ -4555,8 +4815,16 @@ def main(argv) -> int:
     ssd_launches += c18["ssd"]
     torch.cuda.empty_cache()
     cascade_launches += families_path(dev, stand_in)
+    torch.cuda.empty_cache()
 
-    # -- 20. the kernels line and the result -------------------------------- #
+    # -- 20. the split over several devices --------------------------------- #
+    c20 = split_path(dev)
+    cascade_launches += c20.get("cascade", 0)
+    hosts_launches += c20.get("hosts", 0)
+    qos_launches += c20.get("qos", 0)
+    qos_hosts_launches += c20.get("qos_hosts", 0)
+
+    # -- 21. the kernels line and the result -------------------------------- #
     src = "src/repro_torch/kernels/csrc/"
     kernels = []
     for name, source, replaces, launches, comps, row in (

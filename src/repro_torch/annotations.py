@@ -1,18 +1,19 @@
-"""Source-level lock annotations (the port's copy of ``guarded_by`` and
-``single_threaded`` from the reference's analysis package).
+"""Source-level annotations (the port's copy of ``guarded_by``,
+``single_threaded`` and ``axes`` from the reference's analysis package).
 
-Both are zero-cost at run time: a class declares which fields belong to
-which lock, and a method says why it runs on one thread only.  A
-lock-discipline checker reads the *syntactic* form — it matches the call by
-its name — so these copies are read the same way as the originals, and the
-port needs nothing of the analysis framework itself.
+All are zero-cost at run time: a class declares which fields belong to
+which lock, a method says why it runs on one thread only, and a dispatch
+surface declares the named axes of its tensor parameters.  The checkers
+read the *syntactic* form — they match the call by its name — so these
+copies are read the same way as the originals, and the port needs nothing
+of the analysis framework itself.
 """
 
 from __future__ import annotations
 
 from typing import Callable, Dict, Tuple, TypeVar
 
-__all__ = ["guarded_by", "single_threaded"]
+__all__ = ["axes", "guarded_by", "single_threaded"]
 
 F = TypeVar("F", bound=Callable)
 
@@ -45,6 +46,38 @@ def single_threaded(reason: str) -> Callable[[F], F]:
 
     def mark(fn: F) -> F:
         fn.__simlint_single_threaded__ = reason  # type: ignore[attr-defined]
+        return fn
+
+    return mark
+
+
+def _parse_spec(spec: str) -> Tuple[str, ...]:
+    toks = tuple(t.strip() for t in spec.split(",")) if spec.strip() else ()
+    for t in toks:
+        if not (t == "_" or t.isdigit() or t.isidentifier()):
+            raise ValueError(f"bad axis token {t!r} in spec {spec!r}")
+    return toks
+
+
+def axes(*pos_specs: str, **kw_specs: str) -> Callable[[F], F]:
+    """Declare named-axis shape contracts on a function's tensor parameters.
+
+    Positional specs bind to the function's leading parameters in order,
+    keyword specs by parameter name::
+
+        @axes("B,N", bits="B,N", stts="S")
+        def congestion_cascade(t, bits, stts): ...
+
+    A spec is a comma-separated axis list: names (unified across one call's
+    parameters), integer literals (exact sizes) or ``_`` (any size); ``""``
+    is a scalar.  The static axes checker reads the decorator's literal
+    arguments; at run time the function is returned unchanged (the
+    reference's runtime validation has no counterpart here).  Malformed
+    specs raise when the module is imported."""
+    for spec in pos_specs + tuple(kw_specs.values()):
+        _parse_spec(spec)
+
+    def mark(fn: F) -> F:
         return fn
 
     return mark

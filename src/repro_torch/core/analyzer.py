@@ -42,7 +42,15 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..distributed.sharding import (
+    Replicas,
+    check_mesh,
+    pad_to_multiple,
+    resolve_data_mesh,
+    shard_rows,
+)
 from ..kernels import ops as kops
+from ..launch.mesh import mesh_devices
 from .aot import AotDispatchCache
 from .events import EventStager, MemEvents
 from .topology import FlatTopology
@@ -67,11 +75,12 @@ __all__ = [
 @dataclasses.dataclass(frozen=True)
 class DispatchStats:
     """Observability record for the most recent dispatch (a copy of the
-    reference's record; sharding is not ported, so ``devices_used`` stays 1
-    and ``shard_rows`` 0).
+    reference's record).
 
-    ``devices_used`` is 1 whenever sharding did not engage; ``shard_rows``
-    is the per-device slice of the (padded) leading axis, 0 when unsharded;
+    ``devices_used`` is the mesh entries the leading axis split over (a
+    virtual mesh counts each repeat of its device), 1 whenever the split did
+    not engage; ``shard_rows`` is the per-entry slice of the (padded)
+    leading axis, 0 when unsharded;
     ``padded_fraction`` is the fraction of leading-axis rows that were
     bucket/alignment padding — wasted compute the caller can act on.
 
@@ -553,6 +562,18 @@ def _host_sums(values: torch.Tensor, host: torch.Tensor, n_hosts: int) -> torch.
     return out.scatter_add_(1, host, values.to(torch.float64))
 
 
+def _accumulator(x: torch.Tensor) -> torch.dtype:
+    """The dtype a sum over a row's events (or windows) accumulates in.  On
+    the card f64: an f32 reduction there takes the order of its atomics, or
+    the order its launch configuration picks for the batch's row count (how
+    many CTAs share a row), so one row sums apart from run to run or when
+    the rows are split differently (a mesh's shards), while f64 sums of f32
+    values come out the same in any order.  On the CPU ``x``'s own dtype:
+    the plain path keeps the reference's f32 arithmetic, which the tests
+    hold it to."""
+    return torch.float64 if x.device.type == "cuda" else x.dtype
+
+
 def _latency(
     pool64: torch.Tensor,  # [B, N] i64 physical pool
     vp: torch.Tensor,  # [B, N] i64 virtual pool (host * P + pool)
@@ -568,7 +589,8 @@ def _latency(
     physical pool ``[B, P]`` and their totals ``[B]``.  The topology's
     leaves are shared by every row, or given per row (a sweep's or a
     fleet's rows, each priced against its own topology); rows that repeat
-    one set of leaves price bitwise as the shared form."""
+    one set of leaves price bitwise as the shared form.  Both sums over the
+    events accumulate in :func:`_accumulator`'s dtype."""
     if pool_latency_ns.dim() == 1:
         pool_lat = pool_latency_ns[vp]
     else:
@@ -581,12 +603,13 @@ def _latency(
         * weight
     )
     per_event_lat = torch.where(valid, per_event_lat, 0.0)
+    acc = per_event_lat.to(_accumulator(per_event_lat))
     # keyed by the *physical* pool: multi-host batches report [P], not [H*P]
     pool_onehot = (  # [B, N, P]
         pool64[..., None] == torch.arange(n_pools, device=pool64.device)
-    ).to(weight.dtype)
-    per_pool_lat = torch.bmm(per_event_lat[:, None, :], pool_onehot)[:, 0]  # [B, P]
-    return per_event_lat, per_pool_lat, per_event_lat.sum(dim=1)
+    ).to(acc.dtype)
+    per_pool_lat = torch.bmm(acc[:, None, :], pool_onehot)[:, 0]  # [B, P]
+    return per_event_lat, per_pool_lat.to(weight.dtype), acc.sum(dim=1).to(weight.dtype)
 
 
 def _bandwidth(
@@ -615,18 +638,23 @@ def _bandwidth(
     )
     win = torch.where(valid_e, win, n_windows - 1)
     key = win.to(torch.int64) * V + vp_e
-    wp = torch.zeros((n_rows, n_windows * V), dtype=t_end.dtype, device=t_end.device)
-    wp.scatter_add_(1, key, torch.where(valid_e, nbytes_e, 0.0))
+    # each window's bytes per virtual pool, summed in _accumulator's dtype
+    # (on the card an f32 scatter-add adds in atomic order, and a window's
+    # bytes pass 2**24 on sweeps), then rounded to the batch's dtype once
+    acc = _accumulator(nbytes_e)
+    wp = torch.zeros((n_rows, n_windows * V), dtype=acc, device=t_end.device)
+    wp.scatter_add_(1, key, torch.where(valid_e, nbytes_e, 0.0).to(acc))
     if n_hosts == 1:
-        wbytes = torch.matmul(wp.view(n_rows, n_windows, V), route)  # [B, W, S]
+        wbytes = torch.matmul(wp.view(n_rows, n_windows, V), route.to(acc))  # [B, W, S]
         wbytes_h = None
     else:
         wbytes_h = torch.einsum(  # [B, W, H, S]
             "bwhp,hps->bwhs",
             wp.view(n_rows, n_windows, n_hosts, P),
-            route.view(n_hosts, P, S),
-        )
+            route.view(n_hosts, P, S).to(acc),
+        ).to(t_end.dtype)
         wbytes = wbytes_h.sum(dim=2)
+    wbytes = wbytes.to(t_end.dtype)
     if switch_bw.dim() == 2:
         switch_bw = switch_bw[:, None, :]  # [B, 1, S] against [B, W, S]
     # bw <= 0 means an unconstrained component (analyze_ref skips it)
@@ -641,9 +669,13 @@ def _bandwidth(
     if wbytes_h is None:
         per_host_bw = bandwidth[:, None]
     else:
-        # window stretch attributed to hosts by their byte share in the window
+        # window stretch attributed to hosts by their byte share in the
+        # window, summed over windows and switches in _accumulator's dtype
         share = stretch / torch.clamp(wbytes, min=1e-30)
-        per_host_bw = torch.einsum("bws,bwhs->bh", share, wbytes_h)
+        acc = _accumulator(share)
+        per_host_bw = torch.einsum(
+            "bws,bwhs->bh", share.to(acc), wbytes_h.to(acc)
+        ).to(t_end.dtype)
     return per_switch_bw, bandwidth, per_host_bw
 
 
@@ -882,64 +914,58 @@ def _launch_groups(
     ]
 
 
-def _analyze_sweep(
+@dataclasses.dataclass
+class SweepCascades:
+    """Phase 1 of a sweep: the U unique cascades' outcomes.  ``slot``,
+    ``host_cong`` and ``class_cong`` are None where the sweep has no slot
+    order, one host or no QoS classes."""
+
+    t_fin: torch.Tensor  # [U, B, N] f32 post-congestion times, slot order
+    slot: Optional[torch.Tensor]  # [U, B, N] i32 input event of each slot
+    cong: torch.Tensor  # [U, B, S] f32 per-switch congestion
+    host_cong: Optional[torch.Tensor]  # [U, B, H] f32
+    class_cong: Optional[torch.Tensor]  # [U, B, C] f32
+
+    def to(self, device: torch.device) -> "SweepCascades":
+        return SweepCascades(*(None if x is None else x.to(device)
+                               for x in dataclasses.astuple(self)))
+
+
+def _sweep_cascades(
     t: torch.Tensor,  # [G, B, N] f32 time-sorted epochs per granularity group
-    nbytes: torch.Tensor,  # [G, B, N] f32
-    weight: torch.Tensor,  # [G, B, N] f32
     host: torch.Tensor,  # [G, B, N] i32
     valid: torch.Tensor,  # [G, B, N] bool
     region: torch.Tensor,  # [G, B, N] i64 region ids (the skeleton's payload)
-    bw_window: torch.Tensor,  # [G, B] f32 per-epoch window lengths
     cas_group: torch.Tensor,  # [U] i64 cascade -> skeleton group
     cas_assign: torch.Tensor,  # [U, R] i64 placement rows of the unique cascades
     cas_stt: torch.Tensor,  # [U, S] f32 STT rows of the unique cascades
     cas_disc: torch.Tensor,  # [U, S] i32 discipline rows of the unique cascades
     cas_weights: torch.Tensor,  # [U, S, C] f32 class-weight rows of the unique cascades
     qos_of_region: torch.Tensor,  # [R] i32 QoS class of each region
-    group_of: torch.Tensor,  # [K] i64 scenario -> skeleton group
-    cascade_of: torch.Tensor,  # [K] i64 scenario -> unique cascade
-    assign: torch.Tensor,  # [K, R] i64 placement matrix
-    lat_scale: torch.Tensor,  # [K, B, V] f32 per-scenario device-cache scales
-    pool_latency_ns: torch.Tensor,  # [K, V] f32 stacked topology leaves
-    local_latency_ns: torch.Tensor,  # [K] f32
-    switch_bw: torch.Tensor,  # [K, S] f32
     bits_table: torch.Tensor,  # [V] i32 shared (structure)
-    route: torch.Tensor,  # [V, S] f32 shared (structure)
     stage_order: Tuple[int, ...],
-    n_windows: int,
     n_hosts: int,
     merge_plan=None,
     qos_on: bool = False,
-) -> torch.Tensor:
-    """K scenarios × B epochs, per-scenario totals reduced on the device
-    (port of the reference's ``_analyze_sweep_jax``).  Returns ``[K, M]``
-    rows in :func:`_analyze_batch`'s layout, summed over epochs.
+) -> SweepCascades:
+    """Phase 1 of a sweep of K scenarios × B epochs (with
+    :func:`_sweep_reduce`, the port of the reference's
+    ``_analyze_sweep_jax``): the U unique cascades.
 
-    1. **U unique cascades.**  Congestion, and the post-queue times the
-       bandwidth windows see, depend only on a scenario's granularity
-       group, placement row and STT row (and under QoS its discipline and
-       weight rows); the caller dedups scenarios onto U cascades.  Each
-       cascade's route words are built on the device from its placement
-       row (``bits_table[vp]``, ``pool = cas_assign[u][region]``), its QoS
-       classes from ``qos_of_region``.  The cascades that share their
-       service times (and arbitration) stack as the ``[U_g·B, N]`` rows of
-       one cascade call (:func:`_launch_groups`): a sweep over policies,
-       granularities, latencies, bandwidths and caches on one STT row is
-       one launch.
-    2. **K scenario reductions**, in chunks of about
-       :data:`SWEEP_CHUNK_EVENTS` events: each scenario takes its
-       cascade's final times and slot permutation, derives its events'
-       pools from its own placement row, and is priced (:func:`_price`)
-       against its own row of topology leaves and cache scales.  Each
-       scenario's reduction is independent, so the chunking changes no
-       number.
-    """
+    Congestion, and the post-queue times the bandwidth windows see, depend
+    only on a scenario's granularity group, placement row and STT row (and
+    under QoS its discipline and weight rows); the caller dedups scenarios
+    onto U cascades.  Each cascade's route words are built on the device
+    from its placement row (``bits_table[vp]``, ``pool =
+    cas_assign[u][region]``), its QoS classes from ``qos_of_region``.  The
+    cascades that share their service times (and arbitration) stack as the
+    ``[U_g·B, N]`` rows of one cascade call (:func:`_launch_groups`): a
+    sweep over policies, granularities, latencies, bandwidths and caches on
+    one STT row is one launch."""
     G, B, N = t.shape
-    K = int(cascade_of.shape[0])
     U = int(cas_group.shape[0])
-    V = pool_latency_ns.shape[1]
-    P = V // n_hosts
-    S = switch_bw.shape[1]
+    S = cas_stt.shape[1]
+    P = bits_table.shape[0] // n_hosts
     dev, dtype = t.device, t.dtype
     stage_idx = _stage_index(tuple(stage_order), dev)
     big = torch.finfo(dtype).max / 4
@@ -948,14 +974,14 @@ def _analyze_sweep(
     launches = _launch_groups(cas_stt, cas_disc if qos_on else None,
                               cas_weights if qos_on else None)
     multi = n_hosts > 1
-
-    # -- phase 1: the U unique cascades, one launch per STT group ---------- #
     slot_order = qos_on or _has_merges(dev, merge_plan)
-    t_fin_u = torch.empty((U, B, N), dtype=dtype, device=dev)
-    slot_u = torch.empty((U, B, N), dtype=torch.int32, device=dev) if slot_order else None
-    cong_u = torch.zeros((U, B, S), dtype=dtype, device=dev)
-    host_cong_u = torch.empty((U, B, n_hosts), dtype=dtype, device=dev) if multi else None
-    class_cong_u = torch.empty((U, B, C), dtype=dtype, device=dev) if qos_on else None
+    out = SweepCascades(
+        t_fin=torch.empty((U, B, N), dtype=dtype, device=dev),
+        slot=torch.empty((U, B, N), dtype=torch.int32, device=dev) if slot_order else None,
+        cong=torch.zeros((U, B, S), dtype=dtype, device=dev),
+        host_cong=torch.empty((U, B, n_hosts), dtype=dtype, device=dev) if multi else None,
+        class_cong=torch.empty((U, B, C), dtype=dtype, device=dev) if qos_on else None,
+    )
     for us in launches:
         n_u = int(us.shape[0])
         g = cas_group[us]
@@ -980,27 +1006,63 @@ def _analyze_sweep(
                 hosts=hosts, n_hosts=n_hosts,
             )
             psd = psd.view(n_u, B, *psd.shape[1:])  # [U_g, B, S_st, H, C]
-            cong_u[us.view(-1, 1), :, stage_idx] = psd.sum(dim=(3, 4)).permute(0, 2, 1)
-            class_cong_u[us] = psd.sum(dim=(2, 3))
+            out.cong[us.view(-1, 1), :, stage_idx] = psd.sum(dim=(3, 4)).permute(0, 2, 1)
+            out.class_cong[us] = psd.sum(dim=(2, 3))
             if multi:
-                host_cong_u[us] = psd.sum(dim=(2, 4))
+                out.host_cong[us] = psd.sum(dim=(2, 4))
         else:
             t_end, slot_idx, psd = kops.congestion_cascade(
                 t_cur, bits, stt, merge_plan=merge_plan, hosts=hosts, n_hosts=n_hosts,
             )
             psd = psd.view(n_u, B, *psd.shape[1:])  # [U_g, B, S_st(, H)]
             if multi:
-                cong_u[us.view(-1, 1), :, stage_idx] = psd.sum(dim=3).permute(0, 2, 1)
-                host_cong_u[us] = psd.sum(dim=2)
+                out.cong[us.view(-1, 1), :, stage_idx] = psd.sum(dim=3).permute(0, 2, 1)
+                out.host_cong[us] = psd.sum(dim=2)
             else:
-                cong_u[us.view(-1, 1), :, stage_idx] = psd.permute(0, 2, 1)
-        t_fin_u[us] = t_end.view(n_u, B, N)
-        if slot_u is not None:
-            slot_u[us] = slot_idx.view(n_u, B, N)
+                out.cong[us.view(-1, 1), :, stage_idx] = psd.permute(0, 2, 1)
+        out.t_fin[us] = t_end.view(n_u, B, N)
+        if out.slot is not None:
+            out.slot[us] = slot_idx.view(n_u, B, N)
+    return out
 
-    # -- phase 2: the K scenario reductions, in chunks ---------------------- #
+
+def _sweep_reduce(
+    cascades: SweepCascades,
+    nbytes: torch.Tensor,  # [G, B, N] f32
+    weight: torch.Tensor,  # [G, B, N] f32
+    host: torch.Tensor,  # [G, B, N] i32
+    valid: torch.Tensor,  # [G, B, N] bool
+    region: torch.Tensor,  # [G, B, N] i64
+    bw_window: torch.Tensor,  # [G, B] f32 per-epoch window lengths
+    group_of: torch.Tensor,  # [K] i64 scenario -> skeleton group
+    cascade_of: torch.Tensor,  # [K] i64 scenario -> unique cascade
+    assign: torch.Tensor,  # [K, R] i64 placement matrix
+    lat_scale: torch.Tensor,  # [K, B, V] f32 per-scenario device-cache scales
+    pool_latency_ns: torch.Tensor,  # [K, V] f32 stacked topology leaves
+    local_latency_ns: torch.Tensor,  # [K] f32
+    switch_bw: torch.Tensor,  # [K, S] f32
+    route: torch.Tensor,  # [V, S] f32 shared (structure)
+    n_windows: int,
+    n_hosts: int,
+) -> torch.Tensor:
+    """Phase 2 of a sweep: the K scenario reductions, per-scenario totals
+    reduced on the device, ``[K, M]`` rows in :func:`_analyze_batch`'s
+    layout.  In chunks of about :data:`SWEEP_CHUNK_EVENTS` events, each
+    scenario takes its cascade's final times and slot permutation, derives
+    its events' pools from its own placement row, and is priced
+    (:func:`_price`) against its own row of topology leaves and cache
+    scales.  Each scenario's row depends on its own inputs only, so any
+    split of the K axis (the chunks, a mesh's shards) changes no number."""
+    G, B, N = valid.shape
+    K = int(cascade_of.shape[0])
+    V = pool_latency_ns.shape[1]
+    P = V // n_hosts
+    S = switch_bw.shape[1]
+    R = assign.shape[1]
+    C = 1 if cascades.class_cong is None else cascades.class_cong.shape[2]
+    multi = n_hosts > 1
     M = 3 + P + 2 * S + 3 * n_hosts + C
-    out = torch.empty((K, M), dtype=dtype, device=dev)
+    out = torch.empty((K, M), dtype=cascades.t_fin.dtype, device=valid.device)
     chunk = max(1, SWEEP_CHUNK_EVENTS // max(B * N, 1))
 
     def per_row(x: torch.Tensor) -> torch.Tensor:  # [n_k, ...] -> [n_k·B, ...]
@@ -1020,17 +1082,17 @@ def _analyze_sweep(
         host64 = host[g].view(rows).to(torch.int64) if multi else None
         vp = host64 * P + pool64 if multi else pool64
         priced = _price(
-            t_fin_u[u].view(rows),
-            None if slot_u is None else slot_u[u].view(rows),
+            cascades.t_fin[u].view(rows),
+            None if cascades.slot is None else cascades.slot[u].view(rows),
             pool64, vp, host64,
             nbytes[g].view(rows), weight[g].view(rows), valid_k.view(rows),
             bw_window[g].view(-1),
             lat_scale[ks].reshape(n_k * B, V),
             per_row(pool_latency_ns[ks]), per_row(local_latency_ns[ks]),
             route, per_row(switch_bw[ks]),
-            cong_u[u].view(n_k * B, S),
-            host_cong_u[u].view(n_k * B, n_hosts) if multi else None,
-            class_cong_u[u].view(n_k * B, C) if qos_on else None,
+            cascades.cong[u].view(n_k * B, S),
+            cascades.host_cong[u].view(n_k * B, n_hosts) if multi else None,
+            None if cascades.class_cong is None else cascades.class_cong[u].view(n_k * B, C),
             n_windows, n_hosts,
         )
         out[ks] = priced.view(n_k, B, M).sum(dim=1)
@@ -1353,8 +1415,9 @@ class EpochAnalyzer:
     arbitrating switches (``FlatTopology.has_qos``) run the QoS cascade,
     host-segmented on multi-host fabrics, and report congestion per class;
     it needs the fused cascade, so QoS on the unfused loop raises
-    ``ValueError`` as in the reference.  ``mesh=`` (slice 6) raises
-    ``NotImplementedError``.
+    ``ValueError`` as in the reference.  ``mesh=`` (a ``('data',)``
+    :class:`~repro_torch.launch.mesh.Mesh` of this analyzer's device type)
+    splits :meth:`analyze_batch_multi`'s session axis over its entries.
 
     ``pipeline=True`` enables the device-resident dispatch path
     (:meth:`launch_batch`): the host planes are staged into pinned buffers
@@ -1382,11 +1445,11 @@ class EpochAnalyzer:
         aot: Optional[AotDispatchCache] = None,
         mesh=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError("sharded dispatch (mesh=) comes with slice 6 of the port")
         self.flat = flat
         self.device = _check_device(device)
+        self.mesh = check_mesh(mesh, self.device)
         self.last_dispatch = DispatchStats()
+        self.sharded_dispatches = 0
         self.bw_window_ns = float(bw_window_ns)
         self.n_windows = int(n_windows)
         self.dtype = torch.float32
@@ -1449,8 +1512,16 @@ class EpochAnalyzer:
             self._chain_stt = tuple(
                 float(x) for x in np.asarray(flat.switch_stt_ns, np.float32)[order]
             )
+        # the topology's tensors on each mesh device, each copy made once
+        self._replicas = Replicas(self._topology())
 
     _bucket = staticmethod(bucket_pow2)
+
+    def _topology(self) -> Tuple[Optional[torch.Tensor], ...]:
+        """The tensors :func:`_analyze_batch` reads besides the planes."""
+        return (self._bits_table, self._pool_lat, self._local_lat, self._route,
+                self._stt, self._bw, self._disc, self._weights)
+
 
     def analyze(
         self, events: MemEvents, lat_scale: Optional[np.ndarray] = None
@@ -1477,9 +1548,14 @@ class EpochAnalyzer:
             _check_reachable(self.flat, tr)
         return pairs
 
-    def _run_batch(self, t, pool, nbytes, weight, host, valid, window, scale, qos):
+    def _run_batch(self, t, pool, nbytes, weight, host, valid, window, scale, qos,
+                   topology=None):
         """:func:`_analyze_batch`'s ``[B, M]`` rows on device planes with this
-        analyzer's topology tensors."""
+        analyzer's topology tensors (``topology``: their copies on the
+        planes' device)."""
+        bits, pool_lat, local_lat, route, stt, bw, disc, weights = (
+            topology if topology is not None else self._topology()
+        )
         return _analyze_batch(
             t,
             pool,
@@ -1489,20 +1565,20 @@ class EpochAnalyzer:
             valid,
             window,
             scale,
-            self._bits_table,
-            self._pool_lat,
-            self._local_lat,
-            self._route,
-            self._stt,
-            self._bw,
+            bits,
+            pool_lat,
+            local_lat,
+            route,
+            stt,
+            bw,
             stage_order=self._stage_order,
             n_windows=self.n_windows,
             n_hosts=self.flat.n_hosts,
             merge_plan=self._merge_plan,
             stage_stt_ns=self._stage_stt,
             qos=qos,
-            disc_code=self._disc,
-            class_weights=self._weights,
+            disc_code=disc,
+            class_weights=weights,
         )
 
     def _ring(self, b_bucket: int, n_bucket: int, width: int) -> _DeviceRing:
@@ -1699,11 +1775,18 @@ class EpochAnalyzer:
         arbitration and window configuration
         (:func:`~repro_torch.core.engine.dispatch_key` guarantees it).
         Empty groups come back as zero breakdowns; a single live group runs
-        :meth:`analyze_batch`.  ``mesh=`` (slice 6) raises
-        ``NotImplementedError``.
+        :meth:`analyze_batch`.
+
+        ``mesh`` (defaulting to the analyzer's own) splits the session axis
+        over its ``('data',)`` entries, as the reference does: K is padded
+        with empty sessions to a multiple of the entries, each entry's
+        ``[k_shard·B, N]`` rows run the same :func:`_analyze_batch` on its
+        own device (one cascade launch a shard) against the topology's
+        tensors copied there once, and reduce to per-session totals there.
+        Every shard's copies and launches are issued before the first
+        ``[k_shard, M]`` copy back, which go in mesh order.  Each row's
+        arithmetic is the unsharded dispatch's.
         """
-        if mesh is not None:
-            raise NotImplementedError("sharded dispatch (mesh=) comes with slice 6 of the port")
         P, S, H = self.flat.n_pools, self.flat.n_switches, self.flat.n_hosts
         K = len(groups)
         if lat_scale_groups is None:
@@ -1728,9 +1811,15 @@ class EpochAnalyzer:
                 stager=stager,
             )
             return out
+        mesh, n_shards = resolve_data_mesh(
+            check_mesh(self.mesh if mesh is None else mesh, self.device),
+            len(rows),
+            what="coalesced session dispatch",
+        )
         n_bucket = self._bucket(max(tr.n for i in rows for tr, _ in cleaned[i]))
         b_bucket = self._bucket(max(len(cleaned[i]) for i in rows), floor=1)
-        k_bucket = self._bucket(len(rows), floor=1)
+        k_bucket = pad_to_multiple(self._bucket(len(rows), floor=1), n_shards)
+        k_shard = k_bucket // n_shards
         st = stager if stager is not None else self._stager
         buf = st.stage_stack(
             [[tr for tr, _ in cleaned[i]] for i in rows], k_bucket, b_bucket, n_bucket
@@ -1743,19 +1832,23 @@ class EpochAnalyzer:
         span = np.maximum(buf["span"], self.bw_window_ns)
         bw_window = np.maximum(span / self.n_windows, 1.0).astype(np.float32)
         self.last_dispatch = DispatchStats(
-            devices_used=1,
-            shard_rows=0,
+            devices_used=n_shards,
+            shard_rows=k_shard if mesh is not None else 0,
             rows=len(rows),
             padded_fraction=float(k_bucket - len(rows)) / k_bucket,
             qos_classes=self.flat.n_qos_classes,
         )
-        n_rows, dev = k_bucket * b_bucket, self.device
+        if mesh is not None:
+            self.sharded_dispatches += 1
+        n_rows = k_shard * b_bucket
+        topologies = [None] if mesh is None else self._replicas.on(mesh_devices(mesh))
 
-        def put(a: np.ndarray) -> torch.Tensor:
-            # [K, B, ...] planes as the [K·B, ...] rows of one batch
-            return torch.from_numpy(a).to(dev).view((n_rows,) + a.shape[2:])
+        def put(a: np.ndarray) -> List[torch.Tensor]:
+            # [K, B, ...] planes as each shard's [k_shard·B, ...] rows
+            parts = [torch.from_numpy(a).to(self.device)] if mesh is None else shard_rows(mesh, a)
+            return [p.view((n_rows,) + a.shape[2:]) for p in parts]
 
-        res = self._run_batch(
+        planes = [
             put(buf["t"]),
             put(buf["pool"]),
             put(buf["bytes"]),
@@ -1765,10 +1858,15 @@ class EpochAnalyzer:
             put(bw_window),
             put(scale_buf),
             put(buf["qos"]) if self.qos_on else None,  # FIFO: no plane to move
-        )
-        per_session = res.view(k_bucket, b_bucket, -1).sum(dim=1)[: len(rows)]
-        # one [K, M] transfer for every coalesced session
-        tot = per_session.cpu().numpy().astype(np.float64)
+        ]
+        per_session = [
+            self._run_batch(*(None if p is None else p[j] for p in planes), topology=topo)
+            .view(k_shard, b_bucket, -1).sum(dim=1)
+            for j, topo in enumerate(topologies)
+        ]
+        # one [k_shard, M] transfer a shard, in mesh order
+        tot = np.concatenate([x.cpu().numpy() for x in per_session])[: len(rows)]
+        tot = tot.astype(np.float64)
         for k, i in enumerate(rows):
             out[i] = _unpack(tot[k], P, S, H)
         return out

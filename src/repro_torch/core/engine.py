@@ -47,8 +47,12 @@ Staging buffers: the engine owns its :class:`~repro_torch.core.events.EventStage
 set — one ``slots=2`` ring per dtype, pinned when it stages for a CUDA
 pipeline analyzer — so the dispatcher never shares mutable host buffers
 with a session's own synchronous calls, and every batch it dispatches is
-staged through that ring only.  Left out: the reference's ``mesh=``
-(sharded dispatch, slice 6 of the port).
+staged through that ring only.
+
+``mesh=`` (a ``('data',)`` :class:`~repro_torch.launch.mesh.Mesh`) splits
+every coalesced dispatch's session axis over its entries, as the
+reference's does; the dispatcher makes its own stream current on each
+CUDA device of the mesh as on the analyzer's.
 """
 
 from __future__ import annotations
@@ -64,6 +68,7 @@ import numpy as np
 import torch
 
 from ..annotations import guarded_by, single_threaded
+from ..launch.mesh import mesh_devices, resolve_device
 from .analyzer import (
     DelayBreakdown,
     DispatchStats,
@@ -364,8 +369,8 @@ class EngineClient:
 
 class AnalysisEngine:
     """One dispatcher thread serving any number of attached sessions; see
-    the module docstring.  ``mesh=`` (slice 6) raises
-    ``NotImplementedError``."""
+    the module docstring.  ``mesh`` splits every coalesced dispatch over its
+    entries (None: each analyzer's own mesh, if any)."""
 
     _simlint_guards = guarded_by(
         "_cv",
@@ -387,9 +392,10 @@ class AnalysisEngine:
         name: str = "cxlmemsim-engine",
         mesh=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError("sharded dispatch (mesh=) comes with slice 6 of the port")
         self.name = name
+        if mesh is not None:
+            mesh_devices(mesh)  # a Mesh with devices, or raise here
+        self.mesh = mesh
         self._cv = threading.Condition(threading.Lock())
         self._pending: Deque[_Submission] = deque()
         self._thread: Optional[threading.Thread] = None
@@ -467,8 +473,11 @@ class AnalysisEngine:
     def stream(self, device) -> Optional["torch.cuda.Stream"]:
         """The dispatcher's own stream on ``device`` (None until it has
         dispatched there)."""
+        dev = torch.device(device)
+        if dev.type == "cuda" and torch.cuda.is_available():
+            dev = resolve_device(dev)
         with self._cv:
-            return self._streams.get(torch.device(device))
+            return self._streams.get(dev)
 
     # -- dispatcher ---------------------------------------------------------- #
 
@@ -497,21 +506,28 @@ class AnalysisEngine:
 
     def _enter_device(self, analyzer) -> None:
         """Make the dispatcher's own stream current on the analyzer's CUDA
-        device (created on first use there).  A thread's current stream is
-        its own, so this changes nothing for the sessions' threads; the
-        kernels, the ring's copies and its events all follow it."""
+        device and on every CUDA device of the mesh its coalesced
+        dispatches split over (each stream created on first use there).  A
+        thread's current stream is its own, so this changes nothing for the
+        sessions' threads; the kernels, the ring's copies and its events all
+        follow it, and a shard on another card never queues on that card's
+        default stream."""
         dev = getattr(analyzer, "device", None)
-        if dev is None or dev.type != "cuda":
-            return
-        with self._cv:
-            stream = self._streams.get(dev)
-            if stream is None:
-                # the default priority, the attached programs' own: a higher
-                # one moved neither the step's native time nor the wall
-                # time beyond the spread on the card (PERF.md, PR 22)
-                stream = self._streams[dev] = torch.cuda.Stream(dev)
-        if torch.cuda.current_stream(dev) != stream:
-            torch.cuda.set_stream(stream)
+        devices = [] if dev is None else [dev]
+        mesh = self.mesh if self.mesh is not None else getattr(analyzer, "mesh", None)
+        if mesh is not None:
+            devices += mesh_devices(mesh)
+        for d in dict.fromkeys(resolve_device(d) for d in devices if d.type == "cuda"):
+            with self._cv:
+                stream = self._streams.get(d)
+                if stream is None:
+                    # the default priority, the attached programs' own: a
+                    # higher one moved neither the step's native time nor
+                    # the wall time beyond the spread on the card (PERF.md,
+                    # PR 22)
+                    stream = self._streams[d] = torch.cuda.Stream(d)
+            if torch.cuda.current_stream(d) != stream:
+                torch.cuda.set_stream(stream)
 
     def _pop_group_locked(self) -> List[_Submission]:
         """FIFO head plus the first pending submission of every *other*
@@ -619,6 +635,7 @@ class AnalysisEngine:
                     [s.traces for s in live],
                     [s.scales for s in live],
                     stager=stager,
+                    mesh=self.mesh,
                 )
             # a coalesced or synchronous dispatch's record, read before the
             # next launch (or the pending batch's finish) overwrites it

@@ -46,9 +46,8 @@ slowdown.
 
 Differences from the reference: the fleet runs on ``device`` (default
 ``"cuda"``, which raises without a card; ``"cpu"`` runs the kernels' plain
-versions); a ``mesh`` (the reference's split of the rack axis over
-devices) raises ``NotImplementedError``, so reports keep
-``devices_used=1`` and ``shard_rows=0``.
+versions); and with a ``mesh`` (the reference's split of the rack axis
+over devices) a shard that holds only padding rows is not dispatched.
 """
 
 from __future__ import annotations
@@ -60,6 +59,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..distributed.sharding import Replicas, check_mesh, pad_to_multiple, resolve_data_mesh
+from ..launch.mesh import mesh_devices
 from .analyzer import (
     DelayBreakdown,
     DispatchStats,
@@ -70,7 +71,7 @@ from .analyzer import (
     plan_cascade,
 )
 from .events import EventStager, MemEvents, RegionMap, concat_events
-from .scenario import MESH_LATER, _np_dtype, _PhaseClock
+from .scenario import _np_dtype, _PhaseClock
 from .topology import (
     QosSpec,
     Topology,
@@ -268,7 +269,9 @@ class FleetSim:
     numeric parameters per rack (a heterogeneous fleet — e.g. two expander
     generations), ``rack_qos`` the racks' QoS arbitration.  The fleet runs
     on ``device`` (default ``"cuda"``, which raises without a card);
-    ``dtype`` is a torch dtype; ``mesh`` raises ``NotImplementedError``.
+    ``dtype`` is a torch dtype; ``mesh`` (a ``('data',)``
+    :class:`~repro_torch.launch.mesh.Mesh` of ``device``'s type) splits
+    every dispatch's rack planes over its entries.
     """
 
     def __init__(
@@ -290,9 +293,8 @@ class FleetSim:
         rack_qos: Optional[Sequence[Optional[QosSpec]]] = None,
         device="cuda",
     ):
-        if mesh is not None:
-            raise NotImplementedError(MESH_LATER)
         self.device = _check_device(device)
+        self.mesh = check_mesh(mesh, self.device)
         if n_racks < 1:
             raise ValueError("need at least one rack")
         self.n_racks = int(n_racks)
@@ -350,6 +352,8 @@ class FleetSim:
         bits_pool, self._merge_plan, self._stage_order = plan_cascade(flat)
         self._bits_table = torch.tensor(bits_pool, dtype=torch.int32, device=self.device)
         self._route = torch.tensor(flat.route, dtype=dtype, device=self.device)
+        # (bits_table, route) on each mesh device, each copy made once
+        self._replicas = Replicas((self._bits_table, self._route))
         # numeric leaves, one row per rack (structure shared by construction)
         self._leaf_stack = flatten_stack(self.topology, self.rack_overrides)
         # per-rack QoS arbitration policies: disciplines and class weights
@@ -547,24 +551,36 @@ class FleetSim:
         return rack_traces, native
 
     def _dispatch(
-        self, rack_traces: List[List[MemEvents]], tiles: int
+        self, rack_traces: List[List[MemEvents]], tiles: int, mesh=None
     ) -> List[DelayBreakdown]:
         """ONE ``[K, B, N]`` fleet dispatch (K = tiles × n_racks).  The
         planes are staged in the reference's K, B and N buckets; the K real
         planes (the stack bucket's pad planes are all-invalid and price to
         zero) go to the device, are analyzed, and come back as one
-        ``[K, M]`` copy."""
+        ``[K, M]`` copy.
+
+        ``mesh`` (defaulting to the fleet's) splits the planes over its
+        ``('data',)`` entries as the reference does: K's bucket is padded to
+        a multiple of the entries, each entry takes its slice of the real
+        planes (one cascade launch per STT row of its racks) against the
+        rack structure copied there once, and the slices come back in mesh
+        order, one copy each."""
         flat = self.flat
         P, S, H = flat.n_pools, flat.n_switches, flat.n_hosts
         V = H * P
         K = len(rack_traces)
         if K != tiles * self.n_racks:
             raise ValueError(f"{K} rack planes for {tiles} x {self.n_racks} racks")
+        mesh, n_shards = resolve_data_mesh(
+            check_mesh(self.mesh if mesh is None else mesh, self.device), K,
+            what="fleet dispatch",
+        )
         n_max = max((tr.n for rows in rack_traces for tr in rows), default=1)
         B = max(len(rows) for rows in rack_traces)
         n_bucket = bucket_pow2(max(n_max, 1))
         b_bucket = bucket_pow2(B, floor=1)
-        k_bucket = bucket_pow2(K, floor=1)
+        k_bucket = pad_to_multiple(bucket_pow2(K, floor=1), n_shards)
+        k_shard = k_bucket // n_shards
         t_stage = time.perf_counter()
         buf = self._stager.stage_stack(rack_traces, k_bucket, b_bucket, n_bucket)
         span = np.maximum(buf["span"][:K], self.bw_window_ns)
@@ -574,52 +590,61 @@ class FleetSim:
 
         ls = self._leaf_stack
         fd = self._np_dtype
-        dev = self.device
+        devs = [self.device] if mesh is None else mesh_devices(mesh)
+        # each entry's real planes; an entry past the last one holds padding
+        # rows only and is not dispatched
+        spans = [(j * k_shard, min((j + 1) * k_shard, K)) for j in range(len(devs))]
+        if mesh is None:
+            spans = [(0, K)]
 
         def tiled(a: np.ndarray) -> np.ndarray:
             return np.concatenate([a] * tiles, axis=0) if tiles > 1 else a
 
-        def put(a: np.ndarray) -> torch.Tensor:
-            return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        planes = {
+            "t": buf["t"], "pool": buf["pool"], "nbytes": buf["bytes"],
+            "weight": buf["weight"],
+            "host": buf["host"] if H > 1 else None,  # one host: no plane to move
+            "qos": buf["qos"] if self.qos_on else None,  # FIFO: no plane to move
+            "valid": buf["valid"], "bw_window_ns": bw_window.astype(fd), "lat_scale": scale,
+            "pool_latency_ns": tiled(ls.pool_latency_ns).astype(fd),
+            "local_latency_ns": tiled(ls.local_latency_ns).astype(fd),
+            "switch_stt_ns": tiled(ls.switch_stt_ns).astype(fd),
+            "switch_bw": tiled(ls.switch_bandwidth_gbps).astype(fd),
+            "disc_code": tiled(self._disc_stack),
+            "class_weights": tiled(self._weights_stack),
+        }
 
         self.dispatch_count += 1
-        clock = _PhaseClock(dev)
+        clock = _PhaseClock(self.device)
         clock.mark()
-        args = dict(
-            t=put(buf["t"][:K]),
-            pool=put(buf["pool"][:K]),
-            nbytes=put(buf["bytes"][:K]),
-            weight=put(buf["weight"][:K]),
-            host=put(buf["host"][:K]) if H > 1 else None,  # one host: no plane to move
-            qos=put(buf["qos"][:K]) if self.qos_on else None,  # FIFO: no plane to move
-            valid=put(buf["valid"][:K]),
-            bw_window_ns=put(bw_window.astype(fd)),
-            lat_scale=put(scale),
-            bits_table=self._bits_table,
-            pool_latency_ns=put(tiled(ls.pool_latency_ns).astype(fd)),
-            local_latency_ns=put(tiled(ls.local_latency_ns).astype(fd)),
-            route=self._route,
-            switch_stt_ns=put(tiled(ls.switch_stt_ns).astype(fd)),
-            switch_bw=put(tiled(ls.switch_bandwidth_gbps).astype(fd)),
-            disc_code=put(tiled(self._disc_stack)),
-            class_weights=put(tiled(self._weights_stack)),
-        )
+        shards = []
+        for (lo, hi), dev, (bits, route) in zip(spans, devs, self._replicas.on(devs)):
+            if hi > lo:
+                shards.append(dict(
+                    {name: None if a is None else
+                     torch.from_numpy(np.ascontiguousarray(a[lo:hi])).to(dev)
+                     for name, a in planes.items()},
+                    bits_table=bits, route=route,
+                ))
         clock.mark()
-        out = _analyze_fleet(
-            **args,
-            stage_order=self._stage_order,
-            n_windows=self.n_windows,
-            n_hosts=H,
-            merge_plan=self._merge_plan,
-            qos_on=self.qos_on,
-        )
-        # the single host-boundary crossing for the whole fleet
-        tot = out.cpu().numpy().astype(np.float64)
+        outs = [
+            _analyze_fleet(
+                **args,
+                stage_order=self._stage_order,
+                n_windows=self.n_windows,
+                n_hosts=H,
+                merge_plan=self._merge_plan,
+                qos_on=self.qos_on,
+            )
+            for args in shards
+        ]
+        # one host-boundary crossing for the whole fleet (one a shard)
+        tot = np.concatenate([o.cpu().numpy() for o in outs]).astype(np.float64)
         clock.mark()
         transfer_s, compute_s = clock.seconds()
         self.last_dispatch = DispatchStats(
-            devices_used=1,
-            shard_rows=0,
+            devices_used=n_shards,
+            shard_rows=k_shard if mesh is not None else 0,
             rows=K,
             padded_fraction=float(k_bucket - K) / k_bucket,
             stage_s=stage_s,
@@ -665,12 +690,11 @@ class FleetSim:
         mesh=None,
     ) -> FleetReport:
         """Schedule the tenants and price one steady-state fleet round.
-        ``mesh`` raises ``NotImplementedError``."""
-        if mesh is not None:
-            raise NotImplementedError(MESH_LATER)
+        ``mesh`` (defaulting to the fleet's) splits the racks over its
+        entries."""
         placements = self.place(tenants, policy, offload_fraction)
         rack_traces, native = self._rack_timelines(placements)
-        breakdowns = self._dispatch(rack_traces, tiles=1)
+        breakdowns = self._dispatch(rack_traces, tiles=1, mesh=mesh)
         return self._report_from(
             placements, breakdowns[: self.n_racks], native, offload_fraction
         )
@@ -687,12 +711,10 @@ class FleetSim:
 
         Every fraction re-places the tenants (skeletons are cached — a new
         placement is only a region→pool gather) and all F·R rack planes
-        stack on the same leading axis.  Points come back in
-        ``offload_fractions`` order.  ``mesh`` raises
-        ``NotImplementedError``.
+        stack on the same leading axis, and ``mesh`` (defaulting to the
+        fleet's) splits fraction and rack planes together.  Points come back
+        in ``offload_fractions`` order.
         """
-        if mesh is not None:
-            raise NotImplementedError(MESH_LATER)
         fracs = [float(f) for f in offload_fractions]
         if not fracs:
             raise ValueError("need at least one offload fraction")
@@ -703,7 +725,7 @@ class FleetSim:
             traces, native = self._rack_timelines(placements)
             all_traces.extend(traces)
             per_f.append((placements, native))
-        breakdowns = self._dispatch(all_traces, tiles=len(fracs))
+        breakdowns = self._dispatch(all_traces, tiles=len(fracs), mesh=mesh)
         points: List[FleetPoint] = []
         for i, f in enumerate(fracs):
             placements, native = per_f[i]

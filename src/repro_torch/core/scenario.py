@@ -6,7 +6,8 @@ The paper's headline use case is *exploration* — "experimentation with
 memory pooling configurations, scheduling policies, data migration
 strategies, and caching techniques that were previously infeasible to
 evaluate at scale".  :class:`ScenarioSuite` folds a whole sweep into one
-dispatch (:func:`~repro_torch.core.analyzer._analyze_sweep`):
+dispatch (:func:`~repro_torch.core.analyzer._sweep_cascades`, then
+:func:`~repro_torch.core.analyzer._sweep_reduce`):
 
   * **Placement** is a ``[K, R]`` matrix (:func:`~repro_torch.core.policy.
     assign_batch` over the vectorized policy ``assign`` paths); per-event
@@ -39,9 +40,9 @@ Differences from the reference: the suite runs on ``device`` (default
 ``"cuda"``, which raises without a card; ``"cpu"`` runs the kernels'
 plain versions); its stage, transfer and compute split is timed with CUDA
 events on the card; the reference's ``compile_cache_size`` reads XLA's
-compile cache and has no counterpart here; and a ``mesh`` (the
-reference's split of the scenario axis over devices) raises
-``NotImplementedError``.
+compile cache and has no counterpart here; and with a ``mesh`` the U
+unique cascades run once, on the mesh's first device, where the
+reference's run on every device.
 """
 
 from __future__ import annotations
@@ -54,11 +55,20 @@ from typing import Callable, Dict, Iterable, List, Mapping, Optional, Sequence, 
 import numpy as np
 import torch
 
+from ..distributed.sharding import (
+    Replicas,
+    check_mesh,
+    pad_to_multiple,
+    resolve_data_mesh,
+    shard_rows,
+)
+from ..launch.mesh import mesh_devices
 from .analyzer import (
     DelayBreakdown,
     DispatchStats,
-    _analyze_sweep,
     _check_device,
+    _sweep_cascades,
+    _sweep_reduce,
     _unpack,
     bucket_pow2,
     plan_cascade,
@@ -78,8 +88,6 @@ from .tracer import (
 from .units import bytes_to_gib, bytes_to_mib, ms_to_ns, ns_to_ms, ns_to_s
 
 __all__ = ["Scenario", "ScenarioSuite", "SweepResult"]
-
-MESH_LATER = "sharded dispatch (mesh=) over several CUDA devices comes with a later slice of the port"
 
 
 def _class_shares(b: DelayBreakdown) -> List[float]:
@@ -158,7 +166,7 @@ class SweepResult:
     native_ns: float  # roofline-paced native step time (shared: one workload)
     feasible: np.ndarray  # [K] bool: every pool within capacity
     utilization: np.ndarray  # [K, P] bytes placed / capacity
-    # dispatch observability (one device: no split of the scenario axis)
+    # dispatch observability: the split of the scenario axis over a mesh
     devices_used: int = 1
     shard_rows: int = 0
     padded_fraction: float = 0.0
@@ -274,10 +282,11 @@ class ScenarioSuite:
         regions default to class 0); with it — or a QoS-bearing topology,
         or any scenario carrying a :class:`~repro_torch.core.topology.QosSpec`
         — the sweep routes congestion through the QoS arbitration cascade
-        and reports per-class delay shares."""
-        if mesh is not None:
-            raise NotImplementedError(MESH_LATER)
+        and reports per-class delay shares.  ``mesh`` (a ``('data',)``
+        :class:`~repro_torch.launch.mesh.Mesh` of ``device``'s type) splits
+        every :meth:`run`'s scenario axis over its entries."""
         self.device = _check_device(device)
+        self.mesh = check_mesh(mesh, self.device)
         self.topology = topology
         self.regions = regions
         self.phases = list(phases)
@@ -310,6 +319,8 @@ class ScenarioSuite:
             raise ValueError("region_qos classes must be >= 0")
         self._skeletons: Dict[float, TraceSkeleton] = {}
         self._staged: Dict[Tuple[float, int], Dict[str, np.ndarray]] = {}
+        # (bits_table, route) on each mesh device, each copy made once
+        self._replicas = Replicas((self._bits_table, self._route))
         self.dispatch_count = 0  # sweep dispatches (tests assert 1 per run)
         self.last_unique_cascades = 0  # U of the latest run (dedup visibility)
         self.last_dispatch = DispatchStats()
@@ -439,10 +450,16 @@ class ScenarioSuite:
         ``on_overflow``: ``'mark'`` records capacity violations in
         ``SweepResult.feasible`` (the frontier API filters on it);
         ``'raise'`` fails fast like :func:`~repro_torch.core.policy.
-        capacity_check`.  ``mesh`` raises ``NotImplementedError``.
+        capacity_check`.
+
+        ``mesh`` (defaulting to the suite's) splits the scenario axis over
+        its ``('data',)`` entries: K is padded (scenario 0 repeated) to a
+        multiple of the entries, each entry prices its own slice of the
+        scenarios on its device, and the U unique cascades run once, on the
+        mesh's first device, so the sweep's cascade launches are the same
+        whatever the mesh.  Padded rows are dropped before results are
+        built.
         """
-        if mesh is not None:
-            raise NotImplementedError(MESH_LATER)
         if on_overflow not in ("mark", "raise"):
             raise ValueError(on_overflow)
         scenarios = list(scenarios)
@@ -582,18 +599,38 @@ class ScenarioSuite:
             lat_scale[k] = rows
 
         # 5. ONE stacked dispatch; per-scenario totals come back together.
+        # With a mesh, the scenario axis is padded to a multiple of its
+        # entries (scenario 0 repeated: its cascade and group indices stay
+        # valid) and split over them; the U unique cascades run once, on the
+        # mesh's first device, and their outcomes are copied to the others.
         # Host staging (pack), H2D, then the dispatch proper — the split
         # DispatchStats reports for the pipeline
+        mesh, n_shards = resolve_data_mesh(
+            check_mesh(self.mesh if mesh is None else mesh, self.device), K,
+            what="scenario sweep",
+        )
+        Kp = pad_to_multiple(K, n_shards)
+
+        def pad_k(a: np.ndarray) -> np.ndarray:
+            if Kp == a.shape[0]:
+                return a
+            return np.concatenate([a, np.repeat(a[:1], Kp - a.shape[0], axis=0)], axis=0)
+
         fd = self._np_dtype
         clock = _PhaseClock(self.device)
         t0 = time.perf_counter()
-        host_planes = {
-            "t": stack_np("t"), "nbytes": stack_np("bytes"), "weight": stack_np("weight"),
+        shared = {  # the skeletons' planes: every scenario reads them
+            "nbytes": stack_np("bytes"), "weight": stack_np("weight"),
             "host": stack_np("host"), "valid": stack_np("valid"),
             "region": stack_np("region"), "bw_window": bw_window.astype(fd),
+        }
+        cascade_planes = {
+            "t": stack_np("t"),
             "cas_group": group_of[cas_rows_np], "cas_assign": assign[cas_rows_np].astype(np.int64),
             "cas_stt": stt_np[cas_rows_np], "cas_disc": disc_np[cas_rows_np],
             "cas_weights": w_np[cas_rows_np].astype(fd), "qos_of_region": self._qos_of_region,
+        }
+        per_k = {  # one row a scenario: split over the mesh
             "group_of": group_of, "cascade_of": cascade_of,
             "assign": assign.astype(np.int64), "lat_scale": lat_scale,
             "pool_latency_ns": topo_stack.pool_latency_ns.astype(fd),
@@ -601,31 +638,47 @@ class ScenarioSuite:
             "switch_bw": topo_stack.switch_bandwidth_gbps.astype(fd),
         }
         stage_s = time.perf_counter() - t0
-        dev = self.device
+        devs = [self.device] if mesh is None else mesh_devices(mesh)
+        structure = self._replicas.on(devs)
+
+        def put(a: np.ndarray) -> torch.Tensor:
+            return torch.from_numpy(np.ascontiguousarray(a)).to(devs[0])
+
         clock.mark()
-        args = {name: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-                for name, a in host_planes.items()}
+        shared_dev = {name: put(a) for name, a in shared.items()}
+        cascade_dev = {name: put(a) for name, a in cascade_planes.items()}
+        per_k_dev = {name: [put(a)] if mesh is None else shard_rows(mesh, pad_k(a))
+                     for name, a in per_k.items()}
         clock.mark()
         self.dispatch_count += 1
-        out = _analyze_sweep(
-            **args,
-            bits_table=self._bits_table,
-            route=self._route,
+        cascades = _sweep_cascades(
+            host=shared_dev["host"], valid=shared_dev["valid"], region=shared_dev["region"],
+            **cascade_dev,
+            bits_table=structure[0][0],
             stage_order=self._stage_order,
-            n_windows=self.n_windows,
             n_hosts=H,
             merge_plan=self._merge_plan,
             qos_on=qos_on,
         )
-        # the single host-boundary crossing for the whole sweep
-        tot = out.cpu().numpy().astype(np.float64)
+        # the cascades' outcomes and the skeletons' planes, once a device
+        on_dev = {d: (cascades.to(d), {n: x.to(d) for n, x in shared_dev.items()})
+                  for d in dict.fromkeys(devs)}
+        outs = [
+            _sweep_reduce(
+                on_dev[d][0], **on_dev[d][1], **{n: parts[j] for n, parts in per_k_dev.items()},
+                route=structure[j][1], n_windows=self.n_windows, n_hosts=H,
+            )
+            for j, d in enumerate(devs)
+        ]
+        # one [K, M] host-boundary crossing for the whole sweep (one a shard)
+        tot = np.concatenate([o.cpu().numpy() for o in outs])[:K].astype(np.float64)
         clock.mark()
         transfer_s, compute_s = clock.seconds()
         self.last_dispatch = DispatchStats(
-            devices_used=1,
-            shard_rows=0,
+            devices_used=n_shards,
+            shard_rows=Kp // n_shards if mesh is not None else 0,
             rows=K,
-            padded_fraction=0.0,
+            padded_fraction=float(Kp - K) / Kp,
             stage_s=stage_s,
             transfer_s=transfer_s,
             compute_s=compute_s,
@@ -639,9 +692,9 @@ class ScenarioSuite:
             native_ns=native,
             feasible=feasible,
             utilization=utilization,
-            devices_used=1,
-            shard_rows=0,
-            padded_fraction=0.0,
+            devices_used=self.last_dispatch.devices_used,
+            shard_rows=self.last_dispatch.shard_rows,
+            padded_fraction=self.last_dispatch.padded_fraction,
             stage_s=stage_s,
             transfer_s=transfer_s,
             compute_s=compute_s,

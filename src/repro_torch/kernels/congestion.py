@@ -34,6 +34,7 @@ from typing import Tuple
 
 import torch
 
+from ..annotations import axes
 from . import ref
 from .build import SOURCES, BuildResult, build, build_all, check_tensor, load, raise_on
 from .build import _libs  # noqa: F401  (the loaded libraries)
@@ -142,6 +143,7 @@ def _flags(t, n_stages: int):
     return last_merge_flags
 
 
+@axes("B,N", bits="B,N", stts="S")
 def congestion_cascade(
     t: torch.Tensor,  # [B, N] f32 CUDA, each row time-sorted (pads: finfo.max/4)
     bits: torch.Tensor,  # [B, N] i32 CUDA, bit s set iff the event crosses stage s
@@ -317,6 +319,7 @@ def _qos_launch(t, bits, qos, hosts, stts, disc_code, class_weights, n_hosts):
     return t_out, idx, psd
 
 
+@axes("B,N", bits="B,N", qos="B,N", stts="S", disc_code="S", class_weights="S,C")
 def qos_congestion_cascade(
     t: torch.Tensor,  # [B, N] f32 CUDA, each row time-sorted (pads: finfo.max/4)
     bits: torch.Tensor,  # [B, N] i32 CUDA route words

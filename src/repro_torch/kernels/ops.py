@@ -16,6 +16,7 @@ from typing import Optional, Sequence
 
 import torch
 
+from ..annotations import axes
 from . import congestion as _kernel
 from . import flash_attention as _flash
 from . import ref
@@ -49,6 +50,7 @@ def _refuse_backward(name: str, backward: str, *tensors: torch.Tensor) -> None:
         )
 
 
+@axes("B,N", bits="B,N", stts="S", hosts="B,N")
 def congestion_cascade(
     t: torch.Tensor,  # [B, N] f32, each row time-sorted
     bits: torch.Tensor,  # [B, N] i32 route words
@@ -80,6 +82,7 @@ def congestion_cascade(
     raise ValueError(f"no congestion_cascade for tensors on {t.device}")
 
 
+@axes("B,W", idx_pack="B,W")
 def chain_cascade(
     t_pack: torch.Tensor,  # [B, W] f32 per-stage packed sorted runs (+inf pads)
     idx_pack: torch.Tensor,  # [B, W] i32 positions in the staged row (-1 pads)
@@ -104,6 +107,7 @@ def chain_cascade(
     raise ValueError(f"no chain_cascade for tensors on {t_pack.device}")
 
 
+@axes("B,N", mask="B,N")
 def congestion_queue(
     t: torch.Tensor,  # [B, N] f32, each row time-sorted
     mask: torch.Tensor,  # [B, N] bool, the events crossing this switch
@@ -121,6 +125,10 @@ def congestion_queue(
     raise ValueError(f"no congestion_queue for tensors on {t.device}")
 
 
+@axes(
+    "B,N", bits="B,N", stts="S", qos="B,N", disc_code="S", class_weights="S,C",
+    hosts="B,N",
+)
 def qos_congestion_cascade(
     t: torch.Tensor,  # [B, N] f32, each row time-sorted
     bits: torch.Tensor,  # [B, N] i32 route words
@@ -152,6 +160,7 @@ def qos_congestion_cascade(
     raise ValueError(f"no qos_congestion_cascade for tensors on {t.device}")
 
 
+@axes("B,L,H,P", dt="B,L,H", A="H", Bm="B,L,N", Cm="B,L,N")
 def ssd(
     x: torch.Tensor,  # [B, L, H, P]
     dt: torch.Tensor,  # [B, L, H] f32, softplus-activated
@@ -176,6 +185,7 @@ def ssd(
     raise ValueError(f"no ssd for tensors on {x.device}")
 
 
+@axes("B,H,Sq,D", k="B,Hk,Sk,D", v="B,Hk,Sk,D")
 def attention(
     q: torch.Tensor,  # [B, H, Sq, D]
     k: torch.Tensor,  # [B, Hk, Sk, D]

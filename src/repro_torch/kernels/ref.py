@@ -33,6 +33,8 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
+from ..annotations import axes
+
 __all__ = [
     "DISC_FIFO",
     "DISC_PRIORITY",
@@ -225,6 +227,7 @@ def merge_sorted_runs(
     )
 
 
+@axes("B,N", lead="N")
 def two_run_merge(
     x: torch.Tensor, lead: torch.Tensor, *payloads: torch.Tensor
 ) -> Tuple[torch.Tensor, ...]:
@@ -267,6 +270,7 @@ def two_run_merge(
     return tuple(torch.gather(p, -1, src) for p in (x,) + payloads)
 
 
+@axes("B,W")
 def staging_sort(
     x: torch.Tensor, run_caps: Sequence[int], *payloads: torch.Tensor
 ) -> Tuple[torch.Tensor, ...]:
@@ -321,6 +325,7 @@ def staging_sort(
     return arrs
 
 
+@axes("B,W", idx_pack="B,W")
 def chain_cascade(
     t_pack: torch.Tensor,  # [..., W] f32 depth-packed times (+inf pads per segment)
     idx_pack: torch.Tensor,  # [..., W] i32 original slot of each event (-1 pads)
@@ -694,6 +699,10 @@ def _qos_rank_fold(ts, bits, idx, run_id, n_runs):
     return tuple(torch.zeros_like(x).scatter(-1, pos, x) for x in (ts, bits, idx))
 
 
+@axes(
+    "B,N", route_bits="B,N", stts="S", qos="B,N", disc_code="S", class_weights="S,C",
+    hosts="B,N",
+)
 def qos_cascade_dyn(
     t_sorted: torch.Tensor,  # [..., N] f32, time-sorted arrivals per row
     route_bits: torch.Tensor,  # [..., N] i32, bit s set iff event crosses stage s

@@ -21,6 +21,7 @@ from repro_torch.core import events as t_ev
 from repro_torch.core import topology as t_topo
 from repro_torch.interop import flat_topology_from_arrays, mem_events_from_arrays
 from repro_torch.kernels import ops as t_ops
+from repro_torch.launch.mesh import make_data_mesh
 
 torch.set_num_threads(2)
 
@@ -145,17 +146,15 @@ def test_analyzer_runs_the_plain_cascade_on_cpu():
 
 
 def test_unported_options_name_their_slice():
+    """Every option of the reference's analyzer is ported: ``mesh=`` takes
+    a ``Mesh`` (beside the pipeline too), and the stacked multi-session
+    dispatch runs with and without one and matches the reference's."""
     fig = t_topo.figure1_topology().flatten()
-    cases = [
-        # the pipeline is ported: sharded dispatch still raises beside it
-        (dict(flat=fig, pipeline=True, mesh=object()), "slice 6"),
-        (dict(flat=fig, mesh=object()), "slice 6"),
-    ]
-    for kw, slice_name in cases:
-        with pytest.raises(NotImplementedError, match=slice_name):
+    for kw in (dict(flat=fig, pipeline=True, mesh=object()), dict(flat=fig, mesh=object())):
+        with pytest.raises(TypeError, match="Mesh"):
             t_an.EpochAnalyzer(device="cpu", **kw)
-    # the stacked multi-session dispatch is ported (slice 4): it runs and
-    # matches the reference's; only its mesh= still raises
+    mesh = make_data_mesh(2, "cpu", virtual=True)
+    assert t_an.EpochAnalyzer(fig, device="cpu", pipeline=True, mesh=mesh).mesh is mesh
     r_fig = r_topo.figure1_topology().flatten()
     groups = [_traces(r_fig, 0.8, 20)[:2], [], _traces(r_fig, 0.5, 30)[:1]]
     want = r_an.EpochAnalyzer(r_fig).analyze_batch_multi(groups)
@@ -164,8 +163,11 @@ def test_unported_options_name_their_slice():
     assert an.analyze_batch_multi([]) == [] and got[1].total_ns == want[1].total_ns == 0.0
     for g, w in zip(got, want):
         _assert_breakdown_close(g, w)
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        an.analyze_batch_multi(groups, mesh=object())
+    split = an.analyze_batch_multi([_port(r_fig, g)[1] for g in groups], mesh=mesh)
+    assert an.last_dispatch.devices_used == 2 and an.sharded_dispatches == 1
+    for g, w in zip(split, got):
+        assert (g.latency_ns, g.congestion_ns, g.bandwidth_ns) == (
+            w.latency_ns, w.congestion_ns, w.bandwidth_ns)
 
 
 def test_default_device_is_cuda():

@@ -23,6 +23,7 @@ from repro_torch import core as T
 from repro_torch.core import events as t_ev
 from repro_torch.core.engine import dispatch_key, fold_dispatch_stats
 from repro_torch.interop import flat_topology_from_arrays, mem_events_from_arrays
+from repro_torch.launch.mesh import make_abstract_mesh
 
 torch.set_num_threads(2)
 
@@ -308,13 +309,17 @@ def test_analyze_batch_multi_edge_cases():
 
 
 def test_analyze_batch_multi_rejects_mesh():
-    """The counterpart of the reference's refusal of Pallas impls: the
-    port's one unsupported option here is ``mesh=`` (slice 6)."""
+    """The counterpart of the reference's refusal of Pallas impls: ``mesh=``
+    takes a ``Mesh`` with devices (the split itself:
+    ``tests/test_torch_sharding.py``)."""
     flat = T.pooled_topology(n_hosts=1).flatten()
     an = T.EpochAnalyzer(flat, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        an.analyze_batch_multi([[T.synthetic_trace(16, flat.n_pools)]], mesh=object())
-    with pytest.raises(NotImplementedError, match="slice 6"):
+    tr = [T.synthetic_trace(16, flat.n_pools)]
+    with pytest.raises(TypeError, match="Mesh"):
+        an.analyze_batch_multi([tr, tr], mesh=object())
+    with pytest.raises(ValueError, match="abstract mesh"):
+        an.analyze_batch_multi([tr, tr], mesh=make_abstract_mesh((2,), ("data",)))
+    with pytest.raises(TypeError, match="Mesh"):
         T.AnalysisEngine(mesh=object())
 
 

@@ -17,6 +17,7 @@ from repro_torch.core import fleet as t_fleet
 from repro_torch.core import topology as t_topo
 from repro_torch.core.tracer import TPU_V5E
 from repro_torch.kernels import ops as t_ops
+from repro_torch.launch.mesh import make_abstract_mesh
 
 torch.set_num_threads(2)
 
@@ -280,13 +281,17 @@ def test_racks_group_by_their_service_times(tenants):
 
 
 def test_mesh_raises(tenants):
-    with pytest.raises(NotImplementedError, match="later slice"):
+    """``mesh=`` takes a ``Mesh`` of the fleet's device type (the split
+    itself: ``tests/test_torch_sharding.py``)."""
+    with pytest.raises(TypeError, match="Mesh"):
         mini_fleet(t_fleet, mesh=object())
     fleet = mini_fleet(t_fleet)
-    with pytest.raises(NotImplementedError, match="later slice"):
+    with pytest.raises(TypeError, match="Mesh"):
         fleet.simulate(tenants[t_fleet][:4], mesh=object())
-    with pytest.raises(NotImplementedError, match="later slice"):
+    with pytest.raises(TypeError, match="Mesh"):
         fleet.frontier(tenants[t_fleet][:4], mesh=object())
+    with pytest.raises(ValueError, match="abstract mesh"):
+        fleet.simulate(tenants[t_fleet][:4], mesh=make_abstract_mesh((2,), ("data",)))
 
 
 def test_fleet_constructor_errors_match_the_reference():

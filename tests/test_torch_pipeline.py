@@ -37,6 +37,7 @@ from repro_torch.core import events as t_ev
 from repro_torch.core import topology as t_topo
 from repro_torch.kernels import ops as t_ops
 from repro_torch.kernels import ref as t_ref
+from repro_torch.launch.mesh import make_data_mesh
 
 torch.set_num_threads(2)
 
@@ -734,8 +735,9 @@ def test_pipeline_options_still_unported_beside_it():
     beside the pipeline (the test keeps its name): a pipeline analyzer's
     ``analyze_batch_multi`` takes the full-plane stacked path, as the
     reference's does, and matches the reference's; an asynchronous
-    pipeline attach equals the synchronous one.  ``mesh=`` (slice 6) still
-    raises."""
+    pipeline attach equals the synchronous one.  ``mesh=`` (slice 18) runs
+    beside it too: the split stacked dispatch equals the unsplit one, and
+    a mesh that is not a ``Mesh`` raises."""
     fig = T.figure1_topology()
     pipe = T.EpochAnalyzer(fig.flatten(), device="cpu", pipeline=True)
     assert pipe.analyze_batch_multi([]) == []
@@ -759,5 +761,11 @@ def test_pipeline_options_still_unported_beside_it():
         for f in ("latency_s", "congestion_s", "bandwidth_s"):
             assert getattr(reps[True], f) == getattr(reps[False], f), f
         assert reps[True].aot_cache_hits == reps[False].aot_cache_hits == 3
-    with pytest.raises(NotImplementedError, match="slice 6"):
+    split = T.EpochAnalyzer(fig.flatten(), device="cpu", pipeline=True,
+                            mesh=make_data_mesh(2, "cpu", virtual=True))
+    for g, w in zip(split.analyze_batch_multi([epochs, epochs[:1]]), got):
+        assert (g.latency_ns, g.congestion_ns, g.bandwidth_ns) == (
+            w.latency_ns, w.congestion_ns, w.bandwidth_ns)
+    assert split.last_dispatch.devices_used == 2 and split.sharded_dispatches == 1
+    with pytest.raises(TypeError, match="Mesh"):
         T.EpochAnalyzer(fig.flatten(), device="cpu", pipeline=True, mesh=object())

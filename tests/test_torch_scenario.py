@@ -1,7 +1,7 @@
 """Port parity for the scenario sweep (``repro_torch.core.scenario``) and
 what it stands on: the stacked topology lowering (``flatten_stack``), the
 batched placement (``assign_batch``), the per-row topology leaves of the
-analyzer's pricing, and ``_analyze_sweep``'s grouping and chunking.  Each
+analyzer's pricing, and the sweep's grouping and chunking.  Each
 sweep runs the same workload through ``repro``'s ``ScenarioSuite`` under
 JAX on the CPU and the port's with ``device="cpu"`` (the kernels' plain
 versions)."""
@@ -17,6 +17,7 @@ from repro_torch import core as T
 from repro_torch.core import analyzer as t_an
 from repro_torch.core.units import ms_to_ns
 from repro_torch.kernels import ops as t_ops
+from repro_torch.launch.mesh import make_abstract_mesh
 
 torch.set_num_threads(2)
 
@@ -630,7 +631,7 @@ def test_successive_halving_as_the_reference():
 
 
 # --------------------------------------------------------------------------- #
-# grouping and chunking in _analyze_sweep
+# grouping and chunking in _sweep_cascades and _sweep_reduce
 # --------------------------------------------------------------------------- #
 
 
@@ -713,12 +714,17 @@ def test_multi_host_topology_sweep_matches_the_reference():
 
 
 def test_mesh_raises():
+    """``mesh=`` takes a ``Mesh`` of the suite's device type (the split
+    itself: ``tests/test_torch_sharding.py``)."""
     rm, ph = workload(T, seed=4)
-    with pytest.raises(NotImplementedError, match="later slice"):
+    with pytest.raises(TypeError, match="Mesh"):
         suite(T, rm, ph, mesh=object())
     ts = suite(T, rm, ph)
-    with pytest.raises(NotImplementedError, match="later slice"):
+    with pytest.raises(TypeError, match="Mesh"):
         ts.run([T.Scenario(policy=T.LocalOnlyPolicy())], mesh=object())
+    with pytest.raises(ValueError, match="abstract mesh"):
+        ts.run([T.Scenario(policy=T.LocalOnlyPolicy())],
+               mesh=make_abstract_mesh((2,), ("data",)))
 
 
 def test_cartesian_names_and_order_match_the_reference():
