@@ -3,7 +3,8 @@
 
 Run from the repository root:  python3 chip_smoke.py
 (``python3 chip_smoke.py --cascades`` runs phases 1-3 and the two fabric
-round batches' cascade comparisons only, and prints no result line.)
+round batches' cascade comparisons only, ``--split`` phases 1-2 and 20,
+``--sanitize`` phases 1-2 and 21; none of them prints the result line.)
 
 Phases (any failure exits non-zero and prints no result):
 
@@ -339,7 +340,27 @@ Phases (any failure exits non-zero and prints no result):
    train-hubert (8 x 4096 frames, the first loss within 1.0 of ln(504)),
    serve-qwen2vl (cut to 12 of its 80 layers, widths kept, embeddings in
    and out of the decode);
-20. a JSON ``kernels`` line, then the card's nvidia-smi line, then the result
+20. the split over several devices: each split path (the analyzer's 16
+   sessions, the engine's 4 coalesced ones, sweep-main, sweep-qos,
+   fleet-frontier, fleet-hetero-qos) unsharded twice and once over a
+   virtual mesh of ``cuda:0`` (and of the real cards where there are
+   several), the split run bitwise its unsharded twin, launches counted;
+21. the sanitizers on the card: engine-main (a private engine, 1 + 3
+   steps), the 4 coalesced sessions behind a held dispatcher (each warmed
+   alone, then one step each: one cascade launch), fabric8 on a private
+   engine (1 + 2 overlapped rounds), pipeline-main (1 + 3) and sweep-main
+   (a warm run, then one measured), each once plainly and once built
+   inside ``LockOrderSanitizer`` and ``AxisSanitizer`` and measured inside
+   ``RecompileSanitizer(allowed_lowerings=0, allowed_builds=0)``: every
+   number of the sanitized run bitwise its twin's, the same launches, no
+   dispatch-cache build, no nvcc run, no lock-order cycle (each scope's
+   edges printed) and ``compile_cache_size`` flat; then a transposed
+   ``[N, B]`` batch into ``_analyze_batch``, ``ops.congestion_cascade``
+   and ``ops.qos_congestion_cascade`` on CUDA tensors under
+   ``AxisSanitizer`` (each raises ``AxisContractError``, nothing
+   launches), and the unarmed ``@axes`` wrapper's cost a call against the
+   undecorated function's;
+22. a JSON ``kernels`` line, then the card's nvidia-smi line, then the result
    line ``{"ok": true, "device": {...}}``.
 
 The earlier phases (4-6) must show no QoS launch, no phase before 9 an SSD
@@ -412,6 +433,13 @@ from repro_torch.core import (  # noqa: E402
     synthesize_step_trace,
     synthetic_tenant,
 )
+from repro_torch.analysis.sanitize import (  # noqa: E402
+    AxisSanitizer,
+    LockOrderSanitizer,
+    RecompileSanitizer,
+)
+from repro_torch.annotations import AxisContractError, axes  # noqa: E402
+from repro_torch.core import analyzer as tan  # noqa: E402
 from repro_torch.core import scenario as tscenario  # noqa: E402
 from repro_torch.core.units import s_to_ms, s_to_ns  # noqa: E402
 from repro_torch.kernels import congestion as kcong  # noqa: E402
@@ -4659,6 +4687,320 @@ def split_path(dev):
     return total
 
 
+# --------------------------------------------------------------------------- #
+# Phase 21: the sanitizers on the card
+# --------------------------------------------------------------------------- #
+
+SANITIZE_PARK_S = 1.5  # sanitize-coalesced: the held dispatcher's hold
+WRAPPER_CALLS = 200_000  # the @axes wrapper's cost: calls a timing
+
+
+def report_numbers(rep) -> dict:
+    """Every delay number of a session report: the totals, the per-pool and
+    per-switch arrays and, for a fabric, each host's totals."""
+    out = {}
+    for k in DELAY_KEYS:
+        v = getattr(rep, k, None)
+        if v is not None:
+            out[k] = np.asarray(v, np.float64).ravel()
+    for k in ("latency_s", "congestion_s", "bandwidth_s"):
+        if hasattr(rep, "hosts"):
+            out[f"hosts.{k}"] = np.asarray([getattr(h, k) for h in rep.hosts], np.float64)
+    return out
+
+
+def sanitized_twin(tag, make, warm, measure, close):
+    """One path twice in this process: unsanitized, then with the system
+    built inside a LockOrderSanitizer and an AxisSanitizer, warmed there,
+    and measured inside a RecompileSanitizer that allows no dispatch-cache
+    build and no nvcc run.  ``make()`` builds the system, ``warm(sys)``
+    takes its warm-up, ``measure(sys)`` runs the measured steps and returns
+    their numbers (a dict of vectors), ``close(sys)`` releases it.  The
+    sanitized run's numbers must be bitwise the twin's and its launch
+    counts the twin's; a lock-order cycle, a contract violation or a build
+    raises out of its scope.  Returns the two runs' launches by kernel."""
+    t0 = time.perf_counter()
+    twin = make()
+    warm(twin)
+    reset_counts()
+    want = measure(twin)
+    c_twin = counts()
+    close(twin)
+    t1 = time.perf_counter()
+    with LockOrderSanitizer() as lo, AxisSanitizer() as ax:
+        sys_ = make()
+        warm(sys_)
+        with RecompileSanitizer(allowed_lowerings=0, allowed_builds=0) as rc:
+            reset_counts()
+            got = measure(sys_)
+            c = counts()
+        close(sys_)
+    check(c == c_twin, f"{tag}: sanitized launches {c}, unsanitized {c_twin}")
+    check(got.keys() == want.keys(), f"{tag}: numbers {sorted(got)} vs {sorted(want)}")
+    for k in want:
+        check(np.array_equal(got[k], want[k]),
+              f"{tag} {k}: sanitized {got[k].tolist()} is not bitwise the unsanitized "
+              f"{want[k].tolist()}")
+    check(lo.find_cycle() is None and rc.aot_lowerings == 0 and rc.builds == 0,
+          f"{tag}: a sanitizer let a cycle or a build through")
+    launched = {k: v for k, v in c.items() if v}
+    n_values = sum(v.size for v in want.values())
+    print(f"[sanitize] {tag}: {n_values} numbers ({len(want)} fields) bitwise the unsanitized "
+          f"twin's, launches "
+          f"{json.dumps(launched)} in each; lock order: {lo.locks_created} locks created, "
+          f"{len(lo.edges)} edges, no cycle; lowerings {rc.aot_lowerings}, nvcc runs "
+          f"{rc.builds}, library loads {rc.library_loads}; armed axis checks {ax.checks}; "
+          f"twin {t1 - t0:.1f} s, sanitized {time.perf_counter() - t1:.1f} s")
+    for (a, b), witness in sorted(lo.edges.items()):
+        print(f"[sanitize] {tag} edge {Path(a).name} -> {Path(b).name}: {witness}")
+    return {k: c[k] + c_twin[k] for k in c}
+
+
+def sanitize_engine_main(step, x):
+    """engine-main: phase 4's program on a private engine, asynchronous, one
+    warm-up step, 3 measured."""
+    def make():
+        eng = AnalysisEngine()
+        return attach_main(figure1_topology(), step, engine=eng), eng
+
+    def warm(s):
+        s[0].step(x)
+        s[0].flush()
+
+    def measure(s):
+        for _ in range(3):
+            s[0].step(x)
+        s[0].flush()
+        check(s[0]._handle is not None and s[0]._handle.engine is s[1],
+              "sanitize-engine-main must analyze through its engine")
+        return report_numbers(s[0].report)
+
+    def close(s):
+        s[0].close()
+        s[1].close()
+
+    c = sanitized_twin("engine-main", make, warm, measure, close)
+    check_launches("sanitize-engine-main", c, "cascade", 6)
+    return c
+
+
+def sanitize_coalesced(step, x):
+    """engine-coalesced: phase 15's 4 sessions (28, 24, 20 and 12 layers) on
+    one engine, each warmed alone, then one step each behind a held
+    dispatcher: one cascade launch over the 4 sessions' rows."""
+    def make():
+        eng = AnalysisEngine()
+        progs = [attach_main(figure1_topology(), step, engine=eng,
+                             cfg=dataclasses.replace(CONFIG, n_layers=n))
+                 for n in COALESCED_LAYERS]
+        return progs, eng
+
+    def warm(s):
+        for p in s[0]:  # each alone: its warm-up dispatch coalesces with none
+            p.step(x)
+            p.flush()
+
+    def measure(s):
+        progs, eng = s
+        stats0 = eng.stats()
+        park = eng.register(ParkAnalyzer(progs[0].sim.flat, SANITIZE_PARK_S))
+        park.submit([MemEvents.empty()])
+        for p in progs:
+            p.step(x)
+        for p in progs:
+            p.flush()
+        park.close()
+        stats = eng.stats()
+        check(stats["coalesced_dispatches"] == stats0["coalesced_dispatches"] + 1
+              and all(p.report.coalesced_group_size == len(progs) for p in progs),
+              f"sanitize-coalesced: engine stats {stats}, before {stats0}")
+        return {f"s{i}.{k}": v for i, p in enumerate(progs)
+                for k, v in report_numbers(p.report).items()}
+
+    def close(s):
+        for p in s[0]:
+            p.close()
+        s[1].close()
+
+    c = sanitized_twin("engine-coalesced", make, warm, measure, close)
+    check_launches("sanitize-coalesced", c, "cascade", 2)
+    return c
+
+
+def sanitize_fabric(x):
+    """fabric8 under the session's default (overlapped rounds) on a private
+    engine: one warm-up round, 2 measured."""
+    def make():
+        eng = AnalysisEngine()
+        return fabric_session(FABRIC_HOSTS, FABRIC_LOAD, FABRIC_EVENTS_PER_ACCESS, "cuda",
+                              engine=eng), eng
+
+    def warm(s):
+        s[0].round()
+        s[0].flush()
+
+    def measure(s):
+        check(s[0]._handle is not None, "sanitize-fabric8 must overlap its rounds")
+        for _ in range(2):
+            s[0].round()
+        s[0].flush()
+        return report_numbers(s[0].report)
+
+    def close(s):
+        s[0].close()
+        s[1].close()
+
+    c = sanitized_twin("fabric8", make, warm, measure, close)
+    check_launches("sanitize-fabric8", c, "hosts", 4)
+    return c
+
+
+def sanitize_pipeline(step, x):
+    """pipeline-main: phase 14's program (pipeline=True, warmup=True,
+    synchronous), built at attach, one warm-up step, 3 measured."""
+    stages = []
+
+    def make():
+        prog = attach_main(figure1_topology(), step, pipeline=True, warmup=True,
+                           async_analysis=False)
+        stages.append(len(prog._analyzer._chain_plan.stage_order))
+        return prog
+
+    def measure(prog):
+        prog.run(3, x)
+        return report_numbers(prog.report)
+
+    c = sanitized_twin("pipeline-main", make, lambda prog: prog.step(x), measure,
+                       lambda prog: prog.close())
+    check_launches("sanitize-pipeline-main", c, "scan", 2 * 3 * stages[0])
+    return c
+
+
+def sanitize_sweep():
+    """sweep-main: phase 16's 64 scenarios, a warm run, then one measured;
+    compile_cache_size must not grow over the measured run."""
+    deltas = []
+
+    def make():
+        regions, phases = sweep_program()
+        return sweep_suite(regions, phases), sweep_scenarios(regions)
+
+    def measure(s):
+        size = s[0].compile_cache_size()
+        res = s[0].run(s[1])
+        deltas.append(s[0].compile_cache_size() - size)
+        return bd_numbers(res.breakdowns)
+
+    c = sanitized_twin("sweep-main", make, lambda s: s[0].run(s[1]), measure, lambda s: None)
+    check_launches("sanitize-sweep-main", c, "cascade", 4)
+    check(deltas == [0, 0], f"sanitize-sweep-main: compile_cache_size grew by {deltas}")
+    print(f"[sanitize] sweep-main: compile_cache_size delta over the measured run {deltas} "
+          "(unsanitized, sanitized)")
+    return c
+
+
+def transposed_dispatches(dev):
+    """A transposed [B, N] batch (main's [32, 131072] shape, as [N, B]) into
+    _analyze_batch, ops.congestion_cascade and ops.qos_congestion_cascade
+    on CUDA tensors under AxisSanitizer: each raises AxisContractError, and
+    no kernel or plain version is launched."""
+    flat = figure1_topology().flatten()
+    B, N = 32, 131072
+    t, bits = synthetic_inputs(B, N, 2, 21, dev)
+    tt = t.T.contiguous()
+    V, S = flat.route.shape
+    f32 = dict(dtype=torch.float32, device=dev)
+    stts = torch.tensor([2.0, 1.0], **f32)
+    qos = torch.zeros(B, N, dtype=torch.int32, device=dev)
+    batch = dict(
+        t=tt, pool=torch.zeros(B, N, dtype=torch.int32, device=dev),
+        nbytes=torch.full((B, N), 64.0, **f32), weight=torch.ones(B, N, **f32), host=None,
+        valid=torch.ones(B, N, dtype=torch.bool, device=dev),
+        bw_window_ns=torch.full((B,), 1e3, **f32), lat_scale=torch.ones(B, V, **f32),
+        bits_table=torch.zeros(V, dtype=torch.int32, device=dev),
+        pool_latency_ns=torch.tensor(flat.pool_latency_ns, **f32),
+        local_latency_ns=torch.tensor(flat.local_latency_ns, **f32),
+        route=torch.tensor(flat.route, **f32), switch_stt_ns=torch.tensor(flat.switch_stt_ns, **f32),
+        switch_bw=torch.tensor(flat.switch_bandwidth_gbps, **f32), stage_order=(0, 1),
+        n_windows=128,
+    )
+    calls = (
+        ("_analyze_batch", lambda: tan._analyze_batch(**batch)),
+        ("ops.congestion_cascade", lambda: kops.congestion_cascade(tt, bits, stts)),
+        ("ops.qos_congestion_cascade", lambda: kops.qos_congestion_cascade(
+            tt, bits, stts, qos, torch.zeros(2, dtype=torch.int32, device=dev),
+            torch.ones(2, 2, **f32))),
+    )
+    torch.cuda.synchronize()
+    reset_counts()
+    with AxisSanitizer() as ax:
+        for name, call in calls:
+            try:
+                call()
+            except AxisContractError as e:
+                print(f"[sanitize] transposed {list(tt.shape)} into {name}: AxisContractError: {e}")
+            else:
+                check(False, f"transposed dispatch into {name} raised no AxisContractError")
+    c = counts()
+    check(not any(c.values()), f"a transposed dispatch launched: {c}")
+    check(ax.checks == len(calls), f"{ax.checks} armed checks for {len(calls)} calls")
+
+
+def wrapper_cost(dev):
+    """The @axes wrapper's cost a call on CUDA tensors: the unarmed wrapper
+    against the undecorated function (ops.congestion_cascade's contract on
+    main's [32, 131072] batch, a body that returns at once), the best of 5
+    timings of WRAPPER_CALLS calls each on the host clock; and armed."""
+    t, bits = synthetic_inputs(32, 131072, 2, 22, dev)
+    stts = torch.tensor([2.0, 1.0], device=dev)
+
+    def body(t, bits, stts, merge_plan=None, hosts=None, n_hosts=1):
+        return t
+
+    wrapped = axes("B,N", bits="B,N", stts="S", hosts="B,N")(body)
+
+    def per_call_us(fn, calls):
+        best = float("inf")
+        for _ in range(5):
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn(t, bits, stts)
+            best = min(best, (time.perf_counter() - t0) / calls)
+        return best * 1e6
+
+    raw_us = per_call_us(body, WRAPPER_CALLS)
+    off_us = per_call_us(wrapped, WRAPPER_CALLS)
+    with AxisSanitizer():
+        armed_us = per_call_us(wrapped, WRAPPER_CALLS // 10)
+    print(f"[sanitize] @axes wrapper on CUDA tensors: unarmed {off_us - raw_us:.4f} us a call "
+          f"over the undecorated function ({raw_us:.4f} vs {off_us:.4f} us a call), armed "
+          f"{armed_us - raw_us:.4f} us a call over it ({armed_us:.4f} us)")
+
+
+def sanitize_path(dev, step, x):
+    """Phase 21: the port's sanitizers on the card.  Returns the launches of
+    its runs by kernel."""
+    t0 = time.perf_counter()
+    total, times = {}, {}
+    for tag, fn in (("engine-main", lambda: sanitize_engine_main(step, x)),
+                    ("engine-coalesced", lambda: sanitize_coalesced(step, x)),
+                    ("fabric8", lambda: sanitize_fabric(x)),
+                    ("pipeline-main", lambda: sanitize_pipeline(step, x)),
+                    ("sweep-main", sanitize_sweep)):
+        t1 = time.perf_counter()
+        for k, v in fn().items():
+            total[k] = total.get(k, 0) + v
+        times[tag] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    transposed_dispatches(dev)
+    wrapper_cost(dev)
+    times["transposed and wrapper"] = time.perf_counter() - t1
+    torch.cuda.empty_cache()
+    print(f"[sanitize] phase 21 ran {time.perf_counter() - t0:.1f} s: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in times.items()))
+    return total
+
+
 def sass_counts(path) -> str:
     """How many atomic, double-add and match instructions a built library's
     SASS holds (cuobjdump), or why it could not be read."""
@@ -4696,6 +5038,7 @@ def cascade_batches(dev):
 def main(argv) -> int:
     cascades_only = "--cascades" in argv
     split_only = "--split" in argv
+    sanitize_only = "--sanitize" in argv
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script needs a card",
               file=sys.stderr)
@@ -4728,6 +5071,10 @@ def main(argv) -> int:
     if split_only:
         split_path(dev)
         print(f"[done] chip_smoke --split ran {time.perf_counter() - t_start:.1f} s")
+        return 0
+    if sanitize_only:
+        sanitize_path(dev, *main_step(dev))
+        print(f"[done] chip_smoke --sanitize ran {time.perf_counter() - t_start:.1f} s")
         return 0
 
     # -- 3. kernels vs plain at synthetic shapes ---------------------------- #
@@ -4824,7 +5171,13 @@ def main(argv) -> int:
     qos_launches += c20.get("qos", 0)
     qos_hosts_launches += c20.get("qos_hosts", 0)
 
-    # -- 21. the kernels line and the result -------------------------------- #
+    # -- 21. the sanitizers on the card ------------------------------------- #
+    c21 = sanitize_path(dev, *main_step(dev))
+    cascade_launches += c21.get("cascade", 0)
+    hosts_launches += c21.get("hosts", 0)
+    scan_launches += c21.get("scan", 0)
+
+    # -- 22. the kernels line and the result -------------------------------- #
     src = "src/repro_torch/kernels/csrc/"
     kernels = []
     for name, source, replaces, launches, comps, row in (

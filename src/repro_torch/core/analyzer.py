@@ -42,6 +42,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..annotations import axes
 from ..distributed.sharding import (
     Replicas,
     check_mesh,
@@ -695,6 +696,12 @@ def _has_merges(dev: torch.device, merge_plan) -> bool:
     return dev.type != "cpu" or merge_plan is None or any(len(ops) for ops in merge_plan)
 
 
+# pool_latency_ns ([V] or [B, V]), local_latency_ns ([] or [B]) and
+# switch_bw ([S] or [B, S]) take either rank: no spec
+@axes(
+    "B,N", "B,N", "B,N", "B,N", "B,N", "B,N", "B", "B,V", "V",
+    route="V,S", switch_stt_ns="S", qos="B,N", disc_code="D", class_weights="D,C",
+)
 def _analyze_batch(
     t: torch.Tensor,  # [B, N] f32 epoch-relative ns, each row TIME-SORTED
     pool: torch.Tensor,  # [B, N] i32 physical pool (padded entries: 0)
@@ -905,7 +912,7 @@ def _launch_groups(
     keys = [stt]
     if disc is not None:
         keys += [disc.to(stt.dtype), weights.flatten(1).to(stt.dtype)]
-    table = torch.cat(keys, dim=1).cpu().numpy()
+    table = torch.cat(keys, dim=1).cpu().numpy()  # simlint-torch: ignore[host-sync] -- the group keys decide how many launches a sweep or fleet makes; a [U, S] table, one copy a dispatch (a shard's, under a mesh)
     groups: Dict[bytes, List[int]] = {}
     for u, row in enumerate(table):
         groups.setdefault(row.tobytes(), []).append(u)
@@ -931,6 +938,9 @@ class SweepCascades:
                                for x in dataclasses.astuple(self)))
 
 
+@axes(
+    "G,B,N", "G,B,N", "G,B,N", "G,B,N", "U", "U,R", "U,S", "U,S", "U,S,C", "R", "V",
+)
 def _sweep_cascades(
     t: torch.Tensor,  # [G, B, N] f32 time-sorted epochs per granularity group
     host: torch.Tensor,  # [G, B, N] i32
@@ -1026,6 +1036,11 @@ def _sweep_cascades(
     return out
 
 
+@axes(
+    nbytes="G,B,N", weight="G,B,N", host="G,B,N", valid="G,B,N", region="G,B,N",
+    bw_window="G,B", group_of="K", cascade_of="K", assign="K,R", lat_scale="K,B,V",
+    pool_latency_ns="K,V", local_latency_ns="K", switch_bw="K,S", route="V,S",
+)
 def _sweep_reduce(
     cascades: SweepCascades,
     nbytes: torch.Tensor,  # [G, B, N] f32
@@ -1099,6 +1114,10 @@ def _sweep_reduce(
     return out
 
 
+@axes(
+    "K,B,N", "K,B,N", "K,B,N", "K,B,N", "K,B,N", "K,B,N", "K,B,N", "K,B", "K,B,V", "V",
+    "K,V", "K", "V,S", "K,S", "K,S", "K,S", "K,S,C",
+)
 def _analyze_fleet(
     t: torch.Tensor,  # [K, B, N] f32 K racks' stacked epoch batches
     pool: torch.Tensor,  # [K, B, N] i32
@@ -1168,6 +1187,9 @@ def _analyze_fleet(
     return out
 
 
+@axes(
+    "B,W", "B,W", "B,N", "B,N", "B,N", "B,N", "B", "B,V", "V", "", "V,S", "S", "D",
+)
 def _analyze_pipeline(
     t_pack: torch.Tensor,  # [B, W] f32 per-stage packed sorted runs (+inf pads)
     idx_pack: torch.Tensor,  # [B, W] i32 positions into the staged row (-1 pads)

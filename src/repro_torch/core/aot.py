@@ -24,16 +24,19 @@ A session's :meth:`~repro_torch.core.analyzer.EpochAnalyzer.warmup` at
 attach (the caller's thread) and the analysis engine's dispatcher can reach
 one cache, so :meth:`AotDispatchCache.get` takes a lock around the lookup
 and the insertion, as the reference's does; the build runs outside it, so
-other keys never queue behind one.  Left out: ``install_persistent_cache``
-(XLA's on-disk compilation cache has no counterpart; there is nothing
-compiled to keep), the reference's process-wide lowering probe for its JAX
-recompile sanitizer, and ``warm`` (the analyzer warms through one
-throwaway dispatch, as the reference's does).
+other keys never queue behind one.  As in the reference, every live cache
+sits in a weak class registry, so :meth:`AotDispatchCache.total_lowerings`
+gives the process-wide build count that
+:class:`~repro_torch.analysis.sanitize.RecompileSanitizer` diffs across a
+steady-state scope, and :meth:`AotDispatchCache.warm` takes a miss ahead of
+time.  Left out: ``install_persistent_cache`` (XLA's on-disk compilation
+cache has no counterpart; there is nothing compiled to keep).
 """
 
 from __future__ import annotations
 
 import threading
+import weakref
 from typing import Any, Callable, Dict, Hashable, Tuple
 
 __all__ = ["AotDispatchCache"]
@@ -46,11 +49,25 @@ class AotDispatchCache:
     build actually ran, ``hits`` counts lookups served without one.
     """
 
+    # every live cache, so RecompileSanitizer can snapshot and diff the
+    # process-wide build count without threading a handle everywhere
+    _instances: "weakref.WeakSet[AotDispatchCache]" = weakref.WeakSet()
+    _instances_lock = threading.Lock()
+
     def __init__(self) -> None:
         self._lock = threading.Lock()
         self._cache: Dict[Hashable, Any] = {}
         self.lowerings = 0
         self.hits = 0
+        with AotDispatchCache._instances_lock:
+            AotDispatchCache._instances.add(self)
+
+    @classmethod
+    def total_lowerings(cls) -> int:
+        """Sum of ``lowerings`` across every live cache (sanitizer probe)."""
+        with cls._instances_lock:
+            caches = list(cls._instances)
+        return sum(c.lowerings for c in caches)
 
     def __len__(self) -> int:
         return len(self._cache)
@@ -71,3 +88,8 @@ class AotDispatchCache:
             else:
                 self.hits += 1
             return won, won is not entry
+
+    def warm(self, key: Hashable, build: Callable[[], Any]) -> bool:
+        """Ensure ``key`` is built; returns True if this call built it."""
+        _, hit = self.get(key, build)
+        return not hit

@@ -39,10 +39,10 @@ successive_halving` for hillclimb-style refinement sweeps.
 Differences from the reference: the suite runs on ``device`` (default
 ``"cuda"``, which raises without a card; ``"cpu"`` runs the kernels'
 plain versions); its stage, transfer and compute split is timed with CUDA
-events on the card; the reference's ``compile_cache_size`` reads XLA's
-compile cache and has no counterpart here; and with a ``mesh`` the U
-unique cascades run once, on the mesh's first device, where the
-reference's run on every device.
+events on the card; :meth:`ScenarioSuite.compile_cache_size` counts the
+builds of the staged skeleton planes (the reference's reads XLA's compile
+cache); and with a ``mesh`` the U unique cascades run once, on the mesh's
+first device, where the reference's run on every device.
 """
 
 from __future__ import annotations
@@ -73,6 +73,7 @@ from .analyzer import (
     bucket_pow2,
     plan_cascade,
 )
+from .aot import AotDispatchCache
 from .cache import DeviceCacheConfig, DeviceCacheModel
 from .events import RegionMap
 from .policy import PlacementPolicy, RegionArrays, assign_batch, bytes_per_pool_batch
@@ -318,12 +319,23 @@ class ScenarioSuite:
         if (self._qos_of_region < 0).any():
             raise ValueError("region_qos classes must be >= 0")
         self._skeletons: Dict[float, TraceSkeleton] = {}
-        self._staged: Dict[Tuple[float, int], Dict[str, np.ndarray]] = {}
+        # the staged skeleton planes per (granule, event bucket): the sweep's
+        # dispatch cache, whose builds compile_cache_size() counts
+        self._staged = AotDispatchCache()
         # (bits_table, route) on each mesh device, each copy made once
         self._replicas = Replicas((self._bits_table, self._route))
         self.dispatch_count = 0  # sweep dispatches (tests assert 1 per run)
         self.last_unique_cascades = 0  # U of the latest run (dedup visibility)
         self.last_dispatch = DispatchStats()
+
+    def compile_cache_size(self) -> int:
+        """Dispatch-cache builds the suite's sweeps have caused: the
+        staged skeleton planes, one a (granule, event bucket).  The
+        counterpart of the reference's count of compiled sweep graphs (eager
+        PyTorch compiles nothing); as there, only the *delta* across runs is
+        meaningful: a stable value means repeated sweeps re-dispatch from
+        the planes already staged."""
+        return self._staged.lowerings
 
     # ------------------------------------------------------------------ #
     # scenario construction helpers
@@ -401,9 +413,10 @@ class ScenarioSuite:
         scenario stages exactly as its solo analysis does.
         """
         key = (float(granularity_bytes), int(n_bucket))
-        buf = self._staged.get(key)
-        if buf is not None:
-            return buf
+        buf, _ = self._staged.get(key, lambda: self._stage_skeleton(granularity_bytes, n_bucket))
+        return buf
+
+    def _stage_skeleton(self, granularity_bytes: float, n_bucket: int):
         skel = self.skeleton_for(granularity_bytes)
         B = skel.n_epochs
         fd = self._np_dtype
@@ -432,7 +445,6 @@ class ScenarioSuite:
             buf["weight"][e, :n] = 1.0
             buf["valid"][e, :n] = True
             buf["span"][e] = float(buf["t"][e, n - 1]) + 1.0
-        self._staged[key] = buf
         return buf
 
     # ------------------------------------------------------------------ #

@@ -6,6 +6,11 @@ entry points.  A library is compiled at first use by ``nvcc`` for
 root by a hash of its source, the headers beside it and the flags, and
 loaded with ``ctypes``; :func:`build_all` runs one ``nvcc`` per source at
 once.  Nothing is built or loaded when this module is imported.
+``nvcc_runs`` and ``library_loads`` count, for the whole process, the
+``nvcc`` runs made and the libraries loaded: a steady-state scope makes
+neither (:class:`~repro_torch.analysis.sanitize.RecompileSanitizer` reads
+``nvcc_runs``).  Nothing but this module runs ``nvcc`` or loads a library
+(the ``build-bypass`` rule of :mod:`repro_torch.analysis.dispatch`).
 """
 
 from __future__ import annotations
@@ -17,6 +22,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Callable, Dict
@@ -24,7 +30,8 @@ from typing import Callable, Dict
 import torch
 
 __all__ = [
-    "BuildResult", "SOURCES", "build", "build_all", "check_tensor", "load", "raise_on",
+    "BuildResult", "SOURCES", "build", "build_all", "check_tensor", "library_loads", "load",
+    "nvcc_runs", "raise_on",
 ]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -44,6 +51,9 @@ NVCC_FLAGS = (
 )
 
 _libs: Dict[str, ctypes.CDLL] = {}
+nvcc_runs = 0  # nvcc processes run by build(), this process
+library_loads = 0  # libraries loaded by load(), this process
+_count_lock = threading.Lock()  # build_all's threads count together
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,6 +80,7 @@ def build(name: str = "congestion_cascade") -> BuildResult:
     """Compile library ``name`` (a key of :data:`SOURCES`) if no library of
     these sources and flags exists yet; raises with nvcc's output when
     compilation fails."""
+    global nvcc_runs
     source = SOURCES[name]
     digest = hashlib.sha256(source.read_bytes())
     for header in HEADERS:
@@ -84,6 +95,8 @@ def build(name: str = "congestion_cascade") -> BuildResult:
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.perf_counter() - t0
+    with _count_lock:
+        nvcc_runs += 1
     log = proc.stdout + proc.stderr
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
@@ -105,9 +118,12 @@ def load(name: str, bind: Callable[[ctypes.CDLL], None]) -> ctypes.CDLL:
     """Library ``name``, built and loaded once; ``bind`` declares its entry
     points' argument types.  Every library exports
     ``<name>_error_string(int)``."""
+    global library_loads
     lib = _libs.get(name)
     if lib is None:
         lib = ctypes.CDLL(str(build(name).path))
+        with _count_lock:
+            library_loads += 1
         bind(lib)
         err = getattr(lib, f"{name}_error_string")
         err.argtypes = [ctypes.c_int]

@@ -173,6 +173,51 @@ def test_training_modules_import_neither_jax_nor_the_reference_nor_msgpack():
     assert proc.stdout.split() == ["3", "3"]
 
 
+# the port's simlint, checked by name: its checkers, sanitizers and plugin
+# import neither JAX nor the reference (the annotations they read stay in
+# annotations.py, which the core modules import)
+ANALYSIS_FILES = (
+    "analysis/__init__.py", "analysis/__main__.py", "analysis/findings.py",
+    "analysis/framework.py", "analysis/locks.py", "analysis/contracts.py",
+    "analysis/units.py", "analysis/axes.py", "analysis/dispatch.py",
+    "analysis/sanitize.py", "analysis/pytest_plugin.py", "annotations.py",
+)
+
+
+def test_analysis_imports_neither_jax_nor_the_reference():
+    port = REPO / "src" / "repro_torch"
+    files = [port / f for f in ANALYSIS_FILES]
+    assert set(files) <= set(_port_files())
+    bad = {str(f.relative_to(REPO)): sorted(set(_imported_roots(f)) & set(FORBIDDEN))
+           for f in files}
+    assert not {k: v for k, v in bad.items() if v}
+    code = (
+        "import sys, threading\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('jax', 'jaxlib', 'repro'):\n"
+        "            raise ImportError(name)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "from pathlib import Path\n"
+        "from repro_torch.analysis import run_checks\n"
+        "from repro_torch.analysis.sanitize import (AxisSanitizer, LockOrderSanitizer,\n"
+        "                                           RecompileSanitizer)\n"
+        "import repro_torch.analysis.pytest_plugin\n"
+        f"rep = run_checks([Path({str(port)!r})], root=Path({str(REPO)!r}), strict=True)\n"
+        "with LockOrderSanitizer() as lo, RecompileSanitizer() as rc, AxisSanitizer() as ax:\n"
+        "    with threading.Lock():\n"
+        "        pass\n"
+        "print(rep.ok, rep.files_checked > 50, lo.locks_created, rc.aot_lowerings, ax.checks)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    ok, files, locks, lowerings, checks = proc.stdout.split()
+    # the scope also tracks module-level locks of what it first imports
+    assert (ok, files, lowerings, checks) == ("True", "True", "0", "0") and int(locks) >= 1
+
+
 def test_cpu_tensors_take_the_plain_path():
     t = torch.sort(torch.rand(2, 64) * 100.0).values
     bits = torch.randint(0, 4, (2, 64), dtype=torch.int32)
