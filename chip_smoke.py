@@ -4,7 +4,8 @@
 Run from the repository root:  python3 chip_smoke.py
 (``python3 chip_smoke.py --cascades`` runs phases 1-3 and the two fabric
 round batches' cascade comparisons only, ``--split`` phases 1-2 and 20,
-``--sanitize`` phases 1-2 and 21; none of them prints the result line.)
+``--sanitize`` phases 1-2 and 21, ``--examples`` phases 1-2 and 22; none
+of them prints the result line.)
 
 Phases (any failure exits non-zero and prints no result):
 
@@ -360,7 +361,28 @@ Phases (any failure exits non-zero and prints no result):
    ``AxisSanitizer`` (each raises ``AxisContractError``, nothing
    launches), and the unarmed ``@axes`` wrapper's cost a call against the
    undecorated function's;
-22. a JSON ``kernels`` line, then the card's nvidia-smi line, then the result
+22. the six examples (``examples/*_torch.py``), each's ``run()`` on the
+   card at the example's own sizes: quickstart (qwen3-0.6b SMOKE, 5
+   attached train steps on Figure 1; run twice, the second run warm),
+   serve_offload (mistral-large-123b SMOKE, prefill and 16 attached
+   decodes under 3 policies, each from its own copy of the prefill's
+   caches: the 3 first decodes' logits equal), fabric_pooling (2 tenants, 5 rounds: the host-segmented cascade),
+   migration_caching (the 3 x 3 grid, 10 steps a cell), topology_explorer
+   (6 structures x 3 bandwidths, then 2 rounds of successive halving) and
+   train_100m at its published widths (12 layers, d_model 640, vocab
+   32768, 8 x 256 tokens, 200 steps, a checkpoint every 50, attached:
+   every loss finite, the first within 1.0 of ln(32768), the mean of the
+   last 10 below the first 10's; native seconds a step and peak memory
+   printed, and a torch.profiler table of one more unattached step):
+   the path's cascade launched, no other kernel and no plain version;
+   each's wall seconds and printed lines; every example but
+   train_100m run again with ``device="cpu"`` and its simulated numbers
+   held to the card's at tests/test_torch_examples.py's bars (latency,
+   bandwidth, coherency and per-pool latency rel 1e-5; congestion rel
+   1e-4, abs 1e-12 s; epochs, rounds, BI messages, promotions, hit
+   fractions, the best candidate, the refined label and the dispatch
+   count equal; the sweep's delays and slowdowns rel 1e-5);
+23. a JSON ``kernels`` line, then the card's nvidia-smi line, then the result
    line ``{"ok": true, "device": {...}}``.
 
 The earlier phases (4-6) must show no QoS launch, no phase before 9 an SSD
@@ -375,6 +397,7 @@ import json
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import types
 import warnings
@@ -387,7 +410,9 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(1, str(ROOT / "examples"))  # _parity: the examples' bars
 
+import _parity as parity  # noqa: E402
 from repro_torch.configs import ARCH_IDS, get_config, get_smoke  # noqa: E402
 from repro_torch.configs.mamba2_2_7b import CONFIG as M2_CONFIG  # noqa: E402
 from repro_torch.configs.qwen3_0_6b import CONFIG  # noqa: E402
@@ -5001,6 +5026,152 @@ def sanitize_path(dev, step, x):
     return total
 
 
+# --------------------------------------------------------------------------- #
+# Phase 22: the six examples
+# --------------------------------------------------------------------------- #
+
+# each example's cascade on the card, and its launches in this phase's run
+# of it: one a step, decode, round or stacked dispatch
+EXAMPLE_LAUNCHES = {
+    "quickstart": ("cascade", 2 * 5),  # run twice, 5 steps each
+    "serve_offload": ("cascade", 3 * 16),  # 3 policies, 16 decodes each
+    "fabric_pooling": ("hosts", 5),  # 5 rounds
+    "migration_caching": ("cascade", 9 * 10),  # 9 cells, 10 steps each
+    "topology_explorer": ("cascade", 6 + 1 + 2),  # 6 grid sweeps, then 1 + 2 halving rounds
+    "train_100m": ("cascade", 200),  # 200 steps
+}
+
+
+def check_example_twin(tag, card, cpu) -> int:
+    """Every simulated number of the card's run against the CPU's at the
+    parity test's bars (examples/_parity.py); returns how many were held."""
+    bad, worst = parity.mismatches(card, cpu)
+    check(not bad, f"{tag}: {len(bad)} numbers of the card's run miss the CPU run's at "
+          f"their bars: {bad[:6]}")
+    print(f"[examples] {tag}: {len(card)} simulated numbers within their bars of the CPU "
+          f"run's, the largest rel difference {worst:.3e}")
+    return len(card)
+
+
+def example_train_100m(mod):
+    """train_100m at its published widths on the card from a fresh
+    checkpoint directory (under the temporary directory, removed after)."""
+    ckpt = tempfile.mkdtemp(prefix="repro_torch_100m_")
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        out = mod.run(device="cuda", ckpt_dir=ckpt)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    losses, sim = out["losses"], out["sim"]
+    check(len(losses) == 200 and out["start_step"] == 0, f"train_100m ran {len(losses)} steps "
+          f"from step {out['start_step']}")
+    check(all(np.isfinite(losses)), "train_100m: a loss is not finite")
+    first_mean, last_mean = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    check(abs(losses[0] - np.log(mod.CONFIG.vocab_size)) < 1.0,
+          f"train_100m: first loss {losses[0]!r}, ln(vocab) {np.log(mod.CONFIG.vocab_size)!r}")
+    check(last_mean < first_mean, f"train_100m: loss did not fall ({first_mean!r} -> "
+          f"{last_mean!r}, means of the first and last 10 steps)")
+    check(sim["epochs"] == 200 and sim["steps"] == 200, f"train_100m: sim {sim}")
+    print(f"[examples] train_100m: {out['params']} parameters, {len(losses)} steps, loss "
+          f"{losses[0]!r} -> {losses[-1]!r} (means of the first and last 10: {first_mean!r} -> "
+          f"{last_mean!r}); native {sim['native_s'] / sim['steps']!r} s a step, analyzer "
+          f"{sim['analyzer_s'] / sim['steps']!r} s a step (beside it), wall {out['wall_s']!r} "
+          f"s with 3 checkpoints; peak {peak:.2f} GiB")
+    print(f"params: {out['params'] / 1e6:.1f}M")
+    return out
+
+
+def profile_train_100m(mod, dev, rows=14, timed=5):
+    """train_100m's model and batch (fresh weights from seed 0,
+    unattached): after a warm-up step, ``timed`` steps on the host clock
+    (synchronized), then one under torch.profiler: the ops with the most
+    device time, and the kernels' device time against the timed steps'
+    mean wall (the card's idle share) and the profiled step's own."""
+    cfg = mod.CONFIG
+    opt = AdamWConfig(lr=3e-4, total_steps=200, warmup_steps=20)
+    model = Model(cfg, device=dev, seed=0)
+    state = {"adam": adamw_init(model, opt), "ef": {}}
+    step = make_train_step(cfg, opt, device=dev)
+    batch = SyntheticPipeline(cfg, 8, 256, seed=0, device=dev).device_batch(0)
+    model, state, _ = step(model, state, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(timed):
+        model, state, _ = step(model, state, batch)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / timed * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model, state, _ = step(model, state, batch)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    table = prof.key_averages()
+    # the kernels' own rows: an op's self device time repeats its kernels'
+    busy_ms = sum(e.self_device_time_total for e in table
+                  if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    print(f"[examples] train_100m, unattached: {step_ms:.3f} ms a step (mean of {timed}); one "
+          f"more step under the profiler: wall {wall_s * 1e3:.3f} ms, kernels {busy_ms:.3f} ms "
+          f"on the card: the card idles {1 - busy_ms / step_ms:.1%} of an unprofiled step "
+          f"({1 - busy_ms / (wall_s * 1e3):.1%} of the profiled one)")
+    print(table.table(sort_by="device_time_total", row_limit=rows))
+
+
+def examples_path(dev):
+    """Phase 22: each example's ``run()`` on the card at its own sizes
+    (train_100m at its published widths), its kernel's launches counted and
+    nothing else launched; every example but train_100m also run on the
+    CPU and held to it.  Returns the launches by kernel."""
+    t0 = time.perf_counter()
+    total = {}
+    for name, (kernel, want) in EXAMPLE_LAUNCHES.items():
+        mod = parity.load_example(f"{name}_torch")
+        torch.cuda.synchronize()
+        reset_counts()
+        t1 = time.perf_counter()
+        out = example_train_100m(mod) if name == "train_100m" else mod.run(device="cuda")
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t1
+        if name == "quickstart":  # again, warm: the first run pays the process's set-up
+            t1 = time.perf_counter()
+            warm = mod.run(device="cuda")["report"]
+            print(f"[examples] quickstart again: {time.perf_counter() - t1:.3f} s, native "
+                  f"{warm.native_s / warm.steps!r} s a step (the first run "
+                  f"{out['report'].native_s / out['report'].steps!r})")
+        c = counts()
+        check_launches(f"examples {name}", c, kernel, want)  # and no plain path, no other kernel
+        total[kernel] = total.get(kernel, 0) + c[kernel]
+        print(f"[examples] {name}: {card_s:.3f} s on the card, {c[kernel]} {kernel} launches")
+        for line in mod.report_lines(out):
+            for part in line.split("\n"):
+                print(f"[examples:{name}] {part}")
+        if name == "serve_offload":
+            first = list(out["first_logits"].values())
+            check(all(torch.equal(first[0], f) for f in first[1:]),
+                  "serve_offload: the policies' first decodes differ")
+        if name == "quickstart":
+            losses = out["losses"]
+            check(all(np.isfinite(losses)) and abs(losses[0] - np.log(mod.CFG.vocab_size)) < 1.0,
+                  f"quickstart: losses {losses}")
+        if name == "train_100m":
+            profile_train_100m(mod, dev)
+        if name == "migration_caching":
+            reps = [r for row in out.values() for r, _ in row.values()]
+            print(f"[examples] migration_caching: native {sum(r.native_s for r in reps)!r} s, "
+                  f"analyzer {sum(r.analyzer_s for r in reps)!r} s over its 9 cells")
+        if name != "train_100m":
+            t1 = time.perf_counter()
+            cpu = mod.run(device="cpu")
+            cpu_s = time.perf_counter() - t1
+            n = check_example_twin(name, parity.example_numbers(name, out),
+                                   parity.example_numbers(name, cpu))
+            print(f"[examples] {name}: the CPU run {cpu_s:.3f} s, {n} numbers held")
+        del out
+        torch.cuda.empty_cache()
+    print(f"[examples] phase 22 ran {time.perf_counter() - t0:.1f} s; launches {total}")
+    return total
+
+
 def sass_counts(path) -> str:
     """How many atomic, double-add and match instructions a built library's
     SASS holds (cuobjdump), or why it could not be read."""
@@ -5039,6 +5210,7 @@ def main(argv) -> int:
     cascades_only = "--cascades" in argv
     split_only = "--split" in argv
     sanitize_only = "--sanitize" in argv
+    examples_only = "--examples" in argv
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script needs a card",
               file=sys.stderr)
@@ -5075,6 +5247,10 @@ def main(argv) -> int:
     if sanitize_only:
         sanitize_path(dev, *main_step(dev))
         print(f"[done] chip_smoke --sanitize ran {time.perf_counter() - t_start:.1f} s")
+        return 0
+    if examples_only:
+        examples_path(dev)
+        print(f"[done] chip_smoke --examples ran {time.perf_counter() - t_start:.1f} s")
         return 0
 
     # -- 3. kernels vs plain at synthetic shapes ---------------------------- #
@@ -5176,8 +5352,14 @@ def main(argv) -> int:
     cascade_launches += c21.get("cascade", 0)
     hosts_launches += c21.get("hosts", 0)
     scan_launches += c21.get("scan", 0)
+    torch.cuda.empty_cache()
 
-    # -- 22. the kernels line and the result -------------------------------- #
+    # -- 22. the six examples ----------------------------------------------- #
+    c22 = examples_path(dev)
+    cascade_launches += c22.get("cascade", 0)
+    hosts_launches += c22.get("hosts", 0)
+
+    # -- 23. the kernels line and the result -------------------------------- #
     src = "src/repro_torch/kernels/csrc/"
     kernels = []
     for name, source, replaces, launches, comps, row in (

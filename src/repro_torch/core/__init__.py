@@ -1,8 +1,9 @@
 """CXLMemSim core, ported to PyTorch: the Timing Analyzer, attach, the
 shared multi-host fabric, migration, the expander-side device cache, the
 device-resident pipeline, the shared analysis engine, scenario sweeps and
-the rack-scale fleet (the port of :mod:`repro.core`; the split of a
-sweep's or a fleet's leading axis over several devices is still to come).
+the rack-scale fleet (the port of :mod:`repro.core`; ``mesh=`` splits
+the stacked dispatches' leading axis over several devices, as in the
+reference: :mod:`repro_torch.launch.mesh`, :mod:`repro_torch.distributed.sharding`).
 
 Components (paper Figure 2):
   Tracer  -> :mod:`repro_torch.core.tracer` (+ :mod:`.events` region map)
