@@ -54,6 +54,7 @@ from ..kernels import ops as kops
 from ..launch.mesh import mesh_devices
 from .aot import AotDispatchCache
 from .events import EventStager, MemEvents
+from .spans import span
 from .topology import FlatTopology
 from .units import ms_to_ns, ns_to_s
 
@@ -85,20 +86,37 @@ class DispatchStats:
     ``padded_fraction`` is the fraction of leading-axis rows that were
     bucket/alignment padding — wasted compute the caller can act on.
 
-    The pipeline breakdown splits the dispatch wall clock: ``stage_s``
-    host staging (pack/fill, zero argsort on the pipeline path),
-    ``transfer_s`` H2D placement (on the card the copy stream's time between
-    two events around the copies; on the CPU the host clock),
-    ``compile_s`` the dispatch cache's build of the key's device buffers
-    (nonzero only on a miss — steady state is 0), ``compute_s`` time spent
-    enqueueing and blocked
-    on device execution (under the engine's overlapped dispatcher this is
-    only the *exposed* compute, the part H2D/staging of the next batch
-    could not hide).  ``donated`` stays False: eager PyTorch has no
+    The timing split of a solo :meth:`EpochAnalyzer.launch_batch` dispatch
+    (the ``analyzer.*`` spans of :mod:`repro_torch.core.spans` time the
+    same intervals):
+
+      * ``stage_s``: the host clock over validating the epochs and staging
+        them (the stager's fill and pack, the scale and window rows), on
+        either path;
+      * ``transfer_s``: on the pipeline path the H2D copies into the
+        dispatch cache's buffers — on the card the copy stream's time
+        between two events around them, on the CPU the host clock; on the
+        default path the host clock over the pageable copies of every
+        plane, which includes any wait for the current stream that a
+        pageable copy makes;
+      * ``compile_s``: the pipeline's dispatch cache building the key's
+        device buffers (nonzero only on a miss; steady state is 0); 0 on
+        the default path;
+      * ``compute_s``: the host clock over enqueueing the analysis plus the
+        wait at :meth:`PendingBatch.finish` for the totals to reach the
+        host, on either path (under the engine's overlapped dispatcher only
+        the *exposed* wait: the next batch's launch runs in between).
+
+    A coalesced dispatch (:meth:`EpochAnalyzer.analyze_batch_multi`) leaves
+    the four at 0, so sharing it never counts its seconds twice; the sweep
+    (:meth:`~repro_torch.core.scenario.ScenarioSuite.run`) and the fleet
+    fill ``stage_s`` by the host clock and ``transfer_s`` and ``compute_s``
+    by CUDA events on the card (the host clock on the CPU).
+    ``donated`` stays False: eager PyTorch has no
     buffer donation, and the reuse that the reference's donation buys comes
     here from the dispatch cache's preallocated buffers on every dispatch;
-    ``aot_cache_hit`` whether the key's buffers were already built.
-    Non-pipeline dispatches leave all six at their defaults.
+    ``aot_cache_hit`` whether the key's buffers were already built (False
+    on the default path).
 
     ``qos_classes`` is the number of QoS classes the dispatched graph
     decomposed congestion over (1 = the plain FIFO fabric).
@@ -1392,13 +1410,12 @@ class PendingBatch:
             a.last_dispatch = self.stats
             return DelayBreakdown.zero(P, S, H)
         t0 = time.perf_counter()
-        # the single host-boundary crossing for the whole batch
-        tot = self.out.cpu().numpy().astype(np.float64)
-        stats = self.stats
-        if a.pipeline:
-            stats = dataclasses.replace(
-                stats, compute_s=stats.compute_s + (time.perf_counter() - t0)
-            )
+        with span("analyzer.finish"):
+            # the single host-boundary crossing for the whole batch
+            tot = self.out.cpu().numpy().astype(np.float64)
+        stats = dataclasses.replace(
+            self.stats, compute_s=self.stats.compute_s + (time.perf_counter() - t0)
+        )
         if self.copies is not None:
             start, end = self.copies
             stats = dataclasses.replace(
@@ -1642,40 +1659,42 @@ class EpochAnalyzer:
         finished).  Pipeline analyzers copy the staged planes into the
         dispatch key's device buffers on the side stream and run the packed
         chain dispatch on chain-eligible topologies, the full-plane
-        analysis otherwise, recording the stage/transfer/compile/compute
-        split; non-pipeline analyzers copy each plane with a pageable
-        ``torch.from_numpy(a).to(device)`` and leave the split at its
-        defaults.  ``stager`` substitutes the caller's staging buffers for
+        analysis otherwise; non-pipeline analyzers copy each plane with a
+        pageable ``torch.from_numpy(a).to(device)``.  Both record the
+        stage/transfer/compute split (:class:`DispatchStats`) and open the
+        ``analyzer.stage``, ``.transfer`` and ``.launch`` spans over the
+        same intervals.  ``stager`` substitutes the caller's staging buffers for
         the analyzer's own: the shared engine passes its own, so its
         dispatcher thread never shares mutable buffers with callers
         analyzing on this analyzer from theirs.
         """
         P, H = self.flat.n_pools, self.flat.n_hosts
-        pairs = self._clean_pairs(traces, lat_scales)
-        if not pairs:
-            return PendingBatch(self, None, DispatchStats(rows=0))
-        traces = [tr for tr, _ in pairs]
         t0 = time.perf_counter()
-        n_bucket = self._bucket(max(tr.n for tr in traces))
-        b_bucket = self._bucket(len(traces), floor=1)
-        st = stager if stager is not None else self._stager
-        chain = self._chain_plan
-        pack = caps = None
-        if chain is not None:
-            # the chain path never reads the qos plane
-            buf, pack, caps = st.stage_packed(
-                traces, b_bucket, n_bucket, chain.enter_stage,
-                len(chain.stage_order), qos=False,
-            )
-        else:
-            buf = st.stage(traces, b_bucket, n_bucket, qos=self.qos_on)
-        scale_buf = np.ones((b_bucket, H * P), np.float32)
-        for row, (_, sc) in enumerate(pairs):
-            if sc is not None:
-                scale_buf[row] = sc
-        # per-epoch window length: n_windows static windows tile each span
-        span = np.maximum(buf["span"], self.bw_window_ns)
-        bw_window = np.maximum(span / self.n_windows, 1.0).astype(np.float32)
+        with span("analyzer.stage"):
+            pairs = self._clean_pairs(traces, lat_scales)
+            if not pairs:
+                return PendingBatch(self, None, DispatchStats(rows=0))
+            traces = [tr for tr, _ in pairs]
+            n_bucket = self._bucket(max(tr.n for tr in traces))
+            b_bucket = self._bucket(len(traces), floor=1)
+            st = stager if stager is not None else self._stager
+            chain = self._chain_plan
+            pack = caps = None
+            if chain is not None:
+                # the chain path never reads the qos plane
+                buf, pack, caps = st.stage_packed(
+                    traces, b_bucket, n_bucket, chain.enter_stage,
+                    len(chain.stage_order), qos=False,
+                )
+            else:
+                buf = st.stage(traces, b_bucket, n_bucket, qos=self.qos_on)
+            scale_buf = np.ones((b_bucket, H * P), np.float32)
+            for row, (_, sc) in enumerate(pairs):
+                if sc is not None:
+                    scale_buf[row] = sc
+            # per-epoch window length: n_windows static windows tile each span
+            epoch_span = np.maximum(buf["span"], self.bw_window_ns)
+            bw_window = np.maximum(epoch_span / self.n_windows, 1.0).astype(np.float32)
         stats = DispatchStats(
             devices_used=1,
             shard_rows=0,
@@ -1683,25 +1702,33 @@ class EpochAnalyzer:
             padded_fraction=float(b_bucket - len(traces)) / b_bucket,
             qos_classes=self.flat.n_qos_classes,
         )
+        t1 = time.perf_counter()
         if not self.pipeline:
             dev = self.device
 
             def put(a: np.ndarray) -> torch.Tensor:
                 return torch.from_numpy(a).to(dev)
 
-            out = self._run_batch(
-                put(buf["t"]),
-                put(buf["pool"]),
-                put(buf["bytes"]),
-                put(buf["weight"]),
-                put(buf["host"]) if H > 1 else None,  # one host: no plane to move
-                put(buf["valid"]),
-                put(bw_window),
-                put(scale_buf),
-                put(buf["qos"]) if self.qos_on else None,  # FIFO: no plane to move
-            ).sum(dim=0)
+            with span("analyzer.transfer"):
+                planes = (
+                    put(buf["t"]),
+                    put(buf["pool"]),
+                    put(buf["bytes"]),
+                    put(buf["weight"]),
+                    put(buf["host"]) if H > 1 else None,  # one host: no plane to move
+                    put(buf["valid"]),
+                    put(bw_window),
+                    put(scale_buf),
+                    put(buf["qos"]) if self.qos_on else None,  # FIFO: no plane to move
+                )
+            t2 = time.perf_counter()
+            with span("analyzer.launch"):
+                out = self._run_batch(*planes).sum(dim=0)
+            stats = dataclasses.replace(
+                stats, stage_s=t1 - t0, transfer_s=t2 - t1,
+                compute_s=time.perf_counter() - t2,
+            )
             return PendingBatch(self, out, stats)
-        t1 = time.perf_counter()
 
         # the reference's dispatch keys; a key's entry is its bucket's ring
         width = 0 if chain is None else int(sum(caps))
@@ -1713,24 +1740,26 @@ class EpochAnalyzer:
         if chain is not None:
             d.update(ring.packed(b_bucket, width))
         planes = {**buf, **(pack or {}), "window": bw_window, "scale": scale_buf}
-        copies = ring.upload(d, {name: planes[name] for name in d}, self._copy_stream)
+        with span("analyzer.transfer"):
+            copies = ring.upload(d, {name: planes[name] for name in d}, self._copy_stream)
         if self._copy_stream is None:
             transfer_s, copies = copies, None
         else:  # read off the copy events at finish
             transfer_s = 0.0
             st.fence([buf] if pack is None else [buf, pack], copies[1])
         t2 = time.perf_counter()
-        if chain is not None:
-            out = _analyze_pipeline(
-                d["t"], d["idx"], d["pool"], d["bytes"], d["weight"], d["valid"],
-                d["window"], d["scale"], self._pool_lat, self._local_lat, self._route,
-                self._bw, self._chain_stage_idx, self._chain_stt, caps, self.n_windows,
-            )
-        else:
-            out = self._run_batch(
-                d["t"], d["pool"], d["bytes"], d["weight"], d.get("host"), d["valid"],
-                d["window"], d["scale"], d.get("qos"),
-            ).sum(dim=0)
+        with span("analyzer.launch"):
+            if chain is not None:
+                out = _analyze_pipeline(
+                    d["t"], d["idx"], d["pool"], d["bytes"], d["weight"], d["valid"],
+                    d["window"], d["scale"], self._pool_lat, self._local_lat, self._route,
+                    self._bw, self._chain_stage_idx, self._chain_stt, caps, self.n_windows,
+                )
+            else:
+                out = self._run_batch(
+                    d["t"], d["pool"], d["bytes"], d["weight"], d.get("host"), d["valid"],
+                    d["window"], d["scale"], d.get("qos"),
+                ).sum(dim=0)
         ring.release()
         stats = dataclasses.replace(
             stats,
@@ -1843,16 +1872,17 @@ class EpochAnalyzer:
         k_bucket = pad_to_multiple(self._bucket(len(rows), floor=1), n_shards)
         k_shard = k_bucket // n_shards
         st = stager if stager is not None else self._stager
-        buf = st.stage_stack(
-            [[tr for tr, _ in cleaned[i]] for i in rows], k_bucket, b_bucket, n_bucket
-        )
-        scale_buf = np.ones((k_bucket, b_bucket, H * P), np.float32)
-        for k, i in enumerate(rows):
-            for row, (_, sc) in enumerate(cleaned[i]):
-                if sc is not None:
-                    scale_buf[k, row] = sc
-        span = np.maximum(buf["span"], self.bw_window_ns)
-        bw_window = np.maximum(span / self.n_windows, 1.0).astype(np.float32)
+        with span("analyzer.stage"):
+            buf = st.stage_stack(
+                [[tr for tr, _ in cleaned[i]] for i in rows], k_bucket, b_bucket, n_bucket
+            )
+            scale_buf = np.ones((k_bucket, b_bucket, H * P), np.float32)
+            for k, i in enumerate(rows):
+                for row, (_, sc) in enumerate(cleaned[i]):
+                    if sc is not None:
+                        scale_buf[k, row] = sc
+            epoch_span = np.maximum(buf["span"], self.bw_window_ns)
+            bw_window = np.maximum(epoch_span / self.n_windows, 1.0).astype(np.float32)
         self.last_dispatch = DispatchStats(
             devices_used=n_shards,
             shard_rows=k_shard if mesh is not None else 0,
@@ -1870,24 +1900,27 @@ class EpochAnalyzer:
             parts = [torch.from_numpy(a).to(self.device)] if mesh is None else shard_rows(mesh, a)
             return [p.view((n_rows,) + a.shape[2:]) for p in parts]
 
-        planes = [
-            put(buf["t"]),
-            put(buf["pool"]),
-            put(buf["bytes"]),
-            put(buf["weight"]),
-            put(buf["host"]) if H > 1 else None,  # one host: no plane to move
-            put(buf["valid"]),
-            put(bw_window),
-            put(scale_buf),
-            put(buf["qos"]) if self.qos_on else None,  # FIFO: no plane to move
-        ]
-        per_session = [
-            self._run_batch(*(None if p is None else p[j] for p in planes), topology=topo)
-            .view(k_shard, b_bucket, -1).sum(dim=1)
-            for j, topo in enumerate(topologies)
-        ]
-        # one [k_shard, M] transfer a shard, in mesh order
-        tot = np.concatenate([x.cpu().numpy() for x in per_session])[: len(rows)]
+        with span("analyzer.transfer"):
+            planes = [
+                put(buf["t"]),
+                put(buf["pool"]),
+                put(buf["bytes"]),
+                put(buf["weight"]),
+                put(buf["host"]) if H > 1 else None,  # one host: no plane to move
+                put(buf["valid"]),
+                put(bw_window),
+                put(scale_buf),
+                put(buf["qos"]) if self.qos_on else None,  # FIFO: no plane to move
+            ]
+        with span("analyzer.launch"):
+            per_session = [
+                self._run_batch(*(None if p is None else p[j] for p in planes), topology=topo)
+                .view(k_shard, b_bucket, -1).sum(dim=1)
+                for j, topo in enumerate(topologies)
+            ]
+        with span("analyzer.finish"):
+            # one [k_shard, M] transfer a shard, in mesh order
+            tot = np.concatenate([x.cpu().numpy() for x in per_session])[: len(rows)]
         tot = tot.astype(np.float64)
         for k, i in enumerate(rows):
             out[i] = _unpack(tot[k], P, S, H)

@@ -74,6 +74,7 @@ from .engine import AnalysisEngine, EngineClient, EngineHandle, fold_dispatch_st
 from .events import MemEvents, RegionMap, concat_events
 from .migration import MigrationSimulator
 from .policy import PlacementPolicy, capacity_check
+from .spans import span
 from .timer import EpochSchedule
 from .topology import Topology
 from .tracer import H100_SXM, HardwareModel, Phase, synthesize_step_trace
@@ -452,7 +453,8 @@ class AttachedProgram(EngineClient):
         Asynchronously, the step's epoch batch is submitted *before* the
         native step, so the analyzer works while the step executes; totals
         become visible through :attr:`report` (which flushes)."""
-        batch, coh_ns, scales = self._epoch_batch()
+        with span("attach.batch"):
+            batch, coh_ns, scales = self._epoch_batch()
         if self._handle is not None:
             n_epochs = len(batch)
             self._handle.submit(
@@ -461,10 +463,11 @@ class AttachedProgram(EngineClient):
                 fold=lambda bd, elapsed: self._fold(bd, coh_ns, elapsed, n_epochs),
             )
 
-        t0 = time.perf_counter()
-        out = self.step_fn(*args, **kwargs)
-        _synchronize_outputs(out)
-        native = time.perf_counter() - t0
+        with span("attach.native"):
+            t0 = time.perf_counter()
+            out = self.step_fn(*args, **kwargs)
+            _synchronize_outputs(out)
+            native = time.perf_counter() - t0
         with self._report_lock:
             self._report.native_s += native
             self._report.simulated_s += native

@@ -77,6 +77,7 @@ from .analyzer import (
     analyze_any,
 )
 from .events import EventStager, MemEvents
+from .spans import span
 
 __all__ = [
     "AnalysisEngine",
@@ -244,9 +245,10 @@ class EngineHandle:
         with eng._cv:
             self._check_open_locked()
             eng._ensure_thread_locked()
-            while self._inflight >= self.max_inflight:
-                self._check_open_locked()
-                eng._cv.wait(1.0)
+            with span("engine.submit_wait"):
+                while self._inflight >= self.max_inflight:
+                    self._check_open_locked()
+                    eng._cv.wait(1.0)
             self._check_open_locked()
             self._inflight += 1
             fut: Future = Future()
@@ -264,10 +266,11 @@ class EngineHandle:
         persist."""
         eng = self.engine
         with eng._cv:
-            while self._inflight > 0:
-                if eng._broken:
-                    raise RuntimeError("analysis engine dispatcher died")
-                eng._cv.wait(1.0)
+            with span("engine.flush_wait"):
+                while self._inflight > 0:
+                    if eng._broken:
+                        raise RuntimeError("analysis engine dispatcher died")
+                    eng._cv.wait(1.0)
             err, self._error = self._error, None
         if err is not None:
             raise err
@@ -569,12 +572,15 @@ class AnalysisEngine:
                     elif pend is None and self._closed:
                         return  # closed and drained
                 if group is not None:
-                    launched = self._launch(group)
+                    with span("engine.launch"):
+                        launched = self._launch(group)
                     if pend is not None:
-                        self._finish(pend)
+                        with span("engine.finish"):
+                            self._finish(pend)
                     pend = launched
                 else:
-                    self._finish(pend)
+                    with span("engine.finish"):
+                        self._finish(pend)
                     pend = None
         except BaseException:
             with self._cv:

@@ -76,6 +76,7 @@ from .engine import AnalysisEngine, EngineClient, EngineHandle, fold_dispatch_st
 from .events import MemEvents, RegionMap, concat_events
 from .migration import LocalBudget, MigrationConfig, MigrationSimulator
 from .policy import PlacementPolicy
+from .spans import span
 from .timer import EpochSchedule
 from .topology import Topology
 from .tracer import H100_SXM, HardwareModel, Phase, synthesize_step_trace
@@ -576,7 +577,8 @@ class FabricSession(EngineClient):
         merged timelines are cached: per-round analyzer overhead is a
         reported quantity (the paper's accounting), matching how
         ``CXLMemSim.attach`` re-analyzes its cached trace each step."""
-        merged, miss_ns, scales = self._merged_round()
+        with span("fabric.merge"):
+            merged, miss_ns, scales = self._merged_round()
         n_epochs = len(merged)
         stats = self._round_stats()
 
@@ -603,14 +605,15 @@ class FabricSession(EngineClient):
         # the tenants' native steps run AFTER the submission: the analyzer's
         # device work overlaps the attached programs' own execution
         natives: List[float] = []
-        for h, tenant in enumerate(self.tenants):
-            if tenant.step_fn is not None:
-                t0 = time.perf_counter()
-                out = tenant.step_fn(*tenant.step_args)
-                _synchronize_outputs(out)
-                natives.append(time.perf_counter() - t0)
-            else:
-                natives.append(self._tenant_epochs(h)[1])
+        with span("fabric.native"):
+            for h, tenant in enumerate(self.tenants):
+                if tenant.step_fn is not None:
+                    t0 = time.perf_counter()
+                    out = tenant.step_fn(*tenant.step_args)
+                    _synchronize_outputs(out)
+                    natives.append(time.perf_counter() - t0)
+                else:
+                    natives.append(self._tenant_epochs(h)[1])
         with self._report_lock:
             for hc, native in zip(self._report.hosts, natives):
                 hc.steps += 1

@@ -77,6 +77,7 @@ from .aot import AotDispatchCache
 from .cache import DeviceCacheConfig, DeviceCacheModel
 from .events import RegionMap
 from .policy import PlacementPolicy, RegionArrays, assign_batch, bytes_per_pool_batch
+from .spans import span
 from .topology import QosSpec, Topology, TopologyOverride, flatten_stack
 from .tracer import (
     H100_SXM,
@@ -472,183 +473,187 @@ class ScenarioSuite:
         whatever the mesh.  Padded rows are dropped before results are
         built.
         """
-        if on_overflow not in ("mark", "raise"):
-            raise ValueError(on_overflow)
-        scenarios = list(scenarios)
-        if not scenarios:
-            raise ValueError("empty scenario list")
-        K = len(scenarios)
-        flat = self.base_flat
-        P, S, H = flat.n_pools, flat.n_switches, flat.n_hosts
-        V = H * P
-        ra = self.region_arrays
+        with span("sweep.prepare"):
+            if on_overflow not in ("mark", "raise"):
+                raise ValueError(on_overflow)
+            scenarios = list(scenarios)
+            if not scenarios:
+                raise ValueError("empty scenario list")
+            K = len(scenarios)
+            flat = self.base_flat
+            P, S, H = flat.n_pools, flat.n_switches, flat.n_hosts
+            V = H * P
+            ra = self.region_arrays
 
-        # 1. [K, R] placement matrix (vectorized; repeated policies dedup'd)
-        assign = assign_batch([s.policy for s in scenarios], ra, flat)
-        util_bytes = bytes_per_pool_batch(assign, ra.nbytes, P)
-        cap = np.asarray(flat.pool_capacity, np.float64)
-        with np.errstate(divide="ignore", invalid="ignore"):
-            utilization = np.where(cap[None, :] > 0, util_bytes / cap[None, :], 0.0)
-        feasible = (util_bytes <= cap[None, :]).all(axis=1)
-        if on_overflow == "raise" and not feasible.all():
-            k = int(np.argmin(feasible))
-            over = int(np.argmax(util_bytes[k] - cap))
-            raise ValueError(
-                f"scenario {scenarios[k].label()!r}: pool "
-                f"{flat.pool_names[over]} over capacity "
-                f"({bytes_to_gib(util_bytes[k, over]):.1f} GiB placed, "
-                f"{bytes_to_gib(cap[over]):.1f} GiB available)"
-            )
-        if flat.host_reachable is not None and not flat.host_reachable.all():
-            bad = ~flat.host_reachable[0, assign]
-            if bad.any():
-                k, r = np.argwhere(bad)[0]
+            # 1. [K, R] placement matrix (vectorized; repeated policies dedup'd)
+            assign = assign_batch([s.policy for s in scenarios], ra, flat)
+            util_bytes = bytes_per_pool_batch(assign, ra.nbytes, P)
+            cap = np.asarray(flat.pool_capacity, np.float64)
+            with np.errstate(divide="ignore", invalid="ignore"):
+                utilization = np.where(cap[None, :] > 0, util_bytes / cap[None, :], 0.0)
+            feasible = (util_bytes <= cap[None, :]).all(axis=1)
+            if on_overflow == "raise" and not feasible.all():
+                k = int(np.argmin(feasible))
+                over = int(np.argmax(util_bytes[k] - cap))
                 raise ValueError(
-                    f"scenario {scenarios[k].label()!r} places region "
-                    f"{ra.names[r]!r} on a pool host 0 cannot reach"
+                    f"scenario {scenarios[k].label()!r}: pool "
+                    f"{flat.pool_names[over]} over capacity "
+                    f"({bytes_to_gib(util_bytes[k, over]):.1f} GiB placed, "
+                    f"{bytes_to_gib(cap[over]):.1f} GiB available)"
                 )
+            if flat.host_reachable is not None and not flat.host_reachable.all():
+                bad = ~flat.host_reachable[0, assign]
+                if bad.any():
+                    k, r = np.argwhere(bad)[0]
+                    raise ValueError(
+                        f"scenario {scenarios[k].label()!r} places region "
+                        f"{ra.names[r]!r} on a pool host 0 cannot reach"
+                    )
 
-        # 2. granularity groups share one skeleton + one sort each
-        grans = sorted({float(s.policy.granularity_bytes) for s in scenarios})
-        group_of = np.asarray(
-            [grans.index(float(s.policy.granularity_bytes)) for s in scenarios],
-            np.int64,
-        )
-        skels = [self.skeleton_for(g) for g in grans]
-        B = skels[0].n_epochs
-        n_bucket = self._bucket(
-            max(
-                (int(np.diff(sk.epoch_ptr).max()) if sk.n else 1)
-                for sk in skels
+            # 2. granularity groups share one skeleton + one sort each
+            grans = sorted({float(s.policy.granularity_bytes) for s in scenarios})
+            group_of = np.asarray(
+                [grans.index(float(s.policy.granularity_bytes)) for s in scenarios],
+                np.int64,
             )
-        )
-        groups = [self._staged_group(g, n_bucket) for g in grans]
-
-        def stack_np(f: str) -> np.ndarray:
-            return np.stack([gr[f] for gr in groups])
-
-        span = np.maximum(stack_np("span"), self.bw_window_ns)  # [G, B]
-        bw_window = np.maximum(span / self.n_windows, 1.0)
-
-        # 3. stacked topology leaves (one structure for every scenario)
-        topo_stack = flatten_stack(self.topology, [s.topology for s in scenarios])
-
-        # 3a. the qos axis: per-scenario discipline/weight rows, numeric
-        # data to the QoS cascade; all-FIFO suites keep the FIFO cascade
-        qos_specs = [s.qos for s in scenarios]
-        qos_on = bool(
-            flat.has_qos
-            or self._qos_of_region.any()
-            or any(sp is not None for sp in qos_specs)
-        )
-        C = int(flat.n_qos_classes)
-        if qos_on:
-            C = max(
-                C,
-                int(self._qos_of_region.max(initial=0)) + 1,
-                max((sp.n_classes() for sp in qos_specs if sp), default=1),
+            skels = [self.skeleton_for(g) for g in grans]
+            B = skels[0].n_epochs
+            n_bucket = self._bucket(
+                max(
+                    (int(np.diff(sk.epoch_ptr).max()) if sk.n else 1)
+                    for sk in skels
+                )
             )
-        disc_base = flat.discipline_codes()  # [S] i32
-        w_base = np.ones((S, C), self._np_dtype)
-        w_base[:, : flat.n_qos_classes] = flat.class_weight_table()
-        disc_np = np.tile(disc_base, (K, 1))
-        w_np = np.tile(w_base, (K, 1, 1))
-        for k, sp in enumerate(qos_specs):
-            if sp is not None:
-                sp.apply(disc_np[k], w_np[k], flat.switch_names)
+            groups = [self._staged_group(g, n_bucket) for g in grans]
 
-        # 3b. cascade dedup: congestion (and the post-queue times bandwidth
-        # windows see) depends only on (granularity group, placement row,
-        # STT row — plus the discipline/weight rows when QoS is on) —
-        # scenarios differing only in latency/bandwidth/cache share one
-        # cascade on the device
-        stt_np = topo_stack.switch_stt_ns.astype(self._np_dtype)
-        cas_index: Dict[Tuple, int] = {}
-        cascade_of = np.empty((K,), np.int64)
-        cas_rows: List[int] = []
-        for k in range(K):
-            ck = (int(group_of[k]), assign[k].tobytes(), stt_np[k].tobytes())
+            def stack_np(f: str) -> np.ndarray:
+                return np.stack([gr[f] for gr in groups])
+
+            epoch_span = np.maximum(stack_np("span"), self.bw_window_ns)  # [G, B]
+            bw_window = np.maximum(epoch_span / self.n_windows, 1.0)
+
+            # 3. stacked topology leaves (one structure for every scenario)
+            topo_stack = flatten_stack(self.topology, [s.topology for s in scenarios])
+
+            # 3a. the qos axis: per-scenario discipline/weight rows, numeric
+            # data to the QoS cascade; all-FIFO suites keep the FIFO cascade
+            qos_specs = [s.qos for s in scenarios]
+            qos_on = bool(
+                flat.has_qos
+                or self._qos_of_region.any()
+                or any(sp is not None for sp in qos_specs)
+            )
+            C = int(flat.n_qos_classes)
             if qos_on:
-                ck += (disc_np[k].tobytes(), w_np[k].tobytes())
-            u = cas_index.get(ck)
-            if u is None:
-                u = len(cas_rows)
-                cas_index[ck] = u
-                cas_rows.append(k)
-            cascade_of[k] = u
-        cas_rows_np = np.asarray(cas_rows, np.int64)
-        self.last_unique_cascades = len(cas_rows)
-
-        # 4. per-scenario device-cache latency scales (the host's tag model),
-        # dedup'd like the cascades: the scale depends only on (granularity
-        # group, placement row, cache config, scenario latency leaves), so
-        # bandwidth/STT variants share one tag simulation
-        lat_scale = np.ones((K, B, V), self._np_dtype)
-        scale_cache: Dict[Tuple, np.ndarray] = {}
-        for k, s in enumerate(scenarios):
-            if s.cache is None:
-                continue
-            sk = (
-                int(group_of[k]),
-                assign[k].tobytes(),
-                s.cache,
-                topo_stack.pool_latency_ns[k].tobytes(),
-                topo_stack.pool_media_latency_ns[k].tobytes(),
-                float(topo_stack.local_latency_ns[k]),
-            )
-            rows = scale_cache.get(sk)
-            if rows is None:
-                model = DeviceCacheModel(s.cache, topo_stack.member(k), [self.regions])
-                epochs = skeleton_to_events(
-                    self.skeleton_for(s.policy.granularity_bytes), assign[k]
+                C = max(
+                    C,
+                    int(self._qos_of_region.max(initial=0)) + 1,
+                    max((sp.n_classes() for sp in qos_specs if sp), default=1),
                 )
-                rows = np.ones((B, V), self._np_dtype)
-                for e, tr in enumerate(epochs):
-                    sc = model.observe_scale(tr)
-                    if sc is not None:
-                        rows[e] = sc
-                scale_cache[sk] = rows
-            lat_scale[k] = rows
+            disc_base = flat.discipline_codes()  # [S] i32
+            w_base = np.ones((S, C), self._np_dtype)
+            w_base[:, : flat.n_qos_classes] = flat.class_weight_table()
+            disc_np = np.tile(disc_base, (K, 1))
+            w_np = np.tile(w_base, (K, 1, 1))
+            for k, sp in enumerate(qos_specs):
+                if sp is not None:
+                    sp.apply(disc_np[k], w_np[k], flat.switch_names)
 
-        # 5. ONE stacked dispatch; per-scenario totals come back together.
-        # With a mesh, the scenario axis is padded to a multiple of its
-        # entries (scenario 0 repeated: its cascade and group indices stay
-        # valid) and split over them; the U unique cascades run once, on the
-        # mesh's first device, and their outcomes are copied to the others.
-        # Host staging (pack), H2D, then the dispatch proper — the split
-        # DispatchStats reports for the pipeline
-        mesh, n_shards = resolve_data_mesh(
-            check_mesh(self.mesh if mesh is None else mesh, self.device), K,
-            what="scenario sweep",
-        )
-        Kp = pad_to_multiple(K, n_shards)
+            # 3b. cascade dedup: congestion (and the post-queue times bandwidth
+            # windows see) depends only on (granularity group, placement row,
+            # STT row — plus the discipline/weight rows when QoS is on) —
+            # scenarios differing only in latency/bandwidth/cache share one
+            # cascade on the device
+            stt_np = topo_stack.switch_stt_ns.astype(self._np_dtype)
+            cas_index: Dict[Tuple, int] = {}
+            cascade_of = np.empty((K,), np.int64)
+            cas_rows: List[int] = []
+            for k in range(K):
+                ck = (int(group_of[k]), assign[k].tobytes(), stt_np[k].tobytes())
+                if qos_on:
+                    ck += (disc_np[k].tobytes(), w_np[k].tobytes())
+                u = cas_index.get(ck)
+                if u is None:
+                    u = len(cas_rows)
+                    cas_index[ck] = u
+                    cas_rows.append(k)
+                cascade_of[k] = u
+            cas_rows_np = np.asarray(cas_rows, np.int64)
+            self.last_unique_cascades = len(cas_rows)
 
-        def pad_k(a: np.ndarray) -> np.ndarray:
-            if Kp == a.shape[0]:
-                return a
-            return np.concatenate([a, np.repeat(a[:1], Kp - a.shape[0], axis=0)], axis=0)
+            # 4. per-scenario device-cache latency scales (the host's tag model),
+            # dedup'd like the cascades: the scale depends only on (granularity
+            # group, placement row, cache config, scenario latency leaves), so
+            # bandwidth/STT variants share one tag simulation
+            lat_scale = np.ones((K, B, V), self._np_dtype)
+            scale_cache: Dict[Tuple, np.ndarray] = {}
+            for k, s in enumerate(scenarios):
+                if s.cache is None:
+                    continue
+                sk = (
+                    int(group_of[k]),
+                    assign[k].tobytes(),
+                    s.cache,
+                    topo_stack.pool_latency_ns[k].tobytes(),
+                    topo_stack.pool_media_latency_ns[k].tobytes(),
+                    float(topo_stack.local_latency_ns[k]),
+                )
+                rows = scale_cache.get(sk)
+                if rows is None:
+                    model = DeviceCacheModel(s.cache, topo_stack.member(k), [self.regions])
+                    epochs = skeleton_to_events(
+                        self.skeleton_for(s.policy.granularity_bytes), assign[k]
+                    )
+                    rows = np.ones((B, V), self._np_dtype)
+                    for e, tr in enumerate(epochs):
+                        sc = model.observe_scale(tr)
+                        if sc is not None:
+                            rows[e] = sc
+                    scale_cache[sk] = rows
+                lat_scale[k] = rows
 
-        fd = self._np_dtype
+            # 5. ONE stacked dispatch; per-scenario totals come back together.
+            # With a mesh, the scenario axis is padded to a multiple of its
+            # entries (scenario 0 repeated: its cascade and group indices stay
+            # valid) and split over them; the U unique cascades run once, on the
+            # mesh's first device, and their outcomes are copied to the others.
+            # Host staging (pack), H2D, then the dispatch proper — the split
+            # DispatchStats reports for the pipeline
+            mesh, n_shards = resolve_data_mesh(
+                check_mesh(self.mesh if mesh is None else mesh, self.device), K,
+                what="scenario sweep",
+            )
+            Kp = pad_to_multiple(K, n_shards)
+
+            def pad_k(a: np.ndarray) -> np.ndarray:
+                if Kp == a.shape[0]:
+                    return a
+                return np.concatenate([a, np.repeat(a[:1], Kp - a.shape[0], axis=0)], axis=0)
+
+            fd = self._np_dtype
+
         clock = _PhaseClock(self.device)
         t0 = time.perf_counter()
-        shared = {  # the skeletons' planes: every scenario reads them
-            "nbytes": stack_np("bytes"), "weight": stack_np("weight"),
-            "host": stack_np("host"), "valid": stack_np("valid"),
-            "region": stack_np("region"), "bw_window": bw_window.astype(fd),
-        }
-        cascade_planes = {
-            "t": stack_np("t"),
-            "cas_group": group_of[cas_rows_np], "cas_assign": assign[cas_rows_np].astype(np.int64),
-            "cas_stt": stt_np[cas_rows_np], "cas_disc": disc_np[cas_rows_np],
-            "cas_weights": w_np[cas_rows_np].astype(fd), "qos_of_region": self._qos_of_region,
-        }
-        per_k = {  # one row a scenario: split over the mesh
-            "group_of": group_of, "cascade_of": cascade_of,
-            "assign": assign.astype(np.int64), "lat_scale": lat_scale,
-            "pool_latency_ns": topo_stack.pool_latency_ns.astype(fd),
-            "local_latency_ns": topo_stack.local_latency_ns.astype(fd),
-            "switch_bw": topo_stack.switch_bandwidth_gbps.astype(fd),
-        }
+        with span("sweep.stage"):
+            shared = {  # the skeletons' planes: every scenario reads them
+                "nbytes": stack_np("bytes"), "weight": stack_np("weight"),
+                "host": stack_np("host"), "valid": stack_np("valid"),
+                "region": stack_np("region"), "bw_window": bw_window.astype(fd),
+            }
+            cascade_planes = {
+                "t": stack_np("t"),
+                "cas_group": group_of[cas_rows_np],
+                "cas_assign": assign[cas_rows_np].astype(np.int64),
+                "cas_stt": stt_np[cas_rows_np], "cas_disc": disc_np[cas_rows_np],
+                "cas_weights": w_np[cas_rows_np].astype(fd), "qos_of_region": self._qos_of_region,
+            }
+            per_k = {  # one row a scenario: split over the mesh
+                "group_of": group_of, "cascade_of": cascade_of,
+                "assign": assign.astype(np.int64), "lat_scale": lat_scale,
+                "pool_latency_ns": topo_stack.pool_latency_ns.astype(fd),
+                "local_latency_ns": topo_stack.local_latency_ns.astype(fd),
+                "switch_bw": topo_stack.switch_bandwidth_gbps.astype(fd),
+            }
         stage_s = time.perf_counter() - t0
         devs = [self.device] if mesh is None else mesh_devices(mesh)
         structure = self._replicas.on(devs)
@@ -657,33 +662,37 @@ class ScenarioSuite:
             return torch.from_numpy(np.ascontiguousarray(a)).to(devs[0])
 
         clock.mark()
-        shared_dev = {name: put(a) for name, a in shared.items()}
-        cascade_dev = {name: put(a) for name, a in cascade_planes.items()}
-        per_k_dev = {name: [put(a)] if mesh is None else shard_rows(mesh, pad_k(a))
-                     for name, a in per_k.items()}
+        with span("sweep.transfer"):
+            shared_dev = {name: put(a) for name, a in shared.items()}
+            cascade_dev = {name: put(a) for name, a in cascade_planes.items()}
+            per_k_dev = {name: [put(a)] if mesh is None else shard_rows(mesh, pad_k(a))
+                         for name, a in per_k.items()}
         clock.mark()
         self.dispatch_count += 1
-        cascades = _sweep_cascades(
-            host=shared_dev["host"], valid=shared_dev["valid"], region=shared_dev["region"],
-            **cascade_dev,
-            bits_table=structure[0][0],
-            stage_order=self._stage_order,
-            n_hosts=H,
-            merge_plan=self._merge_plan,
-            qos_on=qos_on,
-        )
-        # the cascades' outcomes and the skeletons' planes, once a device
-        on_dev = {d: (cascades.to(d), {n: x.to(d) for n, x in shared_dev.items()})
-                  for d in dict.fromkeys(devs)}
-        outs = [
-            _sweep_reduce(
-                on_dev[d][0], **on_dev[d][1], **{n: parts[j] for n, parts in per_k_dev.items()},
-                route=structure[j][1], n_windows=self.n_windows, n_hosts=H,
+        with span("sweep.launch"):
+            cascades = _sweep_cascades(
+                host=shared_dev["host"], valid=shared_dev["valid"], region=shared_dev["region"],
+                **cascade_dev,
+                bits_table=structure[0][0],
+                stage_order=self._stage_order,
+                n_hosts=H,
+                merge_plan=self._merge_plan,
+                qos_on=qos_on,
             )
-            for j, d in enumerate(devs)
-        ]
-        # one [K, M] host-boundary crossing for the whole sweep (one a shard)
-        tot = np.concatenate([o.cpu().numpy() for o in outs])[:K].astype(np.float64)
+            # the cascades' outcomes and the skeletons' planes, once a device
+            on_dev = {d: (cascades.to(d), {n: x.to(d) for n, x in shared_dev.items()})
+                      for d in dict.fromkeys(devs)}
+            outs = [
+                _sweep_reduce(
+                    on_dev[d][0], **on_dev[d][1],
+                    **{n: parts[j] for n, parts in per_k_dev.items()},
+                    route=structure[j][1], n_windows=self.n_windows, n_hosts=H,
+                )
+                for j, d in enumerate(devs)
+            ]
+        with span("sweep.d2h"):
+            # one [K, M] host-boundary crossing for the whole sweep (one a shard)
+            tot = np.concatenate([o.cpu().numpy() for o in outs])[:K].astype(np.float64)
         clock.mark()
         transfer_s, compute_s = clock.seconds()
         self.last_dispatch = DispatchStats(

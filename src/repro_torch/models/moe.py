@@ -32,7 +32,6 @@ from typing import Dict, Mapping, NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
 
 from .layers import init_linear, truncated_normal
 
@@ -147,54 +146,43 @@ def moe_block(
         xt = F.pad(xt, (0, 0, 0, Gm * gs - T))
     xg = xt.reshape(Gm, gs, D)
 
-    # profiler ranges name the routing, the dispatch, the experts and the
-    # combine in a step's table (moe.route, moe.dispatch, ...)
-    with record_function("moe.route"):
-        probs = router_probs(p["router"], xg)  # [g, gs, E] f32
-        C = capacity(gs, top_k, capacity_factor, E)
-        r = route(probs, top_k, C)
-        # load-balance aux loss over the real tokens: E · Σ_e f_e · P_e
-        me = probs.reshape(-1, E)[:T].mean(dim=0)
-        ce = torch.bincount(r.idx.reshape(-1)[: T * top_k], minlength=E).float() / (T * top_k)
-        aux = E * torch.sum(me * ce)
+    probs = router_probs(p["router"], xg)  # [g, gs, E] f32
+    C = capacity(gs, top_k, capacity_factor, E)
+    r = route(probs, top_k, C)
+    # load-balance aux loss over the real tokens: E · Σ_e f_e · P_e
+    me = probs.reshape(-1, E)[:T].mean(dim=0)
+    ce = torch.bincount(r.idx.reshape(-1)[: T * top_k], minlength=E).float() / (T * top_k)
+    aux = E * torch.sum(me * ce)
 
     if dispatch == "scatter":
-        with record_function("moe.dispatch"):
-            cidx = torch.where(r.keep, r.pos, C)  # C: the overflow slot, sliced away
-            gi = torch.arange(Gm, device=x.device)[:, None, None]
-            # every kept slot takes exactly one write; only the overflow slot
-            # takes many (in any order), so the sum is deterministic where kept
-            xe = torch.zeros((Gm, E, C + 1, D), dtype=dt, device=x.device).index_put(
-                (gi, r.idx, cidx), xg[:, :, None, :].expand(Gm, gs, top_k, D),
-                accumulate=True)
-        with record_function("moe.experts"):
-            eo = F.pad(_experts(p, xe[:, :, :C]), (0, 0, 0, 1))  # the overflow row = 0
-        with record_function("moe.combine"):
-            gathered = eo[gi, r.idx, cidx]  # [g, gs, k, D]
-            gates = torch.where(r.keep, r.gates, 0.0).to(dt)
-            out = (gathered * gates[..., None]).sum(dim=2)
+        cidx = torch.where(r.keep, r.pos, C)  # C: the overflow slot, sliced away
+        gi = torch.arange(Gm, device=x.device)[:, None, None]
+        # every kept slot takes exactly one write; only the overflow slot
+        # takes many (in any order), so the sum is deterministic where kept
+        xe = torch.zeros((Gm, E, C + 1, D), dtype=dt, device=x.device).index_put(
+            (gi, r.idx, cidx), xg[:, :, None, :].expand(Gm, gs, top_k, D),
+            accumulate=True)
+        eo = F.pad(_experts(p, xe[:, :, :C]), (0, 0, 0, 1))  # the overflow row = 0
+        gathered = eo[gi, r.idx, cidx]  # [g, gs, k, D]
+        gates = torch.where(r.keep, r.gates, 0.0).to(dt)
+        out = (gathered * gates[..., None]).sum(dim=2)
     elif dispatch == "dense":
         # every expert for every token (the upper-bound baseline)
-        with record_function("moe.experts"):
-            h = torch.einsum("gsd,edf->gsef", xg, p["wi"].to(dt))
-            u = torch.einsum("gsd,edf->gsef", xg, p["wu"].to(dt))
-            eo = torch.einsum("gsef,efd->gsed", F.silu(h) * u, p["wo"].to(dt))
-        with record_function("moe.combine"):
-            comb = (_one_hot(r.idx, E, dt) * r.gates.to(dt)[..., None]).sum(dim=2)  # [g, gs, E]
-            out = torch.einsum("gsed,gse->gsd", eo, comb)
+        h = torch.einsum("gsd,edf->gsef", xg, p["wi"].to(dt))
+        u = torch.einsum("gsd,edf->gsef", xg, p["wu"].to(dt))
+        eo = torch.einsum("gsef,efd->gsed", F.silu(h) * u, p["wo"].to(dt))
+        comb = (_one_hot(r.idx, E, dt) * r.gates.to(dt)[..., None]).sum(dim=2)  # [g, gs, E]
+        out = torch.einsum("gsed,gse->gsd", eo, comb)
     else:
         # GShard capacity dispatch, per group
-        with record_function("moe.dispatch"):
-            slot = _one_hot(torch.where(r.keep, r.pos, C), C, dt)  # [g, gs, k, C]
-            ek = _one_hot(r.idx, E, dt)  # [g, gs, k, E]
-            disp = torch.einsum("gske,gskc->gsec", ek, slot)  # [g, gs, E, C]
-            xe = torch.einsum("gsec,gsd->gecd", disp, xg)  # [g, E, C, D]
-        with record_function("moe.experts"):
-            eo = _experts(p, xe)
-        with record_function("moe.combine"):
-            gated = ek * torch.where(r.keep, r.gates, 0.0).to(dt)[..., None]
-            cw = torch.einsum("gske,gskc->gsec", gated, slot)
-            out = torch.einsum("gsec,gecd->gsd", cw, eo)
+        slot = _one_hot(torch.where(r.keep, r.pos, C), C, dt)  # [g, gs, k, C]
+        ek = _one_hot(r.idx, E, dt)  # [g, gs, k, E]
+        disp = torch.einsum("gske,gskc->gsec", ek, slot)  # [g, gs, E, C]
+        xe = torch.einsum("gsec,gsd->gecd", disp, xg)  # [g, E, C, D]
+        eo = _experts(p, xe)
+        gated = ek * torch.where(r.keep, r.gates, 0.0).to(dt)[..., None]
+        cw = torch.einsum("gske,gskc->gsec", gated, slot)
+        out = torch.einsum("gsec,gecd->gsd", cw, eo)
 
     if "shared_wi" in p:
         h = F.silu(xg @ p["shared_wi"].to(dt)) * (xg @ p["shared_wu"].to(dt))

@@ -581,11 +581,12 @@ def test_dispatch_stats_timing_fields_filled():
     assert st.rows == 1 and st.devices_used == 1
     pipe.analyze_batch(traces)
     assert pipe.last_dispatch.compile_s == 0.0 and pipe.last_dispatch.aot_cache_hit
-    # the default path leaves the split at its defaults
+    # the default path times its stage, pageable copies and compute; it
+    # builds nothing
     base = T.EpochAnalyzer(flat, n_windows=32, device="cpu")
     base.analyze_batch(traces)
     d = base.last_dispatch
-    assert (d.stage_s, d.transfer_s, d.compile_s, d.compute_s) == (0.0, 0.0, 0.0, 0.0)
+    assert d.stage_s > 0 and d.transfer_s > 0 and d.compute_s > 0 and d.compile_s == 0.0
     assert not d.donated and not d.aot_cache_hit and d.rows == 1
 
 
@@ -668,7 +669,9 @@ def test_cxlmemsim_pipeline_matches_reference_and_default_path(variant):
     assert got.donated_dispatches == base.donated_dispatches == 0
     if variant == "plain":  # shapes are fixed: every dispatch hits the warm entry
         assert got.aot_cache_hits == 3 and got.compile_s == 0.0
-    assert got.stage_s > 0 and got.transfer_s > 0 and base.transfer_s == 0.0
+    assert got.stage_s > 0 and got.transfer_s > 0
+    # the default path times its pageable copies too, and builds nothing
+    assert base.transfer_s > 0 and base.compile_s == 0.0
 
 
 def test_cross_depth_ties_move_bandwidth_alike_in_both_packages():
