@@ -20,8 +20,10 @@ Phases (any failure exits non-zero and prints no result):
    and the heads' scan, every product on the tensor cores in 3xTF32;
    flash_attention.cu: the bf16 prefill kernel (TMA-fed K/V ring, wgmma,
    P·V as P_hi·V + P_lo·V), the split-KV decode kernel and its merge, and
-   the f32 CUDA-core kernel), one nvcc per source, all started together,
-   from the repository's sources into build/repro_torch_kernels/;
+   the f32 CUDA-core kernel; expand_events.cu: the default dispatch's
+   padded event planes from the compact staging), one nvcc per source, all
+   started together, from the repository's sources into
+   build/repro_torch_kernels/;
 3. kernels vs plain, each on the same CUDA inputs as its plain PyTorch
    version, with median times over CUDA events; for the four cascades also
    the partitioned mirror (ref.serial_queue_cascade_partitioned /
@@ -66,14 +68,25 @@ Phases (any failure exits non-zero and prints no result):
      exactly equal, final times to rtol 1e-6,
      per-(host, class) delays to rtol 1e-5, their sum over hosts equal to the
      single-host QoS kernel's to rtol 1e-6;
+   - the expansion (``ops.expand_events``) on columns staged by
+     ``EventStager.stage_compact`` and copied to the card, at the
+     analyzer's buckets: on a ragged 3-host QoS batch (an empty row, a
+     one-event row, rows past the batch) and at the pooled fabric's width
+     (33 rows of 442,368 and 430,592 events on 8 hosts in [64, 524288]
+     planes, the benchmark's pool8 round), then on phases 4-7's own
+     batches: every plane bitwise the plain version's (``ref.expand_events``
+     on the same CUDA columns) and the host fill's (``EventStager.stage``),
+     timed on the card (calls back to back) beside the plain version and
+     the bound (the columns read once, every plane slot written once);
 4. slice-1 main path: CXLMemSim attached to a bf16 stand-in step on the
    card, with the qwen3-0.6b published config's layer-epoch trace (8 x 4096
    tokens) on the paper's Figure 1 topology, under the default
    (asynchronous on the shared engine), one warm-up step, then 3
    measured steps; over those 3 the cascade's launch count must rise by
-   exactly 3 and the plain path's by 0, the report's delay totals must
-   match the f64 oracle ``analyze_ref``, and both switches must queue; then
-   host staging on the host clock, and a torch.profiler table of one batch;
+   exactly 3, the expansion's by 3 and the plain path's by 0, the report's
+   delay totals must match the f64 oracle ``analyze_ref``, and both
+   switches must queue; then the compact host staging on the host clock,
+   and a torch.profiler table of one batch;
 5. the shared fabric: FabricSession with 8 trace-only qwen3-0.6b decode
    tenants (batch 64, 4096-token caches) pooling their KV caches on
    pooled_topology(n_hosts=8) with trace-driven coherency, synchronous
@@ -382,12 +395,17 @@ Phases (any failure exits non-zero and prints no result):
    1e-4, abs 1e-12 s; epochs, rounds, BI messages, promotions, hit
    fractions, the best candidate, the refined label and the dispatch
    count equal; the sweep's delays and slowdowns rel 1e-5);
-23. a JSON ``kernels`` line, then the card's nvidia-smi line, then the result
-   line ``{"ok": true, "device": {...}}``.
+23. a JSON ``kernels`` line (the expansion's launches are every one the
+   script made; its ms, plain_ms and bound_ms the pooled fabric's width),
+   then the card's nvidia-smi line, then the result line ``{"ok": true,
+   "device": {...}}``.
 
 The earlier phases (4-6) must show no QoS launch, no phase before 9 an SSD
 launch, and no attached step a flash launch (the model's attention is the
-plain chunked version, as in the reference).
+plain chunked version, as in the reference).  Every dispatch of the
+analyzer's default path launches the expansion once, and every launch
+check counts it: the paths that bypass that dispatch (the pipeline,
+coalesced sessions, sweeps, fleets, the split) must launch none.
 """
 
 from __future__ import annotations
@@ -468,6 +486,7 @@ from repro_torch.core import analyzer as tan  # noqa: E402
 from repro_torch.core import scenario as tscenario  # noqa: E402
 from repro_torch.core.units import s_to_ms, s_to_ns  # noqa: E402
 from repro_torch.kernels import congestion as kcong  # noqa: E402
+from repro_torch.kernels import expand as kexpand  # noqa: E402
 from repro_torch.launch.mesh import make_data_mesh, mesh_devices  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels import build as kbuild  # noqa: E402
@@ -499,6 +518,12 @@ HOSTS_BYTES_PER_EVENT = 20  # hosts cascade: + read the host id
 SCAN_BYTES_PER_EVENT = 13  # scan: read t + mask byte, write start + delay
 QOS_BYTES_PER_EVENT = 20  # QoS cascade: the cascade's 16 + read the class
 QOS_HOSTS_BYTES_PER_EVENT = 24  # host-segmented QoS cascade: + read the host id
+# the expansion: read each real event's 32-bit columns once, write every slot
+# of every 32-bit plane and of the valid byte plane once
+EXPAND_WORD_BYTES = 4
+# pooled KV fabric rounds of the benchmark's 8-host cell: 33 epochs in
+# [64, 524288] planes, 14,221,312 real events, the longest epoch 442,368
+POOL8_ROWS = (442_368,) + (430_592,) * 32
 OPS_PER_QUEUED_EVENT = 6  # stt*rank, t - p, max, f + p, start - t, sum
 POLICY = {"opt_state": "cxl_pool2", "grad": "cxl_pool1"}
 # the shared fabric: the paper's KV-cache pooling scenario at qwen3-0.6b's widths
@@ -1108,6 +1133,93 @@ def staged_batch(traces, flat, dev, b_bucket=None, n_bucket=None):
     return out
 
 
+EXPAND_ROWS = []  # every compare_expand row, for the kernels line
+
+
+def compare_expand(name, traces, flat, qos, dev, reps=20):
+    """The expansion kernel against its plain version (ref.expand_events,
+    on the card too) on the same CUDA columns, staged from ``traces`` as the
+    default dispatch stages them for ``flat`` (a host column when it has
+    several hosts; a QoS column with ``qos``), at the analyzer's buckets:
+    every plane bitwise the plain version's and the host fill's
+    (EventStager.stage), then both timed on the card beside the bound (each
+    real event's columns read once, every slot of every plane written
+    once)."""
+    hosts = flat.n_hosts > 1
+    b_bucket = bucket_pow2(len(traces), floor=1)
+    n_bucket = bucket_pow2(max(tr.n for tr in traces))
+    slot = EventStager(np.float32).stage_compact(
+        traces, b_bucket, flat.n_hosts * flat.n_pools, hosts=hosts, qos=qos, device=dev)
+    words = slot["words"][: slot["n_words"]].to(dev)
+    col = EventStager.compact_columns(slot, words)
+    args = (col["t"], col["offsets"], col["pool"], col["bytes"], col["weight"],
+            col.get("host"), col.get("qos"), n_bucket, slot["longest"])
+    n0 = kexpand.expand_launches
+    got = kops.expand_events(*args)
+    check(kexpand.expand_launches == n0 + 1, f"{name}: the kernel did not launch once")
+    plain = kref.expand_events(*args)
+    full = EventStager(np.float32).stage(traces, b_bucket, n_bucket, qos=qos)
+    torch.cuda.synchronize()
+
+    def bits(x):
+        return x if x.dtype == torch.bool else x.view(torch.int32)
+
+    planes = ("t", "pool", "bytes", "weight", "host", "qos", "valid")
+    for plane, g, p in zip(planes, got, plain):
+        check((g is None) == (p is None) == ((plane == "host" and not hosts)
+                                              or (plane == "qos" and not qos)),
+              f"{name}: the {plane} plane is made where it should not be, or not made")
+        if g is None:
+            continue
+        host_fill = torch.from_numpy(full[plane]).to(dev)
+        check(torch.equal(bits(g), bits(p)), f"{name}: the {plane} plane differs from the "
+              "plain version's")
+        check(torch.equal(bits(g), bits(host_fill)), f"{name}: the {plane} plane differs from "
+              "the host fill's")
+    del got, plain, full
+    ms = device_ms(lambda: kops.expand_events(*args), 2 * reps)
+    plain_ms = median_ms(lambda: kref.expand_events(*args), max(3, reps // 4))
+    events = int(slot["offsets"][-1])
+    n_planes = 4 + hosts + qos
+    nbytes = EXPAND_WORD_BYTES * (n_planes * events + b_bucket + 1) + b_bucket * n_bucket * (
+        EXPAND_WORD_BYTES * n_planes + 1)
+    bms, by = bound_ms(nbytes, 0)
+    row = dict(shape=[b_bucket, n_bucket], events=events,
+               real_share=events / (b_bucket * n_bucket), planes=n_planes + 1, ms=ms,
+               plain_ms=plain_ms, bound_ms=bms, bound_by=by, bound_share=bms / ms,
+               gb_per_s=nbytes / (ms / MS_PER_S) / 1e9, h2d_bytes=4 * slot["n_words"],
+               max_abs_err=0.0)
+    print(f"[kernel] {name}: {json.dumps(row)}")
+    EXPAND_ROWS.append(row)
+    return row
+
+
+def expand_kernel_phase(dev):
+    """The expansion on a ragged QoS batch of 3 hosts (an empty row, a
+    one-event row, rows past the batch) and at the pooled fabric's width:
+    33 time-sorted rows of POOL8_ROWS events on 8 hosts, in [64, 524288]
+    planes.  Returns the wide batch's row."""
+    rng = np.random.default_rng(17)
+
+    def traces(lengths, n_hosts, n_classes):
+        out = []
+        for n in lengths:
+            out.append(MemEvents(
+                t_ns=np.sort(rng.uniform(0.0, 4e6, n)), pool=rng.integers(0, 4, n).astype(np.int32),
+                bytes_=rng.choice([64.0, 128.0, 4096.0], n), is_write=rng.random(n) < 0.3,
+                region=np.zeros(n, np.int32), weight=rng.uniform(0.5, 2.0, n),
+                host=rng.integers(0, n_hosts, n).astype(np.int32),
+                qos=rng.integers(0, n_classes, n).astype(np.int32)))
+        return out
+
+    topo = figure1_topology()
+    fig3 = Topology(topo.pools, topo.switches, topo.rc_latency_ns, topo.rc_bandwidth_gbps,
+                    topo.rc_stt_ns, topo.local_dram_latency_ns, n_hosts=3).flatten()
+    compare_expand("expand_ragged_qos", traces((2999, 0, 1, 3000, 1234), 3, 3), fig3, True, dev)
+    return compare_expand("expand_pool8_width", traces(POOL8_ROWS, FABRIC_HOSTS, 1),
+                          pooled_topology(n_hosts=FABRIC_HOSTS).flatten(), False, dev, reps=10)
+
+
 def oracle(flat, traces, n_windows=128, bw_window_ns=10_000.0, scales=None):
     """analyze_ref (f64) over the epochs, each with the analyzer's
     effective span-scaled window and its latency-scale row (``scales``,
@@ -1178,19 +1290,27 @@ class Timed:
         return out
 
 
+EXPAND_LAUNCHED = [0]  # the expansion's launches before the last reset_counts
+
+
 def reset_counts():
     kcong.launches = kcong.hosts_launches = kcong.scan_launches = 0
     kcong.qos_launches = kcong.qos_hosts_launches = 0
     kssd.ssd_launches = 0
     kflash.flash_launches = 0
+    EXPAND_LAUNCHED[0] += kexpand.expand_launches
+    kexpand.expand_launches = 0
     kops.plain_launches = 0
 
 
 def counts():
+    """The launches since reset_counts by kernel; ``expand`` is the
+    expansion's, one a default-path dispatch."""
     return dict(cascade=kcong.launches, hosts=kcong.hosts_launches,
                 scan=kcong.scan_launches, qos=kcong.qos_launches,
                 qos_hosts=kcong.qos_hosts_launches, ssd=kssd.ssd_launches,
-                flash=kflash.flash_launches, plain=kops.plain_launches)
+                flash=kflash.flash_launches, expand=kexpand.expand_launches,
+                plain=kops.plain_launches)
 
 
 def check_launches(tag, c, kernel, want, **also):
@@ -1204,14 +1324,22 @@ def check_launches(tag, c, kernel, want, **also):
 
 
 def profile_batch(tag, an, traces, rows=12):
-    """Host staging on the host clock, then one analyze_batch under
+    """Host staging on the host clock, as the default dispatch stages (the
+    compact slot of the batch's real events), then one analyze_batch under
     torch.profiler (the ``rows`` ops with the most device time)."""
     stager = EventStager(np.float32)
+    H, P = an.flat.n_hosts, an.flat.n_pools
     shape = (bucket_pow2(len(traces), floor=1), bucket_pow2(max(tr.n for tr in traces)))
-    stager.stage(traces, *shape)  # first call allocates the planes
+
+    def stage():
+        return stager.stage_compact(traces, shape[0], H * P, hosts=H > 1, qos=an.qos_on,
+                                    device=an.device)
+
+    stage()  # first call allocates the slot
     t0 = time.perf_counter()
-    stager.stage(traces, *shape)
-    print(f"[{tag}] host staging {time.perf_counter() - t0:.6f} s per batch {list(shape)}")
+    slot = stage()
+    print(f"[{tag}] host staging {time.perf_counter() - t0:.6f} s per batch {list(shape)} "
+          f"(compact: {4 * slot['n_words']} bytes)")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         an.analyze_batch(traces)
@@ -1267,6 +1395,7 @@ def slice1_main_path(dev, step, x):
           f"{sum(tr.n for tr in traces)} events per step")
     b = staged_batch(traces, prog.sim.flat, dev)
     main_row = compare("main_batch", b["t"], b["bits"], b["stts"])
+    compare_expand("main_expand", traces, prog.sim.flat, False, dev)
 
     # one warm-up step takes the first-use costs (staging planes, caching
     # allocator, GEMM setup) out of the 3 measured steps
@@ -1275,7 +1404,7 @@ def slice1_main_path(dev, step, x):
     reset_counts()
     rep = prog.run(3, x)
     c = counts()
-    check_launches("main", c, "cascade", 3)
+    check_launches("main", c, "cascade", 3, expand=3)
 
     want = oracle(prog.sim.flat, traces)
     check_totals("main", rep, want, rep.steps)
@@ -1320,7 +1449,7 @@ def fabric_main_path(dev):
     reset_counts()
     rep = sess.run(3)
     c = counts()
-    check_launches("fabric", c, "hosts", 3)
+    check_launches("fabric", c, "hosts", 3, expand=3)
     check(rep.rounds == 4 and rep.bi_messages > 0, f"rounds {rep.rounds}, BI {rep.bi_messages}")
 
     flat = sess.flat
@@ -1351,6 +1480,7 @@ def fabric_main_path(dev):
     b = staged_batch(merged, flat, dev)
     row = compare_hosts("fabric_batch", b["t"], b["bits"], b["hosts"], b["stts"],
                         flat.n_hosts)
+    compare_expand("fabric_expand", merged, flat, False, dev)
     profile_batch("fabric-profile", sess._analyzer, merged)
     return row, c["hosts"], rep
 
@@ -1374,7 +1504,7 @@ def wide_fabric_path(dev):
     print(f"[wide] {len(merged)} merged epochs, up to {max(tr.n for tr in merged)} "
           f"events, {sum(tr.n for tr in merged)} per round; merge {merge_s.calls[0]:.3f} s "
           f"(first round)")
-    check_launches("wide", c, "scan", stages * 2)
+    check_launches("wide", c, "scan", stages * 2, expand=2)
     flat = sess.flat
     ref = oracle(flat, merged)
     for k, rel, absol in (("latency", 1e-4, 1e-3), ("congestion", 1e-3, 1e-3)):
@@ -1395,6 +1525,7 @@ def wide_fabric_path(dev):
     row = compare_scan(name, b["t"], mask, stt)
     check_scan_repeats(name, b["t"], mask, stt)
     del b, routed, mask
+    compare_expand("wide_expand", merged, flat, False, dev)
     profile_batch("wide-profile", sess._analyzer, merged, rows=20)
     return row, c["scan"], rep
 
@@ -1415,12 +1546,13 @@ def qos_main_path(dev, step, x, fifo_rep):
     b = staged_batch(traces, flat, dev)
     stts, disc, w = qos_tables(flat, dev)
     row, _ = compare_qos("qos_main_batch", b["t"], b["bits"], b["qos"], stts, disc, w)
+    compare_expand("qos_main_expand", traces, flat, True, dev)
     prog.step(x)
     warm_analyzer_s = prog.report.analyzer_s
     reset_counts()
     rep = prog.run(3, x)
     c = counts()
-    check_launches("qos-main", c, "qos", 3)
+    check_launches("qos-main", c, "qos", 3, expand=3)
     check_totals("qos-main", rep, oracle(flat, traces), rep.steps)
     for k in ("latency_s", "congestion_s"):
         g, w_ = getattr(rep, k), getattr(fifo_rep, k)
@@ -1457,7 +1589,7 @@ def qos_fabric_session(tag, dev, fifo_rep, discipline, weights, rounds):
     reset_counts()
     rep = sess.run(rounds)
     c = counts()
-    check_launches(tag, c, "qos_hosts", rounds)
+    check_launches(tag, c, "qos_hosts", rounds, expand=rounds)
     merged = sess._round_cache[0]
     flat = sess.flat
     ref = oracle(flat, merged)
@@ -1624,7 +1756,7 @@ def run_migrating(tag, step, x, steps=3, **kw):
         c = counts()
     finally:
         restore()
-    check_launches(tag, c, "cascade", steps)
+    check_launches(tag, c, "cascade", steps, expand=steps)
     rep = prog.report
     per_step = {k: (t.seconds - warm[k]) / steps for k, t in timers.items()}
     parts = ", ".join(f"{k} {v:.6f}" for k, v in per_step.items() if k != "pre")
@@ -1727,7 +1859,7 @@ def fabric_migration_path():
     hosts0 = [(h.latency_s, h.congestion_s) for h in sess.report.hosts]
     sess.round()
     c = counts()
-    check_launches("fabric-migration", c, "hosts", 2)
+    check_launches("fabric-migration", c, "hosts", 2, expand=2)
     check(sess._round_cache is None, "the round replay must stay off")
     rep = sess.report
     n = 2
@@ -1788,7 +1920,7 @@ def zoo_step(tag, cfg, kind, topology, epoch, step, x):
     prog.step(x)
     prog.flush()  # the step's batch is analyzed on the engine's thread
     c = counts()
-    check_launches(tag, c, "cascade", 1)
+    check_launches(tag, c, "cascade", 1, expand=1)
     got = delta(totals(prog.report), warm)
     got.analyzer_s = prog.report.analyzer_s - warm_an
     return prog, traces, got, c["cascade"]
@@ -2041,7 +2173,7 @@ def mamba2_serving_path(dev):
     reset_counts()
     rep = prog.run(3, model, batch)
     c = counts()
-    check_launches("mamba2-prefill", c, "ssd", 3 * M2_CONFIG.n_layers, cascade=3)
+    check_launches("mamba2-prefill", c, "ssd", 3 * M2_CONFIG.n_layers, cascade=3, expand=3)
     prefill_launches = c["ssd"]
     check_totals("mamba2-prefill", rep, oracle(prog.sim.flat, traces), rep.steps)
     print(f"[mamba2-prefill] summary {json.dumps(rep.summary())}")
@@ -2123,7 +2255,7 @@ def attached_decode_modes(tag, attach, args, steps=8):
             sys.setswitchinterval(interval)
         prog.close()
         c = counts()
-        check_launches(f"{tag} {mode}", c, "cascade", steps)
+        check_launches(f"{tag} {mode}", c, "cascade", steps, expand=steps)
         cascade += c["cascade"]
         check_totals(f"{tag} {mode}", rep, oracle(prog.sim.flat, traces), rep.steps)
         if mode != "sync":
@@ -2386,7 +2518,7 @@ def qwen3_serving_path(dev):
     reset_counts()
     rep = prog.run(3, model, batch)
     c = counts()
-    check_launches("qwen3-prefill", c, "cascade", 3)
+    check_launches("qwen3-prefill", c, "cascade", 3, expand=3)
     check_totals("qwen3-prefill", rep, oracle(prog.sim.flat, traces), rep.steps)
     print(f"[qwen3-prefill] summary {json.dumps(rep.summary())}")
     print(f"[qwen3-prefill] analyzer {(rep.analyzer_s - warm_analyzer_s) / 3:.6f} s/step and "
@@ -2790,7 +2922,7 @@ def engine_main_path(step, x, main_rep):
             rep, c, wall, native, analyzer, _ = measured_steps(prog, x, marks=marks)
         finally:
             restore()
-        check_launches(f"engine-main {mode}", c, "cascade", 3)
+        check_launches(f"engine-main {mode}", c, "cascade", 3, expand=3)
         cascade += c["cascade"]
         if eng is not None:
             check(prog._handle is not None and prog._handle.engine is eng,
@@ -2878,7 +3010,7 @@ def engine_fabric_path(fabric_rep):
         wall = time.perf_counter() - t0
         c = counts()
         rep = sess.report
-        check_launches("engine-fabric8", c, "hosts", 3)
+        check_launches("engine-fabric8", c, "hosts", 3, expand=3)
         check_against("engine-fabric8", rep, fabric_rep, hosts=True)
         print(f"[engine-fabric8] analyzer {(rep.analyzer_s - before['analyzer_s']) / 3:.6f} "
               f"s/round, wall {wall / 3:.6f} s/round over the 3 measured rounds")
@@ -3544,7 +3676,7 @@ def train_main_run(tag, prog, model, state, pipe, first):
     wall = time.perf_counter() - t0
     c = counts()
     rep = prog.report
-    check_launches(tag, c, "cascade", TRAIN_MAIN["steps"])
+    check_launches(tag, c, "cascade", TRAIN_MAIN["steps"], expand=TRAIN_MAIN["steps"])
     launches = sorted(m_ for m_ in marks if m_[0] == "launch")
     finishes = sorted(m_ for m_ in marks if m_[0] == "finish")
     check(len(launches) == len(finishes) == TRAIN_MAIN["steps"],
@@ -3930,7 +4062,7 @@ def attached_serving(tag, cfg, kind, step, args, steps, want, program):
     reset_counts()
     rep = prog.run(steps, *args)
     c = counts()
-    check_launches(tag, c, "cascade", steps, **want)
+    check_launches(tag, c, "cascade", steps, expand=steps, **want)
     total = {k: v for k, v in c.items() if v}
     if check_program(tag, prog, traces, rep, rep.steps, total):
         q = attach_program(cfg, kind, step, ZOO_POLICY,
@@ -3941,7 +4073,7 @@ def attached_serving(tag, cfg, kind, step, args, steps, want, program):
         reset_counts()
         qrep = q.run(1, *args)
         qc = counts()
-        check_launches(f"{tag} quantum", qc, "cascade", 1,
+        check_launches(f"{tag} quantum", qc, "cascade", 1, expand=1,
                        **{k: v // steps for k, v in want.items()})
         check_totals(f"{tag} quantum", qrep, oracle(q.sim.flat, qtraces), qrep.steps)
         print(f"[{tag} quantum] {len(qtraces)} epochs of 2**22 ns, up to "
@@ -4090,7 +4222,7 @@ def train_full_path(tag, cfg, dev, batch, seq, stand_in):
         metrics.append({k: float(v) for k, v in m.items()})
     prog.flush()
     c = counts()
-    check_launches(tag, c, "cascade", steps)
+    check_launches(tag, c, "cascade", steps, expand=steps)
     rep = prog.report
     peak = torch.cuda.max_memory_allocated()
     launches = c["cascade"]
@@ -4104,7 +4236,7 @@ def train_full_path(tag, cfg, dev, batch, seq, stand_in):
         reset_counts()
         model, state, m = q.step(model, state, pipe.device_batch(n + 1))
         q.flush()
-        check_launches(f"{tag} quantum", counts(), "cascade", 1)
+        check_launches(f"{tag} quantum", counts(), "cascade", 1, expand=1)
         launches += 1
         check_totals(f"{tag} quantum", q.report, oracle(q.sim.flat, qtraces), q.report.steps)
         print(f"[{tag} quantum] {len(qtraces)} epochs of 2**22 ns, up to "
@@ -4805,7 +4937,7 @@ def sanitize_engine_main(step, x):
         s[1].close()
 
     c = sanitized_twin("engine-main", make, warm, measure, close)
-    check_launches("sanitize-engine-main", c, "cascade", 6)
+    check_launches("sanitize-engine-main", c, "cascade", 6, expand=6)
     return c
 
 
@@ -4876,7 +5008,7 @@ def sanitize_fabric(x):
         s[1].close()
 
     c = sanitized_twin("fabric8", make, warm, measure, close)
-    check_launches("sanitize-fabric8", c, "hosts", 4)
+    check_launches("sanitize-fabric8", c, "hosts", 4, expand=4)
     return c
 
 
@@ -5032,13 +5164,15 @@ def sanitize_path(dev, step, x):
 
 # each example's cascade on the card, and its launches in this phase's run
 # of it: one a step, decode, round or stacked dispatch
+# each example's kernel, its launches, and the expansion's (one a dispatch
+# of the analyzer's default path; the sweeps take their own staging)
 EXAMPLE_LAUNCHES = {
-    "quickstart": ("cascade", 2 * 5),  # run twice, 5 steps each
-    "serve_offload": ("cascade", 3 * 16),  # 3 policies, 16 decodes each
-    "fabric_pooling": ("hosts", 5),  # 5 rounds
-    "migration_caching": ("cascade", 9 * 10),  # 9 cells, 10 steps each
-    "topology_explorer": ("cascade", 6 + 1 + 2),  # 6 grid sweeps, then 1 + 2 halving rounds
-    "train_100m": ("cascade", 200),  # 200 steps
+    "quickstart": ("cascade", 2 * 5, 2 * 5),  # run twice, 5 steps each
+    "serve_offload": ("cascade", 3 * 16, 3 * 16),  # 3 policies, 16 decodes each
+    "fabric_pooling": ("hosts", 5, 5),  # 5 rounds
+    "migration_caching": ("cascade", 9 * 10, 9 * 10),  # 9 cells, 10 steps each
+    "topology_explorer": ("cascade", 6 + 1 + 2, 0),  # 6 grid sweeps, then 1 + 2 halving rounds
+    "train_100m": ("cascade", 200, 200),  # 200 steps
 }
 
 
@@ -5124,7 +5258,7 @@ def examples_path(dev):
     CPU and held to it.  Returns the launches by kernel."""
     t0 = time.perf_counter()
     total = {}
-    for name, (kernel, want) in EXAMPLE_LAUNCHES.items():
+    for name, (kernel, want, expand) in EXAMPLE_LAUNCHES.items():
         mod = parity.load_example(f"{name}_torch")
         torch.cuda.synchronize()
         reset_counts()
@@ -5139,7 +5273,8 @@ def examples_path(dev):
                   f"{warm.native_s / warm.steps!r} s a step (the first run "
                   f"{out['report'].native_s / out['report'].steps!r})")
         c = counts()
-        check_launches(f"examples {name}", c, kernel, want)  # and no plain path, no other kernel
+        # and no plain path, no other kernel
+        check_launches(f"examples {name}", c, kernel, want, expand=expand)
         total[kernel] = total.get(kernel, 0) + c[kernel]
         print(f"[examples] {name}: {card_s:.3f} s on the card, {c[kernel]} {kernel} launches")
         for line in mod.report_lines(out):
@@ -5284,6 +5419,7 @@ def main(argv) -> int:
     scan_rows = scan_kernel_phase(dev)
     qos_rows = qos_kernel_phase(dev)
     qos_host_rows = qos_hosts_kernel_phase(dev)
+    expand_row = expand_kernel_phase(dev)
     if cascades_only:
         cascade_batches(dev)
         print(f"[done] chip_smoke --cascades ran {time.perf_counter() - t_start:.1f} s")
@@ -5361,27 +5497,33 @@ def main(argv) -> int:
 
     # -- 23. the kernels line and the result -------------------------------- #
     src = "src/repro_torch/kernels/csrc/"
+    ref_kernels = "src/repro/kernels/"
+    reset_counts()  # the expansion's launches: every one this script made
     kernels = []
     for name, source, replaces, launches, comps, row in (
-        ("congestion_cascade", "congestion_cascade.cu", "congestion.py:290",
+        ("congestion_cascade", "congestion_cascade.cu", ref_kernels + "congestion.py:290",
          cascade_launches, rows + [main_row], main_row),
-        ("congestion_cascade_hosts", "congestion_cascade.cu", "congestion.py:350",
+        ("congestion_cascade_hosts", "congestion_cascade.cu", ref_kernels + "congestion.py:350",
          hosts_launches, host_rows, fabric_row),
-        ("congestion_scan", "congestion_scan.cu", "congestion.py:113",
+        ("congestion_scan", "congestion_scan.cu", ref_kernels + "congestion.py:113",
          scan_launches, scan_rows, wide_row),
-        ("qos_congestion_cascade", "qos_cascade.cu", "congestion.py:542",
+        ("qos_congestion_cascade", "qos_cascade.cu", ref_kernels + "congestion.py:542",
          qos_launches, qos_rows + [qos_main_row], qos_main_row),
-        ("qos_congestion_cascade_hosts", "qos_cascade.cu", "congestion.py:542",
+        ("qos_congestion_cascade_hosts", "qos_cascade.cu", ref_kernels + "congestion.py:542",
          qos_hosts_launches, qos_host_rows + [qos_fabric_row], qos_fabric_row),
-        ("ssd_scan", "ssd_scan.cu", "ssd_scan.py:82", ssd_launches, ssd_rows, ssd_row),
-        ("flash_attention", "flash_attention.cu", "flash_attention.py:94", flash_launches,
-         flash_rows + model_rows, flash_row),
+        ("ssd_scan", "ssd_scan.cu", ref_kernels + "ssd_scan.py:82", ssd_launches, ssd_rows,
+         ssd_row),
+        ("flash_attention", "flash_attention.cu", ref_kernels + "flash_attention.py:94",
+         flash_launches, flash_rows + model_rows, flash_row),
+        # no TPU kernel: the reference fills these planes on the host
+        ("expand_events", "expand_events.cu", "src/repro/core/events.py:462",
+         EXPAND_LAUNCHED[0], EXPAND_ROWS, expand_row),
     ):
         kernels.append({
             "name": name,
             "route": "cuda",
             "source": src + source,
-            "replaces": "src/repro/kernels/" + replaces,
+            "replaces": replaces,
             "launches": launches,
             "max_abs_err": max(r["max_abs_err"] for r in comps),
             "ms": row["ms"],

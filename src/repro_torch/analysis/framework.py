@@ -114,6 +114,7 @@ class CheckConfig:
         "qos_congestion_cascade",
         "ssd",
         "attention",
+        "expand_events",
         "two_run_merge",
         "staging_sort",
         "qos_cascade_dyn",
@@ -139,6 +140,7 @@ class CheckConfig:
         "ssd_scan",
         "attention",
         "flash_attention",
+        "expand_events",
     )
     # contracts: (impl file, summary-owning class, test file, test function)
     summary_contracts: Tuple[Tuple[str, str, str, str], ...] = (

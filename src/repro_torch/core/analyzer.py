@@ -93,12 +93,13 @@ class DispatchStats:
       * ``stage_s``: the host clock over validating the epochs and staging
         them (the stager's fill and pack, the scale and window rows), on
         either path;
-      * ``transfer_s``: on the pipeline path the H2D copies into the
-        dispatch cache's buffers — on the card the copy stream's time
-        between two events around them, on the CPU the host clock; on the
-        default path the host clock over the pageable copies of every
-        plane, which includes any wait for the current stream that a
-        pageable copy makes;
+      * ``transfer_s``: the H2D copies — on the pipeline path into the
+        dispatch cache's buffers on the copy stream, on the default path
+        the compact staging's one copy on the current stream, from
+        page-locked memory (asynchronous: the ``analyzer.transfer`` span
+        covers only its enqueue); on the card the time between two CUDA
+        events around them, read at :meth:`PendingBatch.finish`, on the
+        CPU the host clock;
       * ``compile_s``: the pipeline's dispatch cache building the key's
         device buffers (nonzero only on a miss; steady state is 0); 0 on
         the default path;
@@ -120,6 +121,14 @@ class DispatchStats:
 
     ``qos_classes`` is the number of QoS classes the dispatched graph
     decomposed congestion over (1 = the plain FIFO fabric).
+
+    ``h2d_bytes`` (the port's own; the reference's record has no such
+    field) is the bytes the dispatch copied host to device: on the default
+    path the compact staging's words — 16 bytes a real event (t, pool,
+    bytes, weight), 4 more with the host column of a multi-host fabric and
+    4 more with QoS, then the row offsets, the window row and the scale
+    rows; no pad slot.  0 on the pipeline path and on a coalesced
+    dispatch, which do not count it.
     """
 
     devices_used: int = 1
@@ -133,6 +142,7 @@ class DispatchStats:
     donated: bool = False
     aot_cache_hit: bool = False
     qos_classes: int = 1
+    h2d_bytes: int = 0
 
 
 def _opt_add(a: Optional[np.ndarray], b: Optional[np.ndarray]) -> Optional[np.ndarray]:
@@ -1392,18 +1402,27 @@ class _DeviceRing:
 @dataclasses.dataclass
 class PendingBatch:
     """An in-flight epoch dispatch: staged, transferred and launched, but
-    not yet resolved.  :meth:`finish` makes the batch's single D2H copy and
-    returns the :class:`DelayBreakdown`; until then the caller is free to
-    stage and launch the *next* batch.  ``stats.compute_s`` is finalized at
+    not yet resolved.  :meth:`finish` returns the :class:`DelayBreakdown`;
+    until then the caller is free to stage and launch the *next* batch.
+    The default path makes the batch's single D2H copy at launch, into a
+    page-locked ``out``, right behind the batch's own kernels on the
+    current stream, and records ``ready`` after it: finish waits on that
+    event alone, so the next batch's copy and kernels, enqueued in between,
+    do not delay it.  The pipeline path makes its D2H at finish (``out``
+    on the device, ``ready`` None).  ``stats.compute_s`` is finalized at
     finish time with the exposed device wait, and on the card
-    ``stats.transfer_s`` with the copy stream's time between ``copies``."""
+    ``stats.transfer_s`` with the card's time between ``copies``."""
 
     analyzer: "EpochAnalyzer"
     out: Optional[torch.Tensor]
     stats: DispatchStats
     copies: Optional[tuple] = None  # (start, end) CUDA events around the H2D copies
+    ready: Optional[object] = None  # CUDA event after the D2H made at launch
 
     def finish(self) -> DelayBreakdown:
+        """The batch's summed totals: on the default path the wait on
+        ``ready`` for the D2H made at launch (no copy here), on the
+        pipeline path the D2H itself."""
         a = self.analyzer
         P, S, H = a.flat.n_pools, a.flat.n_switches, a.flat.n_hosts
         if self.out is None:
@@ -1411,7 +1430,10 @@ class PendingBatch:
             return DelayBreakdown.zero(P, S, H)
         t0 = time.perf_counter()
         with span("analyzer.finish"):
-            # the single host-boundary crossing for the whole batch
+            if self.ready is not None:
+                self.ready.synchronize()
+            # the single host-boundary crossing for the whole batch (a host
+            # tensor already when it was made at launch)
             tot = self.out.cpu().numpy().astype(np.float64)
         stats = dataclasses.replace(
             self.stats, compute_s=self.stats.compute_s + (time.perf_counter() - t0)
@@ -1469,8 +1491,10 @@ class EpochAnalyzer:
     and each stage's scan in the scan kernel; every other topology runs the
     full-plane :func:`_analyze_batch` from the dispatch cache's buffers.
     The stage/transfer/compile/compute split lands in
-    :attr:`last_dispatch`.  The default (``pipeline=False``) copies each
-    plane with a pageable ``torch.from_numpy(a).to(device)``.
+    :attr:`last_dispatch`.  The default (``pipeline=False``) stages only
+    the real events (:meth:`EventStager.stage_compact`), copies them in one
+    asynchronous copy from page-locked memory on a card, and expands them
+    into the padded planes on the device (:func:`kops.expand_events`).
     """
 
     def __init__(
@@ -1531,7 +1555,8 @@ class EpochAnalyzer:
         else:
             self._disc = self._weights = None
         self.pipeline = bool(pipeline)
-        # pinned host planes only where an asynchronous copy reads them
+        # pinned host planes only where an asynchronous copy reads them (the
+        # default path's compact slots are pinned by their device instead)
         self._stager = EventStager(np.float32, pin=self.pipeline and dev.type == "cuda")
         self._chain_plan: Optional[ChainPlan] = None
         self._aot: Optional[AotDispatchCache] = None
@@ -1659,14 +1684,25 @@ class EpochAnalyzer:
         finished).  Pipeline analyzers copy the staged planes into the
         dispatch key's device buffers on the side stream and run the packed
         chain dispatch on chain-eligible topologies, the full-plane
-        analysis otherwise; non-pipeline analyzers copy each plane with a
-        pageable ``torch.from_numpy(a).to(device)``.  Both record the
-        stage/transfer/compute split (:class:`DispatchStats`) and open the
-        ``analyzer.stage``, ``.transfer`` and ``.launch`` spans over the
-        same intervals.  ``stager`` substitutes the caller's staging buffers for
-        the analyzer's own: the shared engine passes its own, so its
-        dispatcher thread never shares mutable buffers with callers
-        analyzing on this analyzer from theirs.
+        analysis otherwise.  Non-pipeline analyzers, on either device, take
+        the compact path: :meth:`EventStager.stage_compact` writes only the
+        real events, as flat 32-bit columns with row offsets, the window
+        and the scale rows, into a slot of the stager's ring (page-locked
+        on a card); one copy moves the slot's words to the device
+        (``non_blocking`` on the current stream on a card: the engine's,
+        under the engine), fenced so the slot is not refilled before it is
+        done; :func:`kops.expand_events` (one kernel launch on a card, plain
+        PyTorch on the CPU) writes the padded planes, bitwise those of
+        :meth:`EventStager.stage`; and the totals' D2H is enqueued at once
+        behind the analysis (:class:`PendingBatch`).  Nothing on this path
+        waits for the card.  Both paths record the stage/transfer/compute
+        split (:class:`DispatchStats`, with ``h2d_bytes`` on the compact
+        path) and open the ``analyzer.stage``, ``.transfer`` and
+        ``.launch`` spans over the same intervals.  ``stager`` substitutes
+        the caller's staging buffers for the analyzer's own: the shared
+        engine passes its own, so its dispatcher thread never shares
+        mutable buffers with callers analyzing on this analyzer from
+        theirs.
         """
         P, H = self.flat.n_pools, self.flat.n_hosts
         t0 = time.perf_counter()
@@ -1680,21 +1716,32 @@ class EpochAnalyzer:
             st = stager if stager is not None else self._stager
             chain = self._chain_plan
             pack = caps = None
-            if chain is not None:
-                # the chain path never reads the qos plane
-                buf, pack, caps = st.stage_packed(
-                    traces, b_bucket, n_bucket, chain.enter_stage,
-                    len(chain.stage_order), qos=False,
+            if not self.pipeline:
+                # only the real events; a card's slot is page-locked
+                buf = st.stage_compact(
+                    traces, b_bucket, H * P, hosts=H > 1, qos=self.qos_on,
+                    device=self.device,
                 )
+                scale_buf = buf["scale"]
+                scale_buf.fill(1.0)
             else:
-                buf = st.stage(traces, b_bucket, n_bucket, qos=self.qos_on)
-            scale_buf = np.ones((b_bucket, H * P), np.float32)
+                if chain is not None:
+                    # the chain path never reads the qos plane
+                    buf, pack, caps = st.stage_packed(
+                        traces, b_bucket, n_bucket, chain.enter_stage,
+                        len(chain.stage_order), qos=False,
+                    )
+                else:
+                    buf = st.stage(traces, b_bucket, n_bucket, qos=self.qos_on)
+                scale_buf = np.ones((b_bucket, H * P), np.float32)
             for row, (_, sc) in enumerate(pairs):
                 if sc is not None:
                     scale_buf[row] = sc
             # per-epoch window length: n_windows static windows tile each span
             epoch_span = np.maximum(buf["span"], self.bw_window_ns)
             bw_window = np.maximum(epoch_span / self.n_windows, 1.0).astype(np.float32)
+            if not self.pipeline:
+                buf["window"][:] = bw_window
         stats = DispatchStats(
             devices_used=1,
             shard_rows=0,
@@ -1704,31 +1751,7 @@ class EpochAnalyzer:
         )
         t1 = time.perf_counter()
         if not self.pipeline:
-            dev = self.device
-
-            def put(a: np.ndarray) -> torch.Tensor:
-                return torch.from_numpy(a).to(dev)
-
-            with span("analyzer.transfer"):
-                planes = (
-                    put(buf["t"]),
-                    put(buf["pool"]),
-                    put(buf["bytes"]),
-                    put(buf["weight"]),
-                    put(buf["host"]) if H > 1 else None,  # one host: no plane to move
-                    put(buf["valid"]),
-                    put(bw_window),
-                    put(scale_buf),
-                    put(buf["qos"]) if self.qos_on else None,  # FIFO: no plane to move
-                )
-            t2 = time.perf_counter()
-            with span("analyzer.launch"):
-                out = self._run_batch(*planes).sum(dim=0)
-            stats = dataclasses.replace(
-                stats, stage_s=t1 - t0, transfer_s=t2 - t1,
-                compute_s=time.perf_counter() - t2,
-            )
-            return PendingBatch(self, out, stats)
+            return self._launch_compact(buf, st, n_bucket, stats, t1 - t0)
 
         # the reference's dispatch keys; a key's entry is its bucket's ring
         width = 0 if chain is None else int(sum(caps))
@@ -1771,6 +1794,59 @@ class EpochAnalyzer:
         )
         self.last_dispatch = stats
         return PendingBatch(self, out, stats, copies)
+
+    def _launch_compact(
+        self,
+        buf: Dict[str, object],
+        st: EventStager,
+        n_bucket: int,
+        stats: DispatchStats,
+        stage_s: float,
+    ) -> PendingBatch:
+        """The default path past staging: one copy of the compact slot's
+        words (asynchronous on the current stream from page-locked memory
+        on a card), the planes expanded on the device, the analysis, and
+        the totals' copy back, all enqueued without a wait."""
+        dev = self.device
+        n_words = buf["n_words"]
+        t1 = time.perf_counter()
+        with span("analyzer.transfer"):
+            words = torch.empty(n_words, dtype=torch.int32, device=dev)
+            copies = None
+            if dev.type == "cuda":
+                stream = torch.cuda.current_stream(dev)
+                copies = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+                copies[0].record(stream)
+                words.copy_(buf["words"][:n_words], non_blocking=True)
+                copies[1].record(stream)
+                st.fence([buf], copies[1])  # the slot's next fill waits for this copy
+            else:
+                words.copy_(buf["words"][:n_words])
+        t2 = time.perf_counter()
+        with span("analyzer.launch"):
+            d = EventStager.compact_columns(buf, words)
+            t, pool, nbytes, weight, host, qos, valid = kops.expand_events(
+                d["t"], d["offsets"], d["pool"], d["bytes"], d["weight"], d.get("host"),
+                d.get("qos"), n_bucket, buf["longest"],
+            )
+            out = self._run_batch(
+                t, pool, nbytes, weight, host, valid, d["window"], d["scale"], qos
+            ).sum(dim=0)
+            ready = None
+            if dev.type == "cuda":
+                # the totals' D2H now, ahead of the next dispatch's copy and
+                # kernels on this stream; finish waits on its event alone
+                host_out = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+                host_out.copy_(out, non_blocking=True)
+                ready = torch.cuda.Event()
+                ready.record(torch.cuda.current_stream(dev))
+                out = host_out
+        stats = dataclasses.replace(
+            stats, stage_s=stage_s, transfer_s=0.0 if copies else t2 - t1,
+            compute_s=time.perf_counter() - t2, h2d_bytes=4 * n_words,
+        )
+        return PendingBatch(self, out, stats, copies, ready)
 
     def warmup(
         self,

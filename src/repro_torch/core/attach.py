@@ -116,6 +116,9 @@ class SimReport:
     compute_s: float = 0.0  # exposed device compute (post-overlap)
     donated_dispatches: int = 0  # dispatches whose input planes were donated
     aot_cache_hits: int = 0  # dispatches served from the AOT executable cache
+    # bytes the dispatches copied host to device (DispatchStats.h2d_bytes);
+    # the port's own, so not in summary(), whose keys are the reference's
+    h2d_bytes: int = 0
 
     @property
     def slowdown(self) -> float:

@@ -134,9 +134,9 @@ def fold_dispatch_stats(report, stats, group_size: int) -> None:
     (:class:`~repro_torch.core.attach.SimReport`,
     :class:`~repro_torch.core.fabric.FabricReport`).  Device counts, shard
     widths and group sizes keep their maxima; padded waste keeps the worst
-    fraction seen; the timing split accumulates (coalesced dispatches report
-    zero timing on every member, so sharing never double-counts).  Callers
-    hold their report lock.
+    fraction seen; the timing split and ``h2d_bytes`` accumulate (coalesced
+    dispatches report zero timing and bytes on every member, so sharing
+    never double-counts).  Callers hold their report lock.
     """
     if stats is not None:
         report.devices_used = max(report.devices_used, stats.devices_used)
@@ -146,6 +146,7 @@ def fold_dispatch_stats(report, stats, group_size: int) -> None:
         report.transfer_s += stats.transfer_s
         report.compile_s += stats.compile_s
         report.compute_s += stats.compute_s
+        report.h2d_bytes += stats.h2d_bytes
         if stats.donated:
             report.donated_dispatches += 1
         if stats.aot_cache_hit:
@@ -497,8 +498,9 @@ class AnalysisEngine:
         if not isinstance(analyzer, EpochAnalyzer):
             return None
         dt = np.dtype(str(analyzer.dtype).replace("torch.", ""))
-        # pinned planes only where an asynchronous copy reads them, as the
-        # analyzer's own stager
+        # pinned [B, N] planes only where an asynchronous copy reads them, as
+        # the analyzer's own stager (the compact slots of the default path
+        # are pinned by the dispatch's device)
         pin = analyzer.pipeline and analyzer.device.type == "cuda"
         st = self._stagers.get((dt, pin))
         if st is None:

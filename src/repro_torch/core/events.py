@@ -268,6 +268,17 @@ def _bucket_pow2(n: int, floor: int) -> int:
     return v
 
 
+def _time_sorted(ev: "MemEvents") -> Tuple[np.ndarray, ...]:
+    """``(t, pool, bytes, weight, host, qos)`` of a non-empty trace in time
+    order: the columns themselves when the trace is monotone (one O(N)
+    check), else gathered by one stable argsort."""
+    cols = (ev.t_ns, ev.pool, ev.bytes_, ev.weight, ev.host, ev.qos)
+    if np.all(ev.t_ns[1:] >= ev.t_ns[:-1]):
+        return cols
+    order = np.argsort(ev.t_ns, kind="stable")
+    return tuple(c[order] for c in cols)
+
+
 class EventStager:
     """Reusable host staging buffers for bucketed, batched epoch analysis.
 
@@ -286,6 +297,13 @@ class EventStager:
     fence (:meth:`fence`, anything with ``synchronize()``), and the stager
     waits on it before it fills that slot's planes again.
 
+    The analyzer's default dispatch stages through :meth:`stage_compact`
+    instead: only the real events, as flat 32-bit columns in one buffer of
+    a ``slots``-deep ring sized by the batch's real events, page-locked
+    when its copy goes to a card (its ``device``: ``pin`` here covers the
+    ``[B, N]`` planes alone), and fenced by the copy that reads it.  The
+    device writes the padded planes from it.
+
     Not thread-safe: every thread that stages must own its stager.  The
     shared :class:`~repro_torch.core.engine.AnalysisEngine` owns its stagers
     (all its staging happens on its one dispatcher thread); each
@@ -294,6 +312,10 @@ class EventStager:
     """
 
     _FIELDS = ("t", "pool", "bytes", "weight", "host", "qos", "valid")
+    _COMPACT_DTYPES = {
+        "t": np.float32, "pool": np.int32, "bytes": np.float32,
+        "weight": np.float32, "host": np.int32, "qos": np.int32,
+    }
 
     # dispatches a bucket's natural caps must sit at (or below) half the
     # sticky high-water mark before the sticky caps shrink to the recent
@@ -323,6 +345,9 @@ class EventStager:
         # of the natural caps observed during that streak
         self._cap_slack: Dict[Tuple[int, int, int], int] = {}
         self._cap_peak: Dict[Tuple[int, int, int], Tuple[int, ...]] = {}
+        # the compact ring's slots, for the CPU and page-locked for a card
+        # (stage_compact)
+        self._compact: Dict[bool, List[Dict[str, object]]] = {}
         # per buffer set (by identity): the fence of its last asynchronous copy
         self._fences: Dict[int, object] = {}
 
@@ -419,6 +444,48 @@ class EventStager:
         for key in [k for k in self._pack_bufs if k[:2] == (b_bucket, width)]:
             self._ready(self._pack_bufs.pop(key))
 
+    def _hold_caps(
+        self, cap_key: tuple, natural: Tuple[int, ...], cap_floor: int
+    ) -> Tuple[Tuple[int, ...], Optional[Tuple[int, ...]]]:
+        """Sticky capacities with idle decay; returns ``(held, previous)``.
+
+        The held caps are the high-water mark of ``natural`` under
+        ``cap_key``.  Once ``CAP_DECAY_CALLS`` consecutive calls need at most
+        half the held caps, they shrink to the peak demand of that streak —
+        a one-off burst stops pinning peak-size buffers forever, while a
+        workload oscillating around the mark never shrinks (each touch of
+        the high caps resets the streak, so decay costs at most one rebuild
+        per genuine regime change)."""
+        caps = natural
+        prev = self._cap_hwm.get(cap_key)
+        if prev is not None:
+            # a stage held at the floor is idle only while its demand fits
+            # the floor: the reference's ``p <= cap_floor`` alone keeps the
+            # held caps when such a stage's demand grows, and that stage's
+            # events then overrun its segment into the next one's
+            idle = all(
+                n <= p // 2 or n <= p <= cap_floor
+                for n, p in zip(natural, prev)
+            )
+            if idle:
+                peak = self._cap_peak.get(cap_key, natural)
+                peak = tuple(max(a, b) for a, b in zip(peak, natural))
+                streak = self._cap_slack.get(cap_key, 0) + 1
+                if streak >= self.CAP_DECAY_CALLS:
+                    caps = tuple(max(c, cap_floor) for c in peak)
+                    self._cap_slack[cap_key] = 0
+                    self._cap_peak.pop(cap_key, None)
+                else:
+                    caps = prev
+                    self._cap_slack[cap_key] = streak
+                    self._cap_peak[cap_key] = peak
+            else:
+                caps = tuple(max(c, p) for c, p in zip(natural, prev))
+                self._cap_slack[cap_key] = 0
+                self._cap_peak.pop(cap_key, None)
+        self._cap_hwm[cap_key] = caps
+        return caps, prev
+
     def stage_packed(
         self,
         traces: Sequence["MemEvents"],
@@ -469,42 +536,8 @@ class EventStager:
         # sticky caps: hold the high-water mark within a (batch, length)
         # bucket, so the packed width — and with it the dispatch-cache key —
         # stabilizes after the first few dispatches instead of flapping with
-        # each epoch's depth distribution (zero steady-state rebuilds).
-        # Idle decay: once CAP_DECAY_CALLS consecutive calls need at most
-        # half the held caps, shrink to the peak demand of that streak —
-        # a one-off burst stops pinning peak-size planes forever, while a
-        # workload oscillating around the mark never shrinks (each touch of
-        # the high caps resets the streak, so decay costs at most one
-        # rebuild per genuine regime change.)
-        cap_key = (b_bucket, n_bucket, n_stages)
-        natural = caps
-        prev = self._cap_hwm.get(cap_key)
-        if prev is not None:
-            # a stage held at the floor is idle only while its demand fits
-            # the floor: the reference's ``p <= cap_floor`` alone keeps the
-            # held caps when such a stage's demand grows, and that stage's
-            # events then overrun its segment into the next one's
-            idle = all(
-                n <= p // 2 or n <= p <= cap_floor
-                for n, p in zip(natural, prev)
-            )
-            if idle:
-                peak = self._cap_peak.get(cap_key, natural)
-                peak = tuple(max(a, b) for a, b in zip(peak, natural))
-                streak = self._cap_slack.get(cap_key, 0) + 1
-                if streak >= self.CAP_DECAY_CALLS:
-                    caps = tuple(max(c, cap_floor) for c in peak)
-                    self._cap_slack[cap_key] = 0
-                    self._cap_peak.pop(cap_key, None)
-                else:
-                    caps = prev
-                    self._cap_slack[cap_key] = streak
-                    self._cap_peak[cap_key] = peak
-            else:
-                caps = tuple(max(c, p) for c, p in zip(natural, prev))
-                self._cap_slack[cap_key] = 0
-                self._cap_peak.pop(cap_key, None)
-        self._cap_hwm[cap_key] = caps
+        # each epoch's depth distribution (zero steady-state rebuilds)
+        caps, prev = self._hold_caps((b_bucket, n_bucket, n_stages), caps, cap_floor)
         width = int(sum(caps))
         if prev is not None and sum(prev) != width:
             self._drop_pack_width(b_bucket, int(sum(prev)))
@@ -534,16 +567,7 @@ class EventStager:
             ev = traces[row] if row < len(traces) else None
             n = ev.n if ev is not None else 0
             if n:
-                if np.all(ev.t_ns[1:] >= ev.t_ns[:-1]):
-                    t, pool, nbytes, weight, host, qos = (
-                        ev.t_ns, ev.pool, ev.bytes_, ev.weight, ev.host, ev.qos
-                    )
-                else:
-                    order = np.argsort(ev.t_ns, kind="stable")
-                    t, pool, nbytes, weight, host, qos = (
-                        ev.t_ns[order], ev.pool[order], ev.bytes_[order],
-                        ev.weight[order], ev.host[order], ev.qos[order],
-                    )
+                t, pool, nbytes, weight, host, qos = _time_sorted(ev)
                 buf["t"][row, :n] = t
                 buf["pool"][row, :n] = pool
                 buf["bytes"][row, :n] = nbytes
@@ -563,6 +587,113 @@ class EventStager:
             if with_qos:
                 buf["qos"][row, n:] = 0
             buf["valid"][row, n:] = False
+
+    def _compact_slot(self, words: int, pin: bool) -> Dict[str, object]:
+        """The next slot of the compact ring (``slots`` buffers of ``words``
+        32-bit words, page-locked with ``pin``), after its last copy.  A
+        new size replaces every slot at once, each after its last copy, so
+        a ring is allocated whole, in the dispatch that sizes it."""
+        ring = self._compact.get(pin)
+        if ring is None or ring[0]["words"].numel() != words:
+            for old in ring or ():
+                self._ready(old)
+            ring = self._compact[pin] = [
+                {"words": torch.empty(words, dtype=torch.int32, pin_memory=pin)}
+                for _ in range(self.slots)
+            ]
+        turn = (self._turn.get(("compact", pin), self.slots - 1) + 1) % self.slots
+        self._turn[("compact", pin)] = turn
+        return self._ready(ring[turn])
+
+    def stage_compact(
+        self,
+        traces: Sequence["MemEvents"],
+        b_bucket: int,
+        scale_width: int,
+        hosts: bool = True,
+        qos: bool = True,
+        device: object = "cpu",
+    ) -> Dict[str, object]:
+        """Stage only the real events, in row order, into one flat buffer
+        of 32-bit words: the default dispatch's compact staging.
+
+        Returns the ring slot, filled in place: ``words`` (the slot's int32
+        torch tensor, page-locked when ``device`` is a card, which its copy
+        then reads asynchronously; its first ``n_words`` are this batch's)
+        and numpy views into it — ``offsets`` ``[b_bucket +
+        1]`` (row r's events are ``offsets[r]:offsets[r + 1]``; rows beyond
+        ``len(traces)`` are empty), ``window`` ``[b_bucket]`` and ``scale``
+        ``[b_bucket, scale_width]`` (for the caller to fill), then the
+        ``[E]`` columns ``t``, ``pool``, ``bytes``, ``weight``, ``host``
+        (with ``hosts``) and ``qos`` (with ``qos``) in that order — plus
+        ``layout`` (each view's ``(start, stop)`` in words), ``longest``
+        (the longest row's events) and ``span`` (a host-only f64 row, as
+        :meth:`stage` gives it).  :meth:`compact_columns` views a copy of
+        the words as these sections.  Each row is
+        delivered time-sorted under :meth:`stage`'s contract, and the
+        values are :meth:`stage`'s, bit for bit: expanding the columns to
+        ``[b_bucket, n_bucket]`` with zeros in every pad slot
+        (:func:`repro_torch.kernels.ops.expand_events`) gives its planes.
+        No pad slot is written here.
+
+        The slots form a ring of ``slots`` buffers sized by a power-of-two
+        bucket of the batch's real events, held and decayed as
+        :meth:`stage_packed` holds its caps; a caller that copies a slot
+        asynchronously fences it (:meth:`fence`), and the slot's next fill
+        waits on that fence."""
+        if len(traces) > b_bucket:
+            raise ValueError(f"{len(traces)} traces exceed batch bucket {b_bucket}")
+        if self.time_dtype != np.float32:
+            raise ValueError(f"compact staging packs 32-bit words, not {self.time_dtype}")
+        n_events = sum(ev.n for ev in traces)
+        if n_events >= 2**31:
+            raise ValueError(f"{n_events} events exceed the int32 row offsets")
+        columns = ("t", "pool", "bytes", "weight") + ("host",) * hosts + ("qos",) * qos
+        sections = [
+            ("offsets", np.int32, (b_bucket + 1,)),
+            ("window", np.float32, (b_bucket,)),
+            ("scale", np.float32, (b_bucket, scale_width)),
+        ]
+        header = sum(int(np.prod(shape)) for _, _, shape in sections)
+        sections += [(c, self._COMPACT_DTYPES[c], (n_events,)) for c in columns]
+        need = len(columns) * _bucket_pow2(n_events, 4096) + _bucket_pow2(header, 256)
+        pin = torch.device(device).type == "cuda"
+        (held,), _ = self._hold_caps(("compact", pin), (need,), 0)
+        slot = self._compact_slot(held, pin)
+        words = slot["words"].numpy()
+        layout, start = {}, 0
+        for name, dtype, shape in sections:
+            stop = start + int(np.prod(shape))
+            layout[name] = (start, stop)
+            slot[name] = words[start:stop].view(dtype).reshape(shape)
+            start = stop
+        span = np.zeros((b_bucket,), np.float64)
+        offsets = slot["offsets"]
+        offsets[0] = pos = 0
+        for row, ev in enumerate(traces):
+            if ev.n:
+                cols = dict(zip(self._FIELDS, _time_sorted(ev)))
+                for c in columns:
+                    slot[c][pos : pos + ev.n] = cols[c]
+                pos += ev.n
+                span[row] = float(cols["t"][-1]) + 1.0
+            offsets[row + 1] = pos
+        offsets[len(traces) + 1 :] = pos
+        longest = max((ev.n for ev in traces), default=0)
+        slot.update(span=span, layout=layout, n_words=start, longest=longest)
+        return slot
+
+    @staticmethod
+    def compact_columns(slot: Dict[str, object], words: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """The sections of a :meth:`stage_compact` slot as views of
+        ``words``, a copy of its first ``n_words`` (on any device): each
+        section of ``layout`` in its own dtype and shape."""
+        out = {}
+        for name, (a, b) in slot["layout"].items():
+            view = slot[name]
+            dtype = torch.from_numpy(np.zeros(0, view.dtype)).dtype
+            out[name] = words[a:b].view(dtype).view(view.shape)
+        return out
 
     def stack_buffers(
         self, k_bucket: int, b_bucket: int, n_bucket: int

@@ -158,6 +158,9 @@ class FabricReport:
     compute_s: float = 0.0
     donated_dispatches: int = 0
     aot_cache_hits: int = 0
+    # bytes the dispatches copied host to device (DispatchStats.h2d_bytes);
+    # the port's own, so not in summary(), whose keys are the reference's
+    h2d_bytes: int = 0
     qos_classes: int = 1
     per_pool_latency_ns: Optional[np.ndarray] = None
     per_switch_congestion_ns: Optional[np.ndarray] = None

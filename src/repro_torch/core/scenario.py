@@ -127,6 +127,10 @@ class _PhaseClock:
     def seconds(self) -> List[float]:
         """Seconds between consecutive marks."""
         if self.cuda:
+            # the last mark follows the result's copy to the host, so the
+            # card may not have reached it yet; the earlier marks precede it
+            # on the stream
+            self.marks[-1].synchronize()
             return [
                 ns_to_s(ms_to_ns(a.elapsed_time(b)))
                 for a, b in zip(self.marks, self.marks[1:])

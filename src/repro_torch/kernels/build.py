@@ -41,6 +41,7 @@ SOURCES = {
     "qos_cascade": CSRC / "qos_cascade.cu",
     "ssd_scan": CSRC / "ssd_scan.cu",
     "flash_attention": CSRC / "flash_attention.cu",
+    "expand_events": CSRC / "expand_events.cu",
 }
 HEADERS = (CSRC / "cluster_cascade.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"

@@ -3,11 +3,14 @@
 A CPU tensor runs the plain PyTorch version (:mod:`.ref`); a CUDA tensor
 runs the hand-written kernel or raises.  There is no fallback from one to
 the other.  ``plain_launches`` counts the plain path's calls here, cascades,
-chain cascade, queue, SSD scan and attention alike; the kernel path counts its launches
+chain cascade, queue, SSD scan and attention alike, but not the staging's
+expansion (:func:`expand_events`), which every default dispatch runs beside
+its cascade; the kernel path counts its launches
 in :mod:`repro_torch.kernels.congestion` (``launches``, ``hosts_launches``,
 ``scan_launches``, ``qos_launches``, ``qos_hosts_launches``),
-:mod:`repro_torch.kernels.ssd_scan` (``ssd_launches``) and
-:mod:`repro_torch.kernels.flash_attention` (``flash_launches``).
+:mod:`repro_torch.kernels.ssd_scan` (``ssd_launches``),
+:mod:`repro_torch.kernels.flash_attention` (``flash_launches``) and
+:mod:`repro_torch.kernels.expand` (``expand_launches``).
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import torch
 
 from ..annotations import axes
 from . import congestion as _kernel
+from . import expand as _expand
 from . import flash_attention as _flash
 from . import ref
 from . import ssd_scan as _ssd
@@ -27,6 +31,7 @@ __all__ = [
     "chain_cascade",
     "congestion_cascade",
     "congestion_queue",
+    "expand_events",
     "plain_launches",
     "qos_congestion_cascade",
     "ssd",
@@ -105,6 +110,33 @@ def chain_cascade(
             t_pack, idx_pack, stts, seg_caps, scan=_kernel.congestion_scan
         )
     raise ValueError(f"no chain_cascade for tensors on {t_pack.device}")
+
+
+@axes("E", offsets="R", pool="E", nbytes="E", weight="E", host="E", qos="E")
+def expand_events(
+    t: torch.Tensor,  # [E] f32, the rows' events in row order
+    offsets: torch.Tensor,  # [B + 1] i32, row r's events at offsets[r]:offsets[r + 1]
+    pool: torch.Tensor,  # [E] i32
+    nbytes: torch.Tensor,  # [E] f32
+    weight: torch.Tensor,  # [E] f32
+    host: Optional[torch.Tensor],  # [E] i32, or None: no host plane
+    qos: Optional[torch.Tensor],  # [E] i32, or None: no qos plane
+    n_bucket: int,  # the planes' row length
+    longest: int,  # the longest row's events, as the caller's host offsets give it
+):
+    """The analyzer's padded ``[B, n_bucket]`` planes ``(t, pool, bytes,
+    weight, host, qos, valid)`` from the compact staging's columns; see
+    :func:`repro_torch.kernels.ref.expand_events`.  On the card one launch
+    of ``csrc/expand_events.cu``.  Both raise ``ValueError`` when
+    ``longest`` exceeds ``n_bucket``; ``longest`` is the caller's to read
+    from the offsets it staged, as the offsets are its to keep consistent."""
+    if t.device.type == "cpu":
+        return ref.expand_events(t, offsets, pool, nbytes, weight, host, qos, n_bucket, longest)
+    if t.device.type == "cuda":
+        return _expand.expand_events(
+            t, offsets, pool, nbytes, weight, host, qos, n_bucket, longest
+        )
+    raise ValueError(f"no expand_events for tensors on {t.device}")
 
 
 @axes("B,N", mask="B,N")

@@ -47,6 +47,8 @@ __all__ = [
     "chain_cascade",
     "congestion_scan",
     "congestion_scan_tiled",
+    "check_expand_rows",
+    "expand_events",
     "merge_sorted_runs",
     "mha_attention",
     "qos_cascade_dyn",
@@ -323,6 +325,49 @@ def staging_sort(
         arrs = tuple(torch.cat(ps, dim=-1) for ps in pieces)
         runs = nxt
     return arrs
+
+
+def check_expand_rows(longest: int, n_bucket: int) -> None:
+    """Refuse an expansion whose longest row does not fit the planes: the
+    card reads the offsets only on the card, so its wrapper and the plain
+    version both take the longest row from the caller's host offsets and
+    raise the same ``ValueError`` here."""
+    if int(longest) > int(n_bucket):
+        raise ValueError(f"a row of {int(longest)} events exceeds the planes' {int(n_bucket)} slots")
+
+
+@axes("E", offsets="R", pool="E", nbytes="E", weight="E", host="E", qos="E")
+def expand_events(
+    t: torch.Tensor,  # [E] f32, the rows' events in row order
+    offsets: torch.Tensor,  # [B + 1] i32, row r's events at offsets[r]:offsets[r + 1]
+    pool: torch.Tensor,  # [E] i32
+    nbytes: torch.Tensor,  # [E] f32
+    weight: torch.Tensor,  # [E] f32
+    host: Optional[torch.Tensor],  # [E] i32, or None: no host plane
+    qos: Optional[torch.Tensor],  # [E] i32, or None: no qos plane
+    n_bucket: int,  # the planes' row length
+    longest: int,  # the longest row's events, as the caller's host offsets give it
+) -> Tuple[Optional[torch.Tensor], ...]:
+    """The analyzer's padded planes from the compact staging: ``(t, pool,
+    bytes, weight, host, qos, valid)``, each ``[B, n_bucket]`` (host and
+    qos None when not given).  Row r holds its events in its prefix and
+    ``valid`` marks them; every other slot is zero (False), as the host
+    fill (``EventStager.stage``) leaves it.  ``longest`` above ``n_bucket``
+    raises ``ValueError`` before any work, as the kernel's wrapper does
+    (:func:`check_expand_rows`).  The compact path has no reference
+    counterpart: the reference stages these planes on the host."""
+    check_expand_rows(longest, n_bucket)
+    counts = (offsets[1:] - offsets[:-1]).to(torch.int64)
+    valid = torch.arange(int(n_bucket), device=t.device)[None, :] < counts[:, None]
+
+    def plane(x: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+        if x is None:
+            return None
+        out = torch.zeros(valid.shape, dtype=x.dtype, device=x.device)
+        out[valid] = x  # row-major: each row's prefix, the rows in order
+        return out
+
+    return tuple(plane(x) for x in (t, pool, nbytes, weight, host, qos)) + (valid,)
 
 
 @axes("B,W", idx_pack="B,W")

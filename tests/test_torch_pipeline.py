@@ -581,7 +581,7 @@ def test_dispatch_stats_timing_fields_filled():
     assert st.rows == 1 and st.devices_used == 1
     pipe.analyze_batch(traces)
     assert pipe.last_dispatch.compile_s == 0.0 and pipe.last_dispatch.aot_cache_hit
-    # the default path times its stage, pageable copies and compute; it
+    # the default path times its stage, its compact copy and compute; it
     # builds nothing
     base = T.EpochAnalyzer(flat, n_windows=32, device="cpu")
     base.analyze_batch(traces)
@@ -670,7 +670,7 @@ def test_cxlmemsim_pipeline_matches_reference_and_default_path(variant):
     if variant == "plain":  # shapes are fixed: every dispatch hits the warm entry
         assert got.aot_cache_hits == 3 and got.compile_s == 0.0
     assert got.stage_s > 0 and got.transfer_s > 0
-    # the default path times its pageable copies too, and builds nothing
+    # the default path times its compact copy too, and builds nothing
     assert base.transfer_s > 0 and base.compile_s == 0.0
 
 
